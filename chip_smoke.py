@@ -13,11 +13,20 @@ Phases (each raises on failure, so the process exits non-zero):
      (median of 7 after a warm-up), and the bound of each from the real
      node count and the steps this run needed;
   3. the resident table's three row scatters (scatter_set, overlay_add,
-     feas_scatter) against their plain versions on the card at the main
-     path's table (n_pad 16,384, D 4) with m = 10, 200 and 4,096 rows:
-     exactly equal, inputs left unchanged (the scatters are out of place);
-     CUDA-event medians of 7 after a warm-up for the kernel, the plain
-     version and the library call (index_copy / index_add);
+     feas_scatter) against their plain versions and the library call
+     (index_copy / index_add) on the card at the main path's table (n_pad
+     16,384, D 4) with m = 10, 200 and 4,096 rows, the row values on the
+     card and on the host: exactly equal, one launch a call, inputs left
+     unchanged (the scatters are out of place); CUDA-event medians of 51
+     after a warm-up for the wrapper (values on the card, and on the
+     host), the plain version, the library call given idx on the card and
+     given it on the host as the wrappers are, and (kernel_ms) the launch
+     alone on inputs already on the card, timed as 20 launches replayed
+     from one CUDA graph; then overlay_add and feas_scatter at the fused
+     kernels' edge shapes (one row, every tile's first and last row, an
+     n_pad of 10,001, every row, and columns 4 bytes off 16-byte
+     alignment with rows out of order), and both wrappers once under
+     torch.cuda.set_sync_debug_mode("error");
   4. the main path: the port's Harness on the card with 10,000 mock nodes
      runs a service job (chunked kernel), a count-10,000 batch job (K-way
      kernel) and a spread + affinity job (scan kernel); every alloc placed,
@@ -156,6 +165,11 @@ BATCHED_MAIN = (("chunked_batched", [10] * 8, ""),
 # the resident table at the main path's size: 10,000 nodes pad to 16,384
 TABLE_N_PAD = 16_384
 TABLE_D = 4
+# the fused overlay_add / feas_scatter kernels' tiles (table_kernels.cu):
+# 256 rows, and 4,096 mask bytes
+TABLE_TILE = 256
+FEAS_TILE = 4096
+TABLE_REPS = 51
 TABLE_MS = (10, 200, 4096)
 # the row count each scatter meets on the steady-state path, as near as
 # TABLE_MS comes: a plan's rows (scatter_set, overlay_add) and a CSI
@@ -396,10 +410,184 @@ def kernel_phase(device):
     return rows
 
 
+def graph_ms(fn, launches=20, reps=7):
+    """Device time of one call of `fn`: `launches` calls captured in one
+    CUDA graph and replayed, so no host work lies in the timed window;
+    the median over `reps` replays, divided by `launches`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def _launch_alone(lib, name, out, col, idx, vals, n, m, d):
+    """One launch of a table kernel's C entry point on inputs already on
+    the card (sorted rows), with no wrapper around it, on the current
+    stream: the kernel_ms column. Not counted in LAUNCHES (a measurement,
+    not the main path)."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "scatter_set":
+        (o_used, o_ports), (v_used, v_ports) = out, vals
+        rc = lib.nomad_scatter_set(o_used.data_ptr(), o_ports.data_ptr(),
+                                   idx.data_ptr(), v_used.data_ptr(),
+                                   v_ports.data_ptr(), m, d, stream)
+    elif name == "overlay_add":
+        rc = lib.nomad_overlay_add(col.data_ptr(), out.data_ptr(),
+                                   idx.data_ptr(), vals.data_ptr(), None,
+                                   n, m, d, stream)
+    else:
+        rc = lib.nomad_feas_scatter(col.data_ptr(), out.data_ptr(),
+                                    idx.data_ptr(), vals.data_ptr(), None,
+                                    n, m, stream)
+    if rc != 0:
+        fail(f"{name}: launch failed with CUDA error {rc}")
+
+
+def _held_scatter(name, label, run, plain, lib, inputs):
+    """One wrapper call: exactly one launch, equal bit for bit to its plain
+    version and to the library call, its inputs left as they were."""
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    keep = [x.clone() for x in inputs]
+    before = kernels.LAUNCHES[name]
+    got = run()
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES[name] != before + 1:
+        fail(f"{name} {label}: {kernels.LAUNCHES[name] - before} launches "
+             "in one call, expected 1")
+    got, want, libv = [x if isinstance(x, tuple) else (x,)
+                       for x in (got, plain(), lib())]
+    for g, w, li in zip(got, want, libv):
+        if not (torch.equal(g, w) and torch.equal(g, li)):
+            bad = (g != w).nonzero()[:5].tolist()
+            fail(f"{name} {label}: kernel differs from its plain version "
+                 f"or the library call at {bad}")
+    for x, k in zip(inputs, keep):
+        if not torch.equal(x, k):
+            fail(f"{name} {label}: the scatter wrote its input")
+
+
+def table_edge_checks(rng):
+    """overlay_add and feas_scatter at the fused kernels' edge shapes
+    (tiles of TABLE_TILE rows and FEAS_TILE mask bytes): one row; every
+    tile's first and last row of the main table (row n_pad - 1 among
+    them); an n_pad of 10,001 (not a multiple of 16, so a ragged mask
+    tail); every row; and a column and a mask 4 bytes off 16-byte
+    alignment (the scalar paths), with rows out of order. Row values on
+    the host (the main path's case) and on the card. Returns the count of
+    calls held."""
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    d, n_main = TABLE_D, TABLE_N_PAD
+    ends = sorted({r for t in range(0, n_main, TABLE_TILE)
+                   for r in (t, t + TABLE_TILE - 1)})
+    ragged = np.unique(np.concatenate([
+        [0, FEAS_TILE - 1, FEAS_TILE, 9_999, 10_000],
+        rng.choice(10_001, 300, replace=False)]))
+    cases = [("m 1", n_main, np.array([7_777]), False),
+             ("tile ends", n_main, np.array(ends), False),
+             ("n_pad 10,001", 10_001, ragged, False),
+             ("every row", 1_000, np.arange(1_000), False),
+             ("4 bytes off alignment, rows out of order", 10_001,
+              rng.permutation(ragged), True)]
+    held = 0
+    for label, n, rows, offset in cases:
+        m = rows.size
+        used = torch.from_numpy(
+            rng.uniform(0, 8000, (n, d)).astype(np.float32)).to(dev)
+        mask = torch.from_numpy(rng.random(n) > 0.3).to(dev)
+        if offset:
+            flat = torch.empty(n * d + 1, dtype=torch.float32, device=dev)
+            flat[1:].copy_(used.view(-1))
+            used = flat[1:].view(n, d)
+            raw = torch.empty(n + 4, dtype=torch.bool, device=dev)
+            raw[4:].copy_(mask)
+            mask = raw[4:]
+            if used.data_ptr() % 16 != 4 or mask.data_ptr() % 16 != 4:
+                fail("the offset columns are not 4 bytes off alignment")
+        idx = torch.from_numpy(rows.astype(np.int32))
+        idx_dev = idx.to(dev, torch.long)
+        vals = torch.from_numpy(
+            rng.uniform(-500, 500, (m, d)).astype(np.float32))
+        bits = torch.from_numpy(rng.random(m) > 0.5)
+        vd, bd = vals.to(dev), bits.to(dev)
+        for on, v, b in (("host", vals, bits), ("card", vd, bd)):
+            _held_scatter(
+                "overlay_add", f"{label} (n_pad {n}, m {m}, values on the "
+                f"{on})", lambda: kernels.overlay_add(used, idx, v),
+                lambda: kernels.overlay_add_plain(used, idx, v),
+                lambda: used.index_add(0, idx_dev, vd), [used, v])
+            _held_scatter(
+                "feas_scatter", f"{label} (n_pad {n}, m {m}, values on the "
+                f"{on})", lambda: kernels.feas_scatter(mask, idx, b),
+                lambda: kernels.feas_scatter_plain(mask, idx, b),
+                lambda: mask.index_copy(0, idx_dev, bd), [mask, b])
+            held += 2
+    print(f"table edge shapes: overlay_add and feas_scatter equal to their "
+          f"plain versions and the library call in {held} calls "
+          f"({', '.join(c[0] for c in cases)}; values on the host and on "
+          f"the card)", flush=True)
+    return held
+
+
+def table_sync_check(rng):
+    """Both fused wrappers called once as the main path calls them (host
+    rows, host values) under torch.cuda.set_sync_debug_mode("error"):
+    any synchronising operation in them raises."""
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    n, d, m = TABLE_N_PAD, TABLE_D, TABLE_MAIN_M["overlay_add"]
+    used = torch.from_numpy(
+        rng.uniform(0, 8000, (n, d)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(n) > 0.3).to(dev)
+    idx = torch.from_numpy(np.sort(
+        rng.choice(MAIN_NODES, m, replace=False)).astype(np.int32))
+    vals = torch.from_numpy(rng.uniform(-500, 500, (m, d)).astype(np.float32))
+    bits = torch.from_numpy(rng.random(m) > 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_u = kernels.overlay_add(used, idx, vals)
+        got_m = kernels.feas_scatter(mask, idx, bits)
+    except RuntimeError as e:
+        fail(f"a fused scatter wrapper synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not (torch.equal(got_u, kernels.overlay_add_plain(used, idx, vals))
+            and torch.equal(got_m,
+                            kernels.feas_scatter_plain(mask, idx, bits))):
+        fail("the wrappers called under sync debug mode differ from their "
+             "plain versions")
+    print("table sync check: overlay_add and feas_scatter ran under "
+          "set_sync_debug_mode('error') without raising", flush=True)
+
+
 def table_kernel_phase():
     """The three row scatters against their plain versions on the card,
     exactly, at the main path's table and m = TABLE_MS rows; timed with
-    the plain version and the library call."""
+    the plain version and the library call; then the fused kernels' edge
+    shapes and the sync check."""
     import torch
     from nomad_tpu_torch.ops import kernels
     dev = torch.device("cuda")
@@ -410,73 +598,100 @@ def table_kernel_phase():
     ports = torch.from_numpy(
         rng.integers(0, 12000, n_pad).astype(np.float32)).to(dev)
     mask = torch.from_numpy(rng.random(n_pad) > 0.3).to(dev)
-    inputs = [used.clone(), ports.clone(), mask.clone()]
+    lib = kernels.load_library()
     rows = []
     for m in TABLE_MS:
         # host rows, as the main path hands them to the wrappers
         idx = torch.from_numpy(np.sort(
             rng.choice(MAIN_NODES, m, replace=False)).astype(np.int32))
         idx_dev = idx.to(dev, torch.long)
+        idx32 = idx.to(dev)
         vals = torch.from_numpy(
             rng.uniform(-500, 500, (m, d)).astype(np.float32)).to(dev)
         prow = torch.from_numpy(
             rng.integers(0, 12000, m).astype(np.float32)).to(dev)
         bits = torch.from_numpy(rng.random(m) > 0.5).to(dev)
+        # the same values on the host, as the main path's callers hand them
+        vals_h, prow_h, bits_h = vals.cpu(), prow.cpu(), bits.cpu()
         cases = {
             "scatter_set": (
                 lambda: kernels.scatter_set(used, ports, idx, vals, prow),
+                lambda: kernels.scatter_set(used, ports, idx, vals_h, prow_h),
                 lambda: kernels.scatter_set_plain(used, ports, idx, vals,
                                                   prow),
                 # two calls: the function updates two columns
                 lambda: (used.index_copy(0, idx_dev, vals),
                          ports.index_copy(0, idx_dev, prow)),
+                lambda: (lambda i: (used.index_copy(0, i, vals),
+                                    ports.index_copy(0, i, prow)))(
+                    idx.to(dev, torch.long)),
+                ((used.clone(), ports.clone()), None, (vals, prow)),
+                [used, ports],
                 2 * n_pad * (d + 1) * 4 + m * (4 + d * 4 + 4), 0),
             "overlay_add": (
                 lambda: kernels.overlay_add(used, idx, vals),
+                lambda: kernels.overlay_add(used, idx, vals_h),
                 lambda: kernels.overlay_add_plain(used, idx, vals),
                 lambda: used.index_add(0, idx_dev, vals),
+                lambda: used.index_add(0, idx.to(dev, torch.long), vals),
+                (torch.empty_like(used), used, vals), [used],
                 2 * n_pad * d * 4 + m * (4 + d * 4), m * d),
             "feas_scatter": (
                 lambda: kernels.feas_scatter(mask, idx, bits),
+                lambda: kernels.feas_scatter(mask, idx, bits_h),
                 lambda: kernels.feas_scatter_plain(mask, idx, bits),
                 lambda: mask.index_copy(0, idx_dev, bits),
+                lambda: mask.index_copy(0, idx.to(dev, torch.long), bits),
+                (torch.empty_like(mask).view(torch.uint8),
+                 mask.view(torch.uint8), bits.view(torch.uint8)), [mask],
                 2 * n_pad + m * (4 + 1), 0),
         }
-        for name, (run, plain, lib, nbytes, ops) in cases.items():
-            before = kernels.LAUNCHES[name]
-            got = run()
+        for name, (run, run_host, plain, library, library_host, alone,
+                   inputs, nbytes, ops) in cases.items():
+            _held_scatter(name, f"m={m}", run, plain, library, inputs)
+            _held_scatter(name, f"m={m}, values on the host", run_host,
+                          plain, library, inputs)
+            out, col, kvals = alone
+            _launch_alone(lib, name, out, col, idx32, kvals, n_pad, m, d)
             torch.cuda.synchronize()
-            if kernels.LAUNCHES[name] != before + 1:
-                fail(f"{name} m={m}: the wrapper did not launch its kernel")
             want = plain()
-            libv = lib()
-            got, want, libv = [x if isinstance(x, tuple) else (x,)
-                               for x in (got, want, libv)]
-            for g, w, li in zip(got, want, libv):
-                if not (torch.equal(g, w) and torch.equal(g, li)):
-                    bad = (g != w).nonzero()[:5].tolist()
-                    fail(f"{name} m={m}: kernel differs from its plain "
-                         f"version at {bad}")
-            for x, keep in zip((used, ports, mask), inputs):
-                if not torch.equal(x, keep):
-                    fail(f"{name} m={m}: the scatter wrote its input")
-            ms = cuda_ms(run)
-            plain_ms = cuda_ms(plain)
-            library_ms = cuda_ms(lib)
+            for g, w in zip(out if isinstance(out, tuple) else (out,),
+                            want if isinstance(want, tuple) else (want,)):
+                if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                    fail(f"{name} m={m}: the launch alone differs from the "
+                         "plain version")
+            # the calls are tens of microseconds of host work each, so
+            # their medians take TABLE_REPS calls
+            ms = cuda_ms(run, TABLE_REPS)
+            host_vals_ms = cuda_ms(run_host, TABLE_REPS)
+            kernel_ms = graph_ms(lambda: _launch_alone(
+                lib, name, out, col, idx32, kvals, n_pad, m, d))
+            plain_ms = cuda_ms(plain, TABLE_REPS)
+            library_ms = cuda_ms(library, TABLE_REPS)
+            library_graph_ms = graph_ms(library)
+            library_host_ms = cuda_ms(library_host, TABLE_REPS)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / FP32_OPS_PER_S * 1e3
             rows.append(dict(
                 kind=name, n_pad=n_pad, m=m, main=m == TABLE_MAIN_M[name],
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                max_abs_err=0.0, ms=ms, host_vals_ms=host_vals_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_host_ms=library_host_ms,
+                library_graph_ms=library_graph_ms,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_counts="the n_pad-row column read and written once "
-                             "(the out-of-place copy) plus the m indices "
-                             "and row values read"))
+                             "plus the m indices and row values read"))
             print(f"kernel {name} n_pad={n_pad} m={m}: equal to its plain "
-                  f"version and the library call; {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                  f"version and the library call; wrapper {ms:.4f} ms "
+                  f"(values on the host {host_vals_ms:.4f}), launch alone "
+                  f"{kernel_ms:.4f} ms (graph replay), plain {plain_ms:.4f} "
+                  f"ms, library {library_ms:.4f} ms (idx from the host "
+                  f"{library_host_ms:.4f}; graph replay "
+                  f"{library_graph_ms:.4f}), bound "
                   f"{max(t_bytes, t_ops):.6f} ms", flush=True)
+    table_edge_checks(rng)
+    table_sync_check(rng)
     return rows
 
 
@@ -1440,10 +1655,14 @@ def main():
             replaces=REPLACES[name], launches=steady_launches[name],
             max_abs_err=0.0, ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-            library_ms=top["library_ms"],
+            library_ms=top["library_ms"], kernel_ms=top["kernel_ms"],
+            host_vals_ms=top["host_vals_ms"],
+            library_host_ms=top["library_host_ms"],
             shapes=[{k: r[k] for k in (
-                "n_pad", "m", "main", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "bound_counts")} for r in mine]))
+                "n_pad", "m", "main", "ms", "host_vals_ms", "kernel_ms",
+                "plain_ms", "library_ms", "library_host_ms",
+                "library_graph_ms", "bound_ms", "bound_by",
+                "bound_counts")} for r in mine]))
     for name in BATCHED:
         mine = [r for r in batched_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])

@@ -685,7 +685,8 @@ def scan_batched_sharded_plain(*, k_steps: int, spread_alg: bool,
 # The three row scatters are out of place, as JAX's `.at[].set/.add`: each
 # returns new tensors and leaves its inputs as they were. `idx` holds table
 # rows as a CPU int32 tensor (the wrappers check it on the host before a
-# launch); the row values may lie on the CPU or on the table's device.
+# launch; overlay_add's and feas_scatter's rows must be distinct, in any
+# order); the row values may lie on the CPU or on the table's device.
 
 def scatter_set_plain(used, ports, idx, used_rows, port_rows):
     """(used with used_rows set at idx, ports with port_rows set at idx)."""
@@ -702,7 +703,7 @@ def overlay_add_plain(used, idx, vals):
 
 
 def feas_scatter_plain(mask, idx, vals):
-    """mask with vals set at idx."""
+    """mask with vals set at the (distinct) rows idx."""
     dev = mask.device
     return mask.clone().index_copy_(0, idx.to(dev, torch.long), vals.to(dev))
 
@@ -722,6 +723,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIB = None
 _LIB_LOCK = make_lock()
+_CPU = torch.device("cpu")
 BUILD_INFO: Dict[str, object] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -737,8 +739,8 @@ _ARGTYPES = {
     + [_I, _P, _P, _P],
     "nomad_select_scan_batched": [_P] * 29 + [_I] * 7 + [_P] * 7 + [_P] * 14,
     "nomad_scatter_set": [_P] * 5 + [_I, _I, _P],
-    "nomad_overlay_add": [_P] * 3 + [_I, _I, _P],
-    "nomad_feas_scatter": [_P] * 3 + [_I, _P],
+    "nomad_overlay_add": [_P] * 5 + [_I] * 3 + [_P],
+    "nomad_feas_scatter": [_P] * 5 + [_I] * 2 + [_P],
     "nomad_select_scan_sharded": [_P] * 29 + [_I] * 7 + [_F] * 6 + [_P] * 13
     + _XCHG,
     "nomad_select_kway_sharded": [_P] * 13 + [_I] * 5 + [_F] * 3
@@ -906,8 +908,12 @@ def _at(tensors, g: int = 0):
     return [t[g:].data_ptr() for t in tensors]
 
 
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device) -> int:
+    """The raw handle of the device's current stream, read without making
+    a Stream object (a few microseconds a launch on a busy host)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def select_chunked(capacity, used0, feasible, ask, k_valid, tg_coll0,
@@ -1248,26 +1254,92 @@ def select_scan_batched(*, k_steps: int, spread_alg: bool, s_live: int,
     return carry, outs
 
 
-def _host_rows(idx, n: int, unique: bool) -> int:
-    """Checks a scatter's row indices on the host: a CPU int32 vector with
-    every row in [0, n) and, when `unique`, no row twice. An index out of
-    range would be an out-of-bounds write on the card, and a repeated
-    overlay row a race. Returns the row count."""
+def _cpu_rows(idx) -> np.ndarray:
+    """A scatter's row indices as a numpy view, checked to be a 1-d int32
+    tensor on the CPU."""
     if not isinstance(idx, torch.Tensor) or idx.device.type != "cpu" \
             or idx.dtype != torch.int32 or idx.dim() != 1:
         raise ValueError("idx must be a 1-d int32 tensor on the CPU")
-    m = idx.numel()
-    if m:
-        a = idx.numpy()
-        lo, hi = int(a.min()), int(a.max())
-        if lo < 0 or hi >= n:
-            raise ValueError(f"rows span [{lo}, {hi}], outside [0, {n})")
-        # plan rows arrive sorted: strictly increasing proves them
-        # distinct in O(m); anything else pays the sort
-        if unique and m > 1 and not bool((a[1:] > a[:-1]).all()) \
-                and np.unique(a).size != m:
-            raise ValueError("overlay rows repeat")
-    return m
+    return idx.numpy()
+
+
+def _in_range(lo: int, hi: int, n: int) -> None:
+    if lo < 0 or hi >= n:
+        raise ValueError(f"rows span [{lo}, {hi}], outside [0, {n})")
+
+
+def _host_rows(idx, n: int) -> int:
+    """Checks a scatter's row indices on the host: every row in [0, n). An
+    index out of range would be an out-of-bounds write on the card.
+    Returns the row count."""
+    a = _cpu_rows(idx)
+    if a.size:
+        _in_range(int(a.min()), int(a.max()), n)
+    return a.size
+
+
+def _patch_rows(idx, n: int):
+    """A patch's rows checked on the host (in [0, n), no row twice: the
+    fused kernels give each row one slot) and sorted, as the kernels' tile
+    searches need them: (rows, order), rows an int32 array in increasing
+    order and order None when idx already was, else the int32 permutation
+    with rows = idx[order]. Plan and journal rows mostly arrive
+    increasing, which proves them distinct in O(m)."""
+    rows, order = _cpu_rows(idx), None
+    if rows.size > 1 and not (rows[1:] > rows[:-1]).all():
+        order = np.argsort(rows, kind="stable").astype(np.int32)
+        rows = rows[order]
+        if (rows[1:] == rows[:-1]).any():
+            raise ValueError("patch rows repeat")
+    if rows.size:
+        _in_range(int(rows[0]), int(rows[-1]), n)
+    return rows, order
+
+
+def pack_host(arrays, pin: bool = False):
+    """The numpy arrays packed into ONE uint8 CPU tensor, each at a 16-byte
+    aligned offset, so a single copy ships them all; pinned when `pin`,
+    for an asynchronous upload. Returns (buffer, offsets)."""
+    offsets, end = [], 0
+    for a in arrays:
+        end = -(-end // 16) * 16
+        offsets.append(end)
+        end += a.nbytes
+    buf = torch.empty(end, dtype=torch.uint8, pin_memory=pin)
+    raw = buf.numpy()
+    for a, o in zip(arrays, offsets):
+        raw[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+    return buf, offsets
+
+
+def _patch_on(device, rows, order, vals, dtype, shape):
+    """A patch on the card with no synchronising copy: (buffer, idx, vals,
+    order), the device buffer of ONE asynchronous upload of a pinned host
+    buffer (hold it until the launch returns) and the kernel's three
+    pointers (order 0 for none). Host values are packed with the rows in
+    the rows' sorted order; values already on the card are read in place,
+    and the order that sorted the rows, where there is one, is packed
+    with the rows for the kernel to follow. PyTorch's caching host
+    allocator does not hand the pinned buffer out again before the copy
+    that reads it has run, so it is dropped at once."""
+    if not isinstance(vals, torch.Tensor):
+        raise TypeError(f"vals: expected a tensor, got {type(vals)}")
+    on_card = vals.device == device
+    v = vals.contiguous()
+    _check("vals", v, dtype, shape, device if on_card else _CPU)
+    if on_card:
+        parts = [rows] if order is None else [rows, order]
+    else:
+        a = v.numpy()
+        parts = [rows, a if order is None else a[order]]
+    host, offsets = pack_host(parts, pin=True)
+    buf = host.to(device, non_blocking=True)
+    base = buf.data_ptr()
+    if on_card:
+        return buf, base, v.data_ptr(), \
+            (base + offsets[1] if order is not None else 0)
+    return buf, base, base + offsets[1], 0
 
 
 def _rows_on(name: str, t, dtype, shape, device) -> torch.Tensor:
@@ -1282,7 +1354,7 @@ def _rows_on(name: str, t, dtype, shape, device) -> torch.Tensor:
 def scatter_set(used, ports, idx, used_rows, port_rows):
     """The resident table advanced past an alloc delta: new (used, ports)
     with the rows idx set; arguments and results as scatter_set_plain."""
-    m = _host_rows(idx, used.shape[0], unique=False)
+    m = _host_rows(idx, used.shape[0])
     if _is_cpu(used):
         return scatter_set_plain(used, ports, idx, used_rows, port_rows)
     if m == 0:
@@ -1306,21 +1378,22 @@ def scatter_set(used, ports, idx, used_rows, port_rows):
 
 def overlay_add(used, idx, vals):
     """A dispatch's used0: new used with vals added at the distinct rows
-    idx; arguments and result as overlay_add_plain."""
-    m = _host_rows(idx, used.shape[0], unique=True)
+    idx; arguments and result as overlay_add_plain. On the card: one fused
+    copy-and-patch launch fed by one asynchronous upload."""
+    rows, order = _patch_rows(idx, used.shape[0])
     if _is_cpu(used):
         return overlay_add_plain(used, idx, vals)
-    if m == 0:
+    if rows.size == 0:
         return used.clone()
     dev = used.device
     n, d = used.shape
     _check("used", used, torch.float32, (n, d), dev)
-    v = _rows_on("vals", vals, torch.float32, (m, d), dev)
-    i = idx.to(dev)
-    out = used.clone()
-    lib = load_library()
-    rc = lib.nomad_overlay_add(out.data_ptr(), i.data_ptr(), v.data_ptr(),
-                               m, d, _stream(dev))
+    buf, i, v, o = _patch_on(dev, rows, order, vals, torch.float32,
+                             (rows.size, d))
+    out = torch.empty_like(used)
+    rc = load_library().nomad_overlay_add(
+        used.data_ptr(), out.data_ptr(), i, v, o, n, rows.size, d,
+        _stream(dev))
     _raise_on(rc, "overlay_add")
     LAUNCHES["overlay_add"] += 1
     return out
@@ -1328,22 +1401,23 @@ def overlay_add(used, idx, vals):
 
 def feas_scatter(mask, idx, vals):
     """A parked feasibility mask patched by row: new mask with vals set at
-    idx; arguments and result as feas_scatter_plain."""
-    m = _host_rows(idx, mask.shape[0], unique=False)
+    the distinct rows idx; arguments and result as feas_scatter_plain. On
+    the card: one fused copy-and-patch launch fed by one asynchronous
+    upload (bool columns are read and written as bytes)."""
+    rows, order = _patch_rows(idx, mask.shape[0])
     if _is_cpu(mask):
         return feas_scatter_plain(mask, idx, vals)
-    if m == 0:
+    if rows.size == 0:
         return mask.clone()
     dev = mask.device
     n = mask.shape[0]
     _check("mask", mask, torch.bool, (n,), dev)
-    v = _rows_on("vals", vals, torch.bool, (m,), dev)
-    i = idx.to(dev)
-    out = mask.clone()
-    lib = load_library()
-    rc = lib.nomad_feas_scatter(out.view(torch.uint8).data_ptr(), i.data_ptr(),
-                                v.view(torch.uint8).data_ptr(), m,
-                                _stream(dev))
+    buf, i, v, o = _patch_on(dev, rows, order, vals, torch.bool,
+                             (rows.size,))
+    out = torch.empty_like(mask)
+    rc = load_library().nomad_feas_scatter(
+        mask.data_ptr(), out.data_ptr(), i, v, o, n, rows.size,
+        _stream(dev))
     _raise_on(rc, "feas_scatter")
     LAUNCHES["feas_scatter"] += 1
     return out

@@ -9,6 +9,7 @@ import torch
 from nomad_tpu_torch.ops import kernels
 from nomad_tpu_torch.ops import select as tsel
 from nomad_tpu_torch.state.carry import select_request_from_arrays
+from test_torch_device_table import EDGE_CASES, edge_inputs
 from test_torch_select import N_NODES, _fields
 
 pytestmark = pytest.mark.cuda
@@ -99,6 +100,94 @@ def test_table_kernels_match_plain_on_card(cuda, m):
             assert g.device == w.device and torch.equal(g, w), name
     for t, k in zip((used, ports, mask), keep):
         assert torch.equal(t, k)
+
+
+def _fused_case(cuda, which, used, mask, rows, vals, bits, vals_on):
+    """(wrapper, plain, args) of overlay_add or feas_scatter, with the row
+    values on the host (the main path's case) or on the card."""
+    idx = torch.from_numpy(rows)
+    v = torch.from_numpy(vals if which == "overlay_add" else bits)
+    if vals_on == "card":
+        v = v.to(cuda)
+    if which == "overlay_add":
+        return kernels.overlay_add, kernels.overlay_add_plain, (used, idx, v)
+    return kernels.feas_scatter, kernels.feas_scatter_plain, (mask, idx, v)
+
+
+def _held_once(which, run, plain, args):
+    """One wrapper call: one launch, equal to the plain version bit for
+    bit, its input column left as it was."""
+    keep = args[0].clone()
+    before = kernels.LAUNCHES[which]
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[which] == before + 1
+    want = plain(*args)
+    assert got.device == want.device and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(args[0], keep)
+
+
+@pytest.mark.parametrize("vals_on", ["host", "card"])
+@pytest.mark.parametrize("label", sorted(EDGE_CASES))
+@pytest.mark.parametrize("which", ["overlay_add", "feas_scatter"])
+def test_fused_scatter_edge_shapes_on_card(cuda, which, label, vals_on):
+    used, mask, rows, vals, bits = edge_inputs(label)
+    run, plain, args = _fused_case(
+        cuda, which, torch.from_numpy(used).to(cuda),
+        torch.from_numpy(mask).to(cuda), rows, vals, bits, vals_on)
+    _held_once(which, run, plain, args)
+
+
+@pytest.mark.parametrize("vals_on", ["host", "card"])
+@pytest.mark.parametrize("which", ["overlay_add", "feas_scatter"])
+def test_fused_scatter_scalar_paths_on_card(cuda, which, vals_on):
+    """Columns 4 bytes off 16-byte alignment (a slice), and a used column
+    of D = 3, take the kernels' scalar paths; rows out of order take the
+    sort (host values) or the uploaded order (values on the card)."""
+    used, mask, rows, vals, bits = edge_inputs("ragged_10001")
+    n = mask.size
+    flat = torch.empty(n * 4 + 1, dtype=torch.float32, device=cuda)
+    off_used = flat[1:].view(n, 4)
+    off_used.copy_(torch.from_numpy(used))
+    raw = torch.empty(n + 4, dtype=torch.bool, device=cuda)
+    off_mask = raw[4:]
+    off_mask.copy_(torch.from_numpy(mask))
+    assert off_used.data_ptr() % 16 == 4 and off_mask.data_ptr() % 16 == 4
+    perm = np.random.default_rng(3).permutation(rows.size)
+    cases = [(off_used, off_mask, rows, vals, bits),
+             (off_used, off_mask, rows[perm].copy(), vals[perm].copy(),
+              bits[perm].copy())]
+    if which == "overlay_add":
+        u3, _m, r3, v3, b3 = edge_inputs("ragged_10001", d=3)
+        cases.append((torch.from_numpy(u3).to(cuda), off_mask, r3, v3, b3))
+    for u, mk, r, v, b in cases:
+        run, plain, args = _fused_case(cuda, which, u, mk, r, v, b, vals_on)
+        _held_once(which, run, plain, args)
+
+
+def test_fused_scatters_make_no_synchronising_call(cuda):
+    """overlay_add and feas_scatter, given host rows and host values as
+    the main path gives them, run under sync debug mode "error": one
+    asynchronous upload of a pinned buffer, no synchronising copy."""
+    used, mask, rows, vals, bits = edge_inputs("ragged_10001")
+    u = torch.from_numpy(used).to(cuda)
+    mk = torch.from_numpy(mask).to(cuda)
+    kernels.load_library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = kernels.overlay_add(u, torch.from_numpy(rows),
+                                torch.from_numpy(vals))
+        b = kernels.feas_scatter(mk, torch.from_numpy(rows),
+                                 torch.from_numpy(bits))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    idx = torch.from_numpy(rows)
+    assert torch.equal(a, kernels.overlay_add_plain(u, idx,
+                                                    torch.from_numpy(vals)))
+    assert torch.equal(b, kernels.feas_scatter_plain(
+        mk, idx, torch.from_numpy(bits)))
 
 
 @pytest.mark.parametrize("kind", ["chunked", "kway", "scan"])

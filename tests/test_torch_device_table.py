@@ -9,7 +9,13 @@ on CPU tensors, where the scatter wrappers run their plain versions.
 - Updates are out of place: an older DeviceTableState and a parked mask
   keep their values after a scatter, an overlay and a residue.
 - The wrappers' host checks: a row out of range and a repeated overlay
-  row raise ValueError.
+  or feasibility row raise ValueError; distinct rows out of order are
+  sorted (with their values) to the same result.
+- The plain overlay_add and feas_scatter against the JAX programs at the
+  fused kernels' edge shapes (EDGE_CASES: one row, rows 0 and n_pad - 1,
+  the tiles' first and last rows, every row, an n_pad that is not a
+  multiple of 16), byte for byte; and the host pack helper that feeds
+  the kernels' one upload.
 - The mirror tests of tests/test_table_deltas.py and the FeasMaskStore
   token test of tests/test_feasible_columnar.py, on the port.
 """
@@ -175,6 +181,184 @@ def test_repeated_overlay_row_raises():
     with pytest.raises(ValueError):
         kernels.overlay_add(torch.from_numpy(used), torch.from_numpy(rows),
                             torch.from_numpy(vals))
+
+
+# The fused overlay_add / feas_scatter kernels work in tiles of 256 rows
+# (overlay_add) and 4,096 (feas_scatter), 16 mask bytes a thread: the
+# edge shapes a tile search or a ragged tail could get wrong, as
+# (n_pad, rows every case holds, rows drawn at random besides).
+EDGE_CASES = {
+    "one_row": (1001, [517], 0),
+    "first_and_last": (1001, [0, 1000], 0),
+    "tile_edges": (8200, [0, 255, 256, 511, 4095, 4096, 8191, 8192, 8199],
+                   0),
+    "every_row": (37, list(range(37)), 0),
+    "ragged_10001": (10_001, [0, 9999, 10_000], 300),
+}
+
+
+def edge_inputs(label, d=D):
+    """(used [n_pad, d], mask [n_pad], sorted distinct rows, vals [m, d],
+    bits [m]) of one edge case, from a seed."""
+    n_pad, fixed, extra = EDGE_CASES[label]
+    rng = np.random.default_rng(sorted(EDGE_CASES).index(label))
+    rows = np.unique(np.concatenate(
+        [np.asarray(fixed, np.int64),
+         rng.choice(n_pad, extra, replace=False)])).astype(np.int32)
+    m = rows.size
+    used = rng.uniform(0, 8000, (n_pad, d)).astype(np.float32)
+    mask = rng.random(n_pad) > 0.3
+    vals = rng.uniform(-500, 500, (m, d)).astype(np.float32)
+    bits = rng.random(m) > 0.5
+    return used, mask, rows, vals, bits
+
+
+@pytest.mark.parametrize("label", sorted(EDGE_CASES))
+@pytest.mark.parametrize("which", ["overlay_add", "feas_scatter"])
+def test_edge_shapes_match_jax(which, label):
+    used, mask, rows, vals, bits = edge_inputs(label)
+    idx = torch.from_numpy(rows)
+    if which == "overlay_add":
+        want = jdt._overlay_add(jnp.asarray(used), rows, vals)
+        got = kernels.overlay_add_plain(torch.from_numpy(used), idx,
+                                        torch.from_numpy(vals))
+    else:
+        want = jdt._feas_scatter(jnp.asarray(mask), rows, bits)
+        got = kernels.feas_scatter_plain(torch.from_numpy(mask), idx,
+                                         torch.from_numpy(bits))
+    _bytes_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,d,kind", [(1, 4, "f32"), (7, 4, "f32"),
+                                      (300, 3, "f32"), (5, 1, "bool"),
+                                      (4096, 1, "bool")])
+def test_pack_host_round_trips(m, d, kind):
+    """One buffer holds the rows at offset 0 and the values at the next
+    16-byte boundary (where a vector load may read them), byte for byte;
+    an order vector packs the same way."""
+    rng = np.random.default_rng(m)
+    rows = np.sort(rng.choice(10_000, m, replace=False)).astype(np.int32)
+    if kind == "f32":
+        vals = rng.uniform(-500, 500, (m, d)).astype(np.float32)
+    else:
+        vals = (rng.random(m) > 0.5).view(np.uint8)
+    order = rng.permutation(m).astype(np.int32)
+    buf, offs = kernels.pack_host([rows, vals, order])
+    assert buf.dtype == torch.uint8 and buf.device.type == "cpu"
+    assert offs[0] == 0 and all(o % 16 == 0 for o in offs)
+    assert offs[1] >= rows.nbytes and offs[2] >= offs[1] + vals.nbytes
+    assert buf.numel() == offs[2] + order.nbytes
+    raw = buf.numpy()
+    for o, want in zip(offs, (rows, vals, order)):
+        got = raw[o:o + want.nbytes].view(want.dtype).reshape(want.shape)
+        _bytes_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_patch_rows_sort_unsorted_rows(seed):
+    """Distinct rows in any order: the wrapper's host check hands the
+    kernel the rows sorted with the order that sorts them, and
+    feas_scatter and overlay_add give the sorted rows' result."""
+    used, mask, rows, vals, bits = edge_inputs("ragged_10001")
+    perm = np.random.default_rng(seed).permutation(rows.size)
+    shuffled = torch.from_numpy(rows[perm].copy())
+    got_rows, order = kernels._patch_rows(shuffled, mask.size)
+    assert np.array_equal(got_rows, rows)
+    assert np.array_equal(rows[perm][order], rows)
+    sorted_rows, none = kernels._patch_rows(torch.from_numpy(rows),
+                                            mask.size)
+    assert none is None and np.array_equal(sorted_rows, rows)
+    want = kernels.feas_scatter(torch.from_numpy(mask),
+                                torch.from_numpy(rows),
+                                torch.from_numpy(bits))
+    got = kernels.feas_scatter(torch.from_numpy(mask), shuffled,
+                               torch.from_numpy(bits[perm].copy()))
+    assert torch.equal(got, want)
+    want = kernels.overlay_add(torch.from_numpy(used),
+                               torch.from_numpy(rows),
+                               torch.from_numpy(vals))
+    got = kernels.overlay_add(torch.from_numpy(used), shuffled,
+                              torch.from_numpy(vals[perm].copy()))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("where", ["adjacent", "apart"])
+def test_repeated_feas_row_raises(where):
+    _u, mask, rows, _v, bits = edge_inputs("ragged_10001")
+    rows = rows.copy()
+    if where == "adjacent":
+        rows[4] = rows[3]
+    else:
+        rows = rows[::-1].copy()
+        rows[0] = rows[-1]
+    with pytest.raises(ValueError, match="repeat"):
+        kernels.feas_scatter(torch.from_numpy(mask), torch.from_numpy(rows),
+                             torch.from_numpy(bits))
+
+
+@pytest.mark.parametrize("end", ["first", "last"])
+@pytest.mark.parametrize("which", ["overlay_add", "feas_scatter"])
+def test_sorted_rows_out_of_range_raise(which, end):
+    """Increasing rows skip the sort: their range is read off the ends."""
+    used, mask, rows, vals, bits = edge_inputs("ragged_10001")
+    rows = rows.copy()
+    if end == "first":
+        rows[0] = -1
+    else:
+        rows[-1] = mask.size
+    idx = torch.from_numpy(rows)
+    with pytest.raises(ValueError, match="outside"):
+        if which == "overlay_add":
+            kernels.overlay_add(torch.from_numpy(used), idx,
+                                torch.from_numpy(vals))
+        else:
+            kernels.feas_scatter(torch.from_numpy(mask), idx,
+                                 torch.from_numpy(bits))
+
+
+@pytest.mark.parametrize("label", sorted(EDGE_CASES))
+def test_overlay_used_at_edge_shapes_matches_jax(label):
+    """DeviceNodeTable.overlay_used over a table of the edge case's size
+    (the overlay too dense to scatter, every_row, falls back in both)."""
+    used, _mask, rows, vals, _bits = edge_inputs(label)
+    n = used.shape[0]
+    ports = np.zeros(n, np.float32)
+    jst = jdt.DeviceTableState(1, 1, n, n, None, jnp.asarray(used),
+                               jnp.asarray(ports))
+    want = jdt.DeviceNodeTable().overlay_used(jst, rows, vals)
+    tst = tdt.DeviceTableState(1, 1, n, n, None, torch.from_numpy(used),
+                               torch.from_numpy(ports))
+    got = tdt.DeviceNodeTable().overlay_used(tst, rows, vals)
+    if want is None:
+        assert got is None and label == "every_row"
+    else:
+        _bytes_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("label", sorted(EDGE_CASES))
+def test_feas_store_patch_and_residue_match_jax(label):
+    """A parked mask patched by put() with journal rows mapped to table
+    space (distinct, in no order: the feasibility compiler's rows), then a
+    per-eval residue of sorted rows: the parked and the scattered masks
+    equal the JAX package's FeasMaskStore's byte for byte."""
+    _u, mask, rows, _v, bits = edge_inputs(label)
+    n = mask.size
+    n_pad = tdt._pad_n(n)
+    journal = np.random.default_rng(n).permutation(rows)
+    mask2 = mask.copy()
+    mask2[rows] = ~mask2[rows]
+    jstore, tstore = jdt.FeasMaskStore(), tdt.FeasMaskStore()
+    jstore.put("k", mask, 0, 1, None)
+    tstore.put("k", mask, 0, 1, None, CPU)
+    jtok = jstore.put("k", mask2, 0, 2, [int(r) for r in journal])
+    ttok = tstore.put("k", mask2, 0, 2, [int(r) for r in journal], CPU)
+    assert ttok == jtok
+    jarr = jstore.resident(jtok, n_pad)
+    tarr = tstore.resident(ttok, n_pad, CPU)
+    _bytes_equal(tarr.numpy(), jarr)
+    assert tstore.stats["scatters"] == jstore.stats["scatters"]
+    _bytes_equal(tstore.apply_residue(tarr, rows, bits).numpy(),
+                 jstore.apply_residue(jarr, rows, bits))
 
 
 # -- the mirror tests of tests/test_table_deltas.py, on the port ---------

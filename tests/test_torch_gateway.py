@@ -29,6 +29,7 @@ from nomad_tpu.scheduler.harness import Harness
 from nomad_tpu.utils.codec import to_wire
 from nomad_tpu.utils.ids import generate_uuid
 from nomad_tpu_torch import models as tmodels
+from nomad_tpu_torch.mock import fixtures as tmodels_mock
 from nomad_tpu_torch.ops import select as select_mod
 from nomad_tpu_torch.ops.select import (DispatchCostModel, SelectKernel,
                                         SelectRequest, calibrate_cost_model)
@@ -682,3 +683,55 @@ def test_slice_places_as_the_jax_package(slice_runs, which):
     assert run["batch_dispatch"] >= 1
     assert run["stats"]["batches"] >= 1
     assert run["arm"] + "@cpu" in run["arms_run"]
+
+
+# -- a sliced solo fire drops the feasibility token ----------------------
+
+@pytest.mark.parametrize("lane,lanes", [(0, 2), (1, 2), (2, 3)])
+def test_solo_slice_drops_the_live_feasibility_token(lane, lanes):
+    """A request that carries a live feasibility token (its combined mask
+    parked on the mirror) and is sliced by MicroBatchGateway._solo places
+    only inside its decorrelation slice: the slice clears the token, so
+    the kernel reads the sliced host mask and not the parked full one.
+    The JAX package keeps the token there; the port departs on purpose."""
+    th = TorchHarness(device="cpu")
+    for i in range(64):
+        node = tmodels_mock.node()
+        node.name = f"node-{i}"
+        th.store.upsert_node(th.next_index(), node)
+    job = tmodels_mock.batch_job()
+    job.task_groups[0].count = 256          # _solo slices from 256 on
+    for task in job.task_groups[0].tasks:
+        task.resources.cpu = 100
+        task.resources.memory_mb = 64
+        task.resources.networks = []
+    th.store.upsert_job(th.next_index(), job)
+    gw = MicroBatchGateway(kernel=SelectKernel("cpu"), window_us=1000)
+    seen = []
+
+    def dispatch(req):
+        full = req.feasible.copy()
+        token = req.feas_token
+        res = gw.dispatch(req, decorrelate=(lane, lanes))
+        seen.append((full, token, req.feas_token, res))
+        return res
+
+    sched = new_scheduler("batch", th.store.snapshot(), th)
+    sched.kernel_dispatch = dispatch
+    sched.process(tmodels.Evaluation(
+        id=generate_uuid(), namespace=job.namespace, priority=job.priority,
+        triggered_by=TRIGGER_JOB_REGISTER, job_id=job.id,
+        status=EVAL_STATUS_PENDING, type=job.type))
+    assert len(seen) == 1
+    full, token, after, res = seen[0]
+    assert token is not None                # the mask was parked
+    assert after is None                    # the slice dropped it
+    probe = _mk_req(np.tile(CAP_ROW, (64, 1)), count=1)
+    probe.feasible = full
+    slice_mask, _ = select_mod.decorrelation_slice(probe, lane, lanes,
+                                                   (None, None))
+    assert slice_mask is not None and 8 <= slice_mask.sum() < full.sum()
+    rows = res.node_idx[res.node_idx >= 0]
+    assert res.placed == 256 and rows.size
+    assert slice_mask[rows].all()
+    assert len(th.store.allocs_by_job(job.namespace, job.id)) == 256

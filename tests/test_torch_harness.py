@@ -126,3 +126,39 @@ def test_alloc_metrics_agree(runs, which):
                 [ts.norm_score] + [ts.scores[k] for k in sorted(ts.scores)],
                 [js.norm_score] + [js.scores[k] for k in sorted(js.scores)],
                 rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("first", [999, 5000, 100_000])
+def test_harness_over_a_later_store_advances_its_snapshot(first):
+    """A port Harness built over a store that already holds writes up to
+    or past index 1000 hands out indexes above them, so its own writes advance
+    the snapshot: a second job sees the first job's allocs and finds no
+    room. (The JAX package's Harness starts at 1000 whatever the store
+    holds; the port departs on purpose.)"""
+    from nomad_tpu_torch.mock import fixtures as tmock
+    from nomad_tpu_torch.state import StateStore
+    store = StateStore()
+    for i in range(2):
+        node = tmock.node()
+        node.name = f"node-{i}"
+        store.upsert_node(first + i, node)
+    h = TorchHarness(store, device="cpu")
+    assert h.next_index() > store.latest_index() == first + 1
+    placed = []
+    for name in ("fill", "late"):
+        job = tmock.job()
+        job.id = job.name = name
+        job.task_groups[0].count = 2 if name == "fill" else 1
+        for task in job.task_groups[0].tasks:
+            task.resources.cpu = 3000      # one a 4,000 MHz node
+            task.resources.networks = []
+        before = store.latest_index()
+        h.store.upsert_job(h.next_index(), job)
+        h.process("service", tmodels.Evaluation(
+            id=generate_uuid(), namespace=job.namespace,
+            priority=job.priority, triggered_by=TRIGGER_JOB_REGISTER,
+            job_id=job.id, status=EVAL_STATUS_PENDING, type=job.type))
+        assert store.latest_index() > before
+        placed.append(len(store.allocs_by_job(job.namespace, job.id)))
+    assert placed == [2, 0]
+    assert h.evals[-1].failed_tg_allocs
