@@ -9,11 +9,18 @@ Phases (each raises on failure, so the process exits non-zero):
      identical choices, chunks, top-k indices and carries, scores within
      1e-6 absolute, for every launch of SelectKernel's chunked and K-way
      loops, each continuing from the carry the previous launch left on the
-     card; CUDA-event times of the first launch and of the plain version
-     (median of 7 after a warm-up), and the bound of each from the real
-     node count and the steps this run needed;
+     card; CUDA-event times of the first launch (and per step or K-way
+     phase) and of the plain version (median of 7 after a warm-up), and
+     the bound of each from the real node count and the work this run's
+     outputs need (greedy_ops: one sweep a launch, the rows placed on
+     rescored, the instances placed); then the K-way kernel at its edge shapes (KWAY_EDGES: n =
+     w + 1, 50 feasible rows of 10,000, exactly w + 1, all-alike nodes at
+     10,000 and 1,000 rows, an invalid first phase, a lane that runs dry),
+     binpack and spread, each with an 8-phase budget so that its launches
+     continue from the card's carry, every launch bit for bit;
   3. the resident table's three row scatters (scatter_set, overlay_add,
-     feas_scatter) against their plain versions and the library call
+     feas_scatter, each one fused copy-and-patch launch) against their
+     plain versions and the library call
      (index_copy / index_add) on the card at the main path's table (n_pad
      16,384, D 4) with m = 10, 200 and 4,096 rows, the row values on the
      card and on the host: exactly equal, one launch a call, inputs left
@@ -25,8 +32,9 @@ Phases (each raises on failure, so the process exits non-zero):
      from one CUDA graph; then overlay_add and feas_scatter at the fused
      kernels' edge shapes (one row, every tile's first and last row, an
      n_pad of 10,001, every row, and columns 4 bytes off 16-byte
-     alignment with rows out of order), and both wrappers once under
-     torch.cuda.set_sync_debug_mode("error");
+     alignment with rows out of order), scatter_set at its own (the same
+     and rows out of order, repeated rows), and the three wrappers once
+     under torch.cuda.set_sync_debug_mode("error");
   4. the main path: the port's Harness on the card with 10,000 mock nodes
      runs a service job (chunked kernel), a count-10,000 batch job (K-way
      kernel) and a spread + affinity job (scan kernel); every alloc placed,
@@ -48,9 +56,11 @@ Phases (each raises on failure, so the process exits non-zero):
      against the batched plain version and against the solo kernel run on
      that lane's request, and with an 8-phase budget every K-way lane
      continued on the solo kernel from the batched launch's carry;
-     CUDA-event medians of the batched launch, of B solo launches one
-     after another and of the plain version, and the bound summed over
-     the lanes;
+     CUDA-event medians of the batched launch (and per step of its
+     longest lane), of B solo launches one after another and of the plain
+     version, and the bound summed over the lanes; K-way lanes of mixed
+     counts (10 / 2,500 / 10,000 / a lane with no feasible row) among
+     them;
   7. the eval gateways: on one snapshot of the 10,000 nodes, three groups
      of concurrent lane evals through a BatchGateway (8 service jobs of
      count 10, chunked-batched; 4 spread jobs of count 200, scan-batched;
@@ -124,6 +134,9 @@ F64_OPS_POW = 2
 # per distinct_property (gather, count, limit test)
 F32_OPS_SPREAD = 14
 F32_OPS_DP = 4
+# float32 per row per chunked or K-way step to select the step's top
+# scores: one comparison, a floor, since a selection reads every score
+F32_OPS_SELECT = 1
 
 REPLACES = {
     "chunked": "nomad_tpu/ops/select.py:446",
@@ -381,33 +394,73 @@ def kernel_phase(device):
         ms = cuda_ms(lambda: run(**targs, **kw))
         plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=5)
         got = run(**targs, **kw)
-        max_steps = kw.get("max_steps")
-        io_bytes = (rows_bytes(targs.values(), n, n_pad)
-                    + rows_bytes(got[0], n, n_pad)
-                    + rows_bytes(got[1], n, n_pad, steps, max_steps))
-        if kind == "scan":
-            nspread = len(req.spreads)
-            f32 = steps * n * (F32_OPS_LOCAL + F32_OPS_SPREAD * nspread
-                               + F32_OPS_DP * len(req.distinct_props))
-            f64 = steps * n * F64_OPS_POW
-        else:
-            # the sweep over the nodes plus the winners' CHUNK_J-long
-            # sub-placement score streams
-            cells = steps * (n + kw.get("w", 1) * kernels.CHUNK_J)
-            f32, f64 = cells * F32_OPS_LOCAL, cells * F64_OPS_POW
+        io_bytes, f32, f64 = lane_bound(kind, targs, got[0], got[1], n,
+                                        n_pad, steps, kw, len(req.spreads),
+                                        len(req.distinct_props))
+        io_bytes += rows_bytes([targs["capacity"]], n, n_pad)
         t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
         rows.append(dict(kind=kind, n=n, count=count, main=main,
                          steps=steps, launches_held=len(trail),
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         us_per_step=ms / steps * 1e3,
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations"))
         print(f"kernel {label}: agrees over {len(trail)} launches "
               f"(steps, remaining {trail}; max abs err {err:.3g}); first "
-              f"launch {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.6f} ms", flush=True)
+              f"launch {ms:.3f} ms ({ms / steps * 1e3:.1f} us a "
+              f"{'phase' if kind == 'kway' else 'step'}), plain "
+              f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms",
+              flush=True)
+    kway_edge_checks()
     return rows
+
+
+# The K-way kernel's edge shapes (its radix top-(w + 1), winner-only
+# rescoring and early-exit streams), as (label, n, count, kind, w, the
+# rows kept feasible or None), with kind as in
+# nomad_tpu_torch.mock.kway_edges: "random", "alike" (every node the
+# same: the main path's tie storm) or "dry" (room for fewer instances
+# than the count: an invalid later phase). The main shapes, n 1,000 at w
+# 32 and n 50,000 are kernel_phase's own cases.
+KWAY_EDGES = (("n = w + 1", 129, 2_000, "random", 128, None),
+              ("50 of 10,000 feasible", 10_000, 2_000, "random", 128, 50),
+              ("exactly w + 1 feasible", 10_000, 2_000, "random", 128, 129),
+              ("all alike", 10_000, 10_000, "alike", 128, None),
+              ("first phase invalid", 10_000, 2_000, "random", 128, 0),
+              ("runs dry", 10_000, 40_000, "dry", 128, None),
+              ("n 1,000 all alike", 1_000, 10_240, "alike", 32, None))
+
+
+def _card(a):
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            if isinstance(v, np.ndarray) else v for k, v in a.items()}
+
+
+def kway_edge_checks():
+    """The K-way kernel at KWAY_EDGES, binpack and spread, each with an
+    8-phase budget so that its launches continue from the card's own
+    carry: every launch held bit for bit against the plain version."""
+    from nomad_tpu_torch.mock.kway_edges import kway_edge_args
+    from nomad_tpu_torch.ops import kernels
+    held = []
+    for i, (label, n, count, kind, w, keep) in enumerate(KWAY_EDGES):
+        for spread_alg in (False, True):
+            targs = _card(kway_edge_args(n, count, kind, SEED + 40 + i,
+                                         feasible_rows=keep))
+            kw = dict(max_steps=8, spread_alg=spread_alg, w=w)
+            err, trail = held_launches(
+                "kway", f"kway edge {label} (n {n}, w {w}, spread_alg "
+                f"{spread_alg})", kernels.select_kway, kernels.kway_plain,
+                targs, kw, count)
+            if err != 0.0:
+                fail(f"kway edge {label}: max abs err {err}")
+            held.append((label, spread_alg, trail))
+    print("kernel kway edge shapes: every launch equal to the plain "
+          "version bit for bit (label, spread_alg, (phases, left) a "
+          f"launch): {held}", flush=True)
 
 
 def graph_ms(fn, launches=20, reps=7):
@@ -446,10 +499,13 @@ def _launch_alone(lib, name, out, col, idx, vals, n, m, d):
     import torch
     stream = torch.cuda.current_stream().cuda_stream
     if name == "scatter_set":
-        (o_used, o_ports), (v_used, v_ports) = out, vals
-        rc = lib.nomad_scatter_set(o_used.data_ptr(), o_ports.data_ptr(),
-                                   idx.data_ptr(), v_used.data_ptr(),
-                                   v_ports.data_ptr(), m, d, stream)
+        (o_used, o_ports), (c_used, c_ports), (v_used, v_ports) = \
+            out, col, vals
+        rc = lib.nomad_scatter_set(c_used.data_ptr(), c_ports.data_ptr(),
+                                   o_used.data_ptr(), o_ports.data_ptr(),
+                                   idx.data_ptr(), v_used.data_ptr(), None,
+                                   v_ports.data_ptr(), None, n, m, d,
+                                   stream)
     elif name == "overlay_add":
         rc = lib.nomad_overlay_add(col.data_ptr(), out.data_ptr(),
                                    idx.data_ptr(), vals.data_ptr(), None,
@@ -550,10 +606,83 @@ def table_edge_checks(rng):
     return held
 
 
+def scatter_set_edge_checks(rng):
+    """The fused scatter_set at its edge shapes: one row; every tile's
+    first and last row of the main table; an n_pad of 10,001; rows out of
+    order; a repeated row (its last value wins); columns 4 bytes off
+    16-byte alignment (the scalar path); row values on the host (numpy, as
+    the mirror hands them) and on the card. Each call one launch, its
+    inputs unchanged, equal bit for bit to scatter_set_plain on the CPU
+    (whose sequential copy keeps a repeated row's last value). Returns the
+    count of calls held."""
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    d, n_main = TABLE_D, TABLE_N_PAD
+    ends = sorted({r for t in range(0, n_main, TABLE_TILE)
+                   for r in (t, t + TABLE_TILE - 1)})
+    ragged = np.unique(np.concatenate([
+        [0, TABLE_TILE - 1, TABLE_TILE, 9_999, 10_000],
+        rng.choice(10_001, 300, replace=False)]))
+    again = np.concatenate([ragged, ragged[rng.choice(ragged.size, 20)]])
+    cases = [("m 1", n_main, np.array([7_777]), False),
+             ("tile ends", n_main, np.array(ends), False),
+             ("n_pad 10,001", 10_001, ragged, False),
+             ("rows out of order", 10_001, rng.permutation(ragged), False),
+             ("repeated rows, out of order", 10_001, rng.permutation(again),
+              False),
+             ("4 bytes off alignment, rows out of order", 10_001,
+              rng.permutation(ragged), True)]
+    held = 0
+    for label, n, rows, offset in cases:
+        m = rows.size
+        used_h = rng.uniform(0, 8000, (n, d)).astype(np.float32)
+        ports_h = rng.integers(0, 12000, n).astype(np.float32)
+        used = torch.from_numpy(used_h).to(dev)
+        ports = torch.from_numpy(ports_h).to(dev)
+        if offset:
+            flat = torch.empty(n * d + 1, dtype=torch.float32, device=dev)
+            flat[1:].copy_(used.view(-1))
+            used = flat[1:].view(n, d)
+            if used.data_ptr() % 16 != 4:
+                fail("the offset column is not 4 bytes off alignment")
+        idx = rows.astype(np.int32)
+        vals = rng.uniform(-500, 500, (m, d)).astype(np.float32)
+        prow = rng.integers(0, 12000, m).astype(np.float32)
+        want = kernels.scatter_set_plain(
+            torch.from_numpy(used_h), torch.from_numpy(ports_h),
+            torch.from_numpy(idx), torch.from_numpy(vals),
+            torch.from_numpy(prow))
+        for on, v, pv in (("host", vals, prow),
+                          ("card", torch.from_numpy(vals).to(dev),
+                           torch.from_numpy(prow).to(dev))):
+            keep = (used.clone(), ports.clone())
+            before = kernels.LAUNCHES["scatter_set"]
+            got = kernels.scatter_set(used, ports, idx, v, pv)
+            torch.cuda.synchronize()
+            tag = f"scatter_set {label} (n_pad {n}, m {m}, values on the {on})"
+            if kernels.LAUNCHES["scatter_set"] != before + 1:
+                fail(f"{tag}: {kernels.LAUNCHES['scatter_set'] - before} "
+                     "launches in one call, expected 1")
+            for g, w in zip(got, want):
+                if not torch.equal(g.cpu().view(torch.int32),
+                                   w.view(torch.int32)):
+                    fail(f"{tag}: differs from the plain version")
+            if not (torch.equal(used, keep[0])
+                    and torch.equal(ports, keep[1])):
+                fail(f"{tag}: the scatter wrote its input")
+            held += 1
+    print(f"table edge shapes: scatter_set equal to its plain version in "
+          f"{held} calls ({', '.join(c[0] for c in cases)}; values on the "
+          f"host and on the card)", flush=True)
+    return held
+
+
 def table_sync_check(rng):
-    """Both fused wrappers called once as the main path calls them (host
-    rows, host values) under torch.cuda.set_sync_debug_mode("error"):
-    any synchronising operation in them raises."""
+    """The three fused wrappers called once as the main path calls them
+    (host rows, host values: numpy for scatter_set, as the mirror hands
+    them) under torch.cuda.set_sync_debug_mode("error"): any
+    synchronising operation in them raises."""
     import torch
     from nomad_tpu_torch.ops import kernels
     dev = torch.device("cuda")
@@ -565,22 +694,35 @@ def table_sync_check(rng):
         rng.choice(MAIN_NODES, m, replace=False)).astype(np.int32))
     vals = torch.from_numpy(rng.uniform(-500, 500, (m, d)).astype(np.float32))
     bits = torch.from_numpy(rng.random(m) > 0.5)
+    ports = torch.from_numpy(
+        rng.integers(0, 12000, n).astype(np.float32)).to(dev)
+    prow = rng.integers(0, 12000, m).astype(np.float32)
+    shuffled = rng.permutation(m)
+    set_idx = idx.numpy()[shuffled]
+    set_vals, set_prow = vals.numpy()[shuffled], prow[shuffled]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got_u = kernels.overlay_add(used, idx, vals)
         got_m = kernels.feas_scatter(mask, idx, bits)
+        got_s = kernels.scatter_set(used, ports, set_idx, set_vals, set_prow)
     except RuntimeError as e:
         fail(f"a fused scatter wrapper synchronised: {e}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    want_s = kernels.scatter_set_plain(
+        used, ports, torch.from_numpy(set_idx), torch.from_numpy(set_vals),
+        torch.from_numpy(set_prow))
     if not (torch.equal(got_u, kernels.overlay_add_plain(used, idx, vals))
             and torch.equal(got_m,
-                            kernels.feas_scatter_plain(mask, idx, bits))):
+                            kernels.feas_scatter_plain(mask, idx, bits))
+            and torch.equal(got_s[0], want_s[0])
+            and torch.equal(got_s[1], want_s[1])):
         fail("the wrappers called under sync debug mode differ from their "
              "plain versions")
-    print("table sync check: overlay_add and feas_scatter ran under "
-          "set_sync_debug_mode('error') without raising", flush=True)
+    print("table sync check: overlay_add, feas_scatter and scatter_set "
+          "(rows out of order) ran under set_sync_debug_mode('error') "
+          "without raising", flush=True)
 
 
 def table_kernel_phase():
@@ -625,7 +767,8 @@ def table_kernel_phase():
                 lambda: (lambda i: (used.index_copy(0, i, vals),
                                     ports.index_copy(0, i, prow)))(
                     idx.to(dev, torch.long)),
-                ((used.clone(), ports.clone()), None, (vals, prow)),
+                ((torch.empty_like(used), torch.empty_like(ports)),
+                 (used, ports), (vals, prow)),
                 [used, ports],
                 2 * n_pad * (d + 1) * 4 + m * (4 + d * 4 + 4), 0),
             "overlay_add": (
@@ -691,6 +834,7 @@ def table_kernel_phase():
                   f"{library_graph_ms:.4f}), bound "
                   f"{max(t_bytes, t_ops):.6f} ms", flush=True)
     table_edge_checks(rng)
+    scatter_set_edge_checks(rng)
     table_sync_check(rng)
     return rows
 
@@ -950,7 +1094,8 @@ def lane_batch(kind, counts, seed, variant=""):
     capacity). variant "one_spread": one spread stanza and no
     distinct_property, as the main path's spread job; "mixed": lane i keeps
     i % 3 spread stanzas and i % 2 distinct_property constraints, so the
-    batch's s_live / p_live exceed most lanes' own."""
+    batch's s_live / p_live exceed most lanes' own; "none_feasible_last":
+    the last lane has no feasible row."""
     lanes = [request_arrays(seed + i, MAIN_NODES, c, kind)
              for i, c in enumerate(counts)]
     cap = lanes[0]["capacity"]
@@ -964,14 +1109,16 @@ def lane_batch(kind, counts, seed, variant=""):
         elif variant == "mixed":
             f["spreads"] = f["spreads"][:i % 3]
             f["distinct_props"] = f["distinct_props"][:i % 2]
+        elif variant == "none_feasible_last" and i == len(lanes) - 1:
+            f["feasible"] = np.zeros(MAIN_NODES, bool)
         if kind == "scan":
             f["sum_spread_weights"] = sum(sp["weight"] for sp in f["spreads"])
     return lanes
 
 
 def lane_bound(kind, lane, carry, outs, n, n_pad, steps, kw, nspread, ndp):
-    """(bytes, float32 ops, float64 ops) of one lane as kernel_phase counts
-    them, its inputs without the shared capacity."""
+    """(bytes, float32 ops, float64 ops) of one lane's launch, its inputs
+    without the shared capacity."""
     max_steps = kw.get("max_steps")
     nbytes = (rows_bytes([v for k, v in lane.items() if k != "capacity"], n,
                          n_pad)
@@ -981,9 +1128,29 @@ def lane_bound(kind, lane, carry, outs, n, n_pad, steps, kw, nspread, ndp):
         f32 = steps * n * (F32_OPS_LOCAL + F32_OPS_SPREAD * nspread
                            + F32_OPS_DP * ndp)
         return nbytes, f32, steps * n * F64_OPS_POW
-    from nomad_tpu_torch.ops import kernels
-    cells = steps * (n + kw.get("w", 1) * kernels.CHUNK_J)
-    return nbytes, cells * F32_OPS_LOCAL, cells * F64_OPS_POW
+    return (nbytes,) + greedy_ops(kind, outs, n, steps, kw.get("w", 1))
+
+
+def greedy_ops(kind, outs, n, steps, w):
+    """(float32, float64) operations a chunked or K-way launch needs for
+    the outputs this run's data gave, counted from its chunks. Scores are
+    node-local, so the launch needs one sweep over the n rows, then only
+    the rows a step placed on (chunk > 0) rescored for the next step, and
+    one more sweep where a later step found no feasible row (for its
+    counts). Each winner's sub-placement stream needs at least its chunk's
+    scores (it stops at its first loser or a_max), so the streams add the
+    instances placed. Each step also selects its top scores over n."""
+    if steps == 0:
+        return 0, 0
+    if kind.startswith("kway"):
+        chunks = outs[0][:steps, w:2 * w]
+    else:
+        chunks = outs[1][:steps].reshape(steps, 1)
+    chunks = chunks.cpu().numpy()
+    sweeps = 2 if steps > 1 and chunks[-1].sum() == 0 else 1
+    cells = sweeps * n + int((chunks[:-1] > 0).sum()) + int(chunks.sum())
+    return (cells * F32_OPS_LOCAL + steps * n * F32_OPS_SELECT,
+            cells * F64_OPS_POW)
 
 
 def batched_kernel_phase(device):
@@ -1003,7 +1170,9 @@ def batched_kernel_phase(device):
              ("scan_batched", [200] * 4, True, "one_spread"),
              ("scan_batched", [16 + 3 * i for i in range(16)], False,
               "mixed"),
-             ("kway_batched", [2500] * 4, True, "")]
+             ("kway_batched", [2500] * 4, True, ""),
+             ("kway_batched", [10, 2500, 10_000, 2500], False,
+              "none_feasible_last")]
     rows = []
     for case, (kind, counts, main, variant) in enumerate(cases):
         base = kind[:-len("_batched")]
@@ -1041,6 +1210,7 @@ def batched_kernel_phase(device):
                   compare(f"{label} outputs vs plain", got[1], want[1], 0.0))
         nbytes = rows_bytes([targs["capacity"]], n, n_pad)
         f32 = f64 = 0
+        most = 0
         for i, lane in enumerate(lanes):
             s_carry, s_outs = solo(**lane, **kw)
             g_carry = [t[i] for t in got[0]]
@@ -1061,6 +1231,7 @@ def batched_kernel_phase(device):
                                      len(fields[i].get("distinct_props",
                                                        ())))
             nbytes, f32, f64 = nbytes + b, f32 + o32, f64 + o64
+            most = max(most, steps)
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: run(**targs, **kw))
         solo_ms = cuda_ms(lambda: [solo(**ln, **kw) for ln in lanes])
@@ -1070,11 +1241,15 @@ def batched_kernel_phase(device):
         rows.append(dict(kind=kind, n=n, lanes=len(counts),
                          counts=[min(counts), max(counts)], main=main,
                          max_abs_err=err, ms=ms, solo_ms=solo_ms,
-                         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                         plain_ms=plain_ms, steps=most,
+                         us_per_step=ms / max(most, 1) * 1e3,
+                         bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations"))
-        print(f"kernel {label}: every lane equals the plain version and the "
-              f"solo kernel (max abs err {err:.3g}); {ms:.3f} ms, "
+        print(f"kernel {label}{' ' + variant if variant else ''}: every "
+              f"lane equals the plain version and the solo kernel (max abs "
+              f"err {err:.3g}); {ms:.3f} ms ({most} steps in the longest "
+              f"lane, {ms / max(most, 1) * 1e3:.1f} us a step), "
               f"{len(counts)} solo launches {solo_ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms",
               flush=True)
@@ -1644,8 +1819,8 @@ def main():
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=None,
             shapes=[{k: r[k] for k in ("n", "count", "main", "steps",
-                                       "launches_held", "ms", "plain_ms",
-                                       "bound_ms", "bound_by",
+                                       "launches_held", "ms", "us_per_step",
+                                       "plain_ms", "bound_ms", "bound_by",
                                        "max_abs_err")} for r in mine]))
     for name in TABLE_KERNELS:
         mine = [r for r in table_rows if r["kind"] == name]
@@ -1674,8 +1849,9 @@ def main():
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=None, solo_ms=top["solo_ms"],
             shapes=[{k: r[k] for k in (
-                "n", "lanes", "counts", "main", "ms", "solo_ms", "plain_ms",
-                "bound_ms", "bound_by", "max_abs_err")} for r in mine]))
+                "n", "lanes", "counts", "main", "steps", "ms", "us_per_step",
+                "solo_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for r in mine]))
     for name in SHARDED:
         mine = [r for r in sharded_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])

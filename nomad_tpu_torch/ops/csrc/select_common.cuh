@@ -106,6 +106,215 @@ static __device__ void block_topk(const float* masked, int n, int k,
     }
 }
 
+// top_k(masked, k) for k up to TOPK_CAND, in a few passes over masked
+// instead of k argmax passes. Each score maps to an unsigned key that
+// orders as the floats do (order_key; -0.0 and +0.0 one key, as better()
+// holds them equal). Warp w owns the contiguous rows [w * seg, (w + 1) *
+// seg), read 32 consecutive rows a round. Radix passes of 8 bits from the
+// top find the window of keys holding rank k: each pass counts, in warp
+// w's own histogram row, its keys whose upper bits match the window so
+// far (one add a distinct digit a round, by its __match_any_sync leader:
+// no atomics), and narrows the window to the bin holding rank k; each
+// warp then adds up its own keys above the new window and in it, and
+// clears its row. The passes stop once every key at or above the window
+// fits the candidate buffer, or after the last pass, when the window is
+// the k-th key itself. Each read of a warp's rows loads TOPK_DEPTH rounds
+// ahead (rows_ahead). A block scan of the warps' counts then gives each
+// warp the slots of its candidates, in row order: every key above the
+// window, plus all of the window's keys (early stop) or its lowest rows
+// up to rank k (the ties of lax.top_k: value desc, index asc; rows at
+// NEG_INF included); a warp with none skips its second read. A rank sort
+// of the at most TOPK_CAND candidates, each one 64-bit (key, ~row) word,
+// writes tv[r], ti[r] for r < k, with the score's own bits. masked stays
+// in global memory (L1/L2-resident), so n is not limited; 3 barriers a
+// pass and 3 more. Every thread calls it, after a barrier that orders the
+// writes to masked before its reads; the results are visible to all
+// threads when it returns.
+#define TOPK_CAND 256
+#define RADIX 256
+#define TOPK_DEPTH 8   // rounds of rows a warp loads ahead
+
+struct TopkShared {
+    unsigned hist[NWARPS][RADIX];
+    unsigned long long cand[TOPK_CAND];
+    float val[TOPK_CAND];
+    int part[NT / TOPK_CAND][TOPK_CAND];
+    int seg[2][NWARPS];
+    int sel[3];
+};
+
+__device__ __forceinline__ unsigned order_key(float v) {
+    const unsigned u = v == 0.0f ? 0u : __float_as_uint(v);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The sum of x over a warp's lanes, in every lane.
+__device__ __forceinline__ int warp_sum(int x) {
+    for (int off = 16; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+}
+
+// The exclusive sum, over the warps before this one, of each warp's x
+// (one value a warp, in s[NWARPS]); called by every lane of a warp.
+__device__ __forceinline__ int warps_before(const int* s) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    return warp_sum(lane < warp ? s[lane] : 0);
+}
+
+// masked[x + 32 u] for u < TOPK_DEPTH (0 past hi): a warp's next rounds
+// of rows, loaded before any is used, so their latencies overlap.
+__device__ __forceinline__ void rows_ahead(const float* masked, int x,
+                                           int hi, float* v) {
+#pragma unroll
+    for (int u = 0; u < TOPK_DEPTH; ++u)
+        v[u] = x + 32 * u < hi ? masked[x + 32 * u] : 0.0f;
+}
+
+static __device__ void block_topk_radix(const float* masked, int n, int k,
+                                        float* tv, int* ti,
+                                        TopkShared& t) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int seg = ((n + NWARPS - 1) / NWARPS + 31) & ~31;
+    const int lo = min(n, warp * seg), hi = min(n, lo + seg);
+    unsigned* h = t.hist[warp];
+    for (int b = lane; b < RADIX; b += 32) h[b] = 0u;
+    __syncwarp();
+    unsigned prefix = 0u, pmask = 0u;
+    int above = 0;   // keys above the window
+    int krem = k;    // rank of the k-th key inside the window
+    int take = 0;    // window keys to take, lowest rows first
+    int wa = 0, wt = 0;   // this warp's keys above the window, and in it
+    for (int shift = 24;; shift -= 8) {
+        for (int x0 = lo; x0 < hi; x0 += 32 * TOPK_DEPTH) {
+            float v[TOPK_DEPTH];
+            rows_ahead(masked, x0 + lane, hi, v);
+#pragma unroll
+            for (int u = 0; u < TOPK_DEPTH; ++u) {
+                if (x0 + 32 * u >= hi) break;
+                unsigned dig = RADIX;   // out of the window: counted nowhere
+                if (x0 + 32 * u + lane < hi) {
+                    const unsigned key = order_key(v[u]);
+                    if ((key & pmask) == prefix)
+                        dig = (key >> shift) & 255u;
+                }
+                // a round with no row in the window adds nothing
+                if (!__any_sync(0xffffffffu, dig < RADIX)) continue;
+                const unsigned peers = __match_any_sync(0xffffffffu, dig);
+                if (dig < RADIX && lane == __ffs(peers) - 1)
+                    h[dig] += __popc(peers);
+                __syncwarp();   // the next round's leaders read these adds
+            }
+        }
+        __syncthreads();
+        // thread b < RADIX totals bin b over the warps, then the keys in
+        // the bins above b
+        int c = 0;
+        if (tid < RADIX)
+            for (int w = 0; w < NWARPS; ++w) c += t.hist[w][tid];
+        int s = c;   // bins [b, end of this warp's 32 bins]
+        for (int off = 1; off < 32; off <<= 1) {
+            const int o = __shfl_down_sync(0xffffffffu, s, off);
+            if (lane + off < 32) s += o;
+        }
+        if (tid < RADIX && lane == 0) t.seg[0][warp] = s;
+        __syncthreads();
+        if (tid < RADIX) {
+            int gt = s - c;
+            for (int w = warp + 1; w < RADIX / 32; ++w) gt += t.seg[0][w];
+            if (gt < krem && krem <= gt + c) {
+                t.sel[0] = tid;
+                t.sel[1] = gt;
+                t.sel[2] = c;
+            }
+        }
+        __syncthreads();
+        const int bin = t.sel[0], gt = t.sel[1], cb = t.sel[2];
+        int up = 0, in = 0;
+        for (int b = lane; b < RADIX; b += 32) {
+            const int cnt = (int)h[b];
+            up += b > bin ? cnt : 0;
+            in += b == bin ? cnt : 0;
+            h[b] = 0u;
+        }
+        __syncwarp();
+        wa += warp_sum(up);
+        wt = warp_sum(in);
+        above += gt;
+        krem -= gt;
+        prefix |= (unsigned)bin << shift;
+        pmask |= 255u << shift;
+        if (above + cb <= TOPK_CAND) { take = cb; break; }
+        if (shift == 0) { take = krem; break; }
+    }
+
+    // the candidates' slots, in row order
+    if (lane == 0) {
+        t.seg[0][warp] = wa;
+        t.seg[1][warp] = wt;
+    }
+    __syncthreads();
+    int ra = warps_before(t.seg[0]), rt = warps_before(t.seg[1]);
+    const int ra_end = ra + wa, rt_end = min(take, rt + wt);
+    const unsigned lt = (1u << lane) - 1u;
+    for (int x0 = lo; x0 < hi && (ra < ra_end || rt < rt_end);
+         x0 += 32 * TOPK_DEPTH) {
+        float v[TOPK_DEPTH];
+        rows_ahead(masked, x0 + lane, hi, v);
+#pragma unroll
+        for (int u = 0; u < TOPK_DEPTH; ++u) {
+            if (x0 + 32 * u >= hi) break;
+            const int x = x0 + 32 * u + lane;
+            bool up = false, tie = false;
+            unsigned key = 0u;
+            if (x < hi) {
+                key = order_key(v[u]);
+                up = (key & pmask) > prefix;
+                tie = (key & pmask) == prefix;
+            }
+            const unsigned bu = __ballot_sync(0xffffffffu, up);
+            const unsigned bt = __ballot_sync(0xffffffffu, tie);
+            int slot = -1;
+            if (up) slot = ra + __popc(bu & lt);
+            if (tie && rt + __popc(bt & lt) < take)
+                slot = above + rt + __popc(bt & lt);
+            if (slot >= 0) {
+                t.cand[slot] = ((unsigned long long)key << 32)
+                               | (unsigned)~x;
+                t.val[slot] = v[u];
+            }
+            ra += __popc(bu);
+            rt += __popc(bt);
+        }
+    }
+    __syncthreads();
+
+    // rank sort: candidate i's rank is the count of candidates before it
+    // in (key desc, row asc), i.e. of larger (key, ~row) words, summed
+    // over NT / TOPK_CAND parts
+    const int m = above + take;
+    const int i = tid % TOPK_CAND, p = tid / TOPK_CAND;
+    const int per = TOPK_CAND / (NT / TOPK_CAND);
+    if (i < m) {
+        const unsigned long long ci = t.cand[i];
+        const int end = min(m, (p + 1) * per);
+        int r = 0;
+#pragma unroll 8
+        for (int j = p * per; j < end; ++j) r += t.cand[j] > ci ? 1 : 0;
+        t.part[p][i] = r;
+    }
+    __syncthreads();
+    if (tid < m) {
+        int r = 0;
+        for (int q = 0; q < NT / TOPK_CAND; ++q) r += t.part[q][tid];
+        if (r < k) {
+            tv[r] = t.val[tid];
+            ti[r] = (int)~(unsigned)t.cand[tid];
+        }
+    }
+    __syncthreads();
+}
+
 // _local_final_score (select.py:411-443), term for term.
 __device__ __forceinline__ float local_score(
         float after0, float after1, float cap_cpu, float cap_mem, float coll,
@@ -163,6 +372,40 @@ struct Sweep {
     int cnt[D_MAX];
 };
 
+// Row x's masked score (its score where it is feasible and fits, NEG_INF
+// elsewhere), counting its first failing dimension and its ok into r. The
+// sweeps and the K-way kernel's winner-only rescoring both evaluate a row
+// through this one function, so the two give the same bits.
+__device__ __forceinline__ float local_row(const LocalArgs& a,
+                                           const float* s_ask, int x,
+                                           Sweep& r) {
+    bool feas = a.feasible[x] && (a.free_p[x] >= a.port_need)
+                && a.port_ok[x] && (a.dev_slots[x] >= 1.0f);
+    bool fit = true, earlier = true;
+    float after0 = 0.0f, after1 = 0.0f;
+#pragma unroll
+    for (int dd = 0; dd < D_MAX; ++dd) {
+        if (dd < a.d) {
+            float af = a.used[x * a.d + dd] + s_ask[dd];
+            bool f = af <= a.capacity[x * a.d + dd] + 1e-6f;
+            if (feas && earlier && !f) r.cnt[dd] += 1;
+            earlier = earlier && f;
+            fit = fit && f;
+            if (dd == 0) after0 = af;
+            if (dd == 1) after1 = af;
+        }
+    }
+    float cap_cpu = fmaxf(a.capacity[x * a.d + 0], 1e-9f);
+    float cap_mem = fmaxf(a.capacity[x * a.d + 1], 1e-9f);
+    float sc = local_score(after0, after1, cap_cpu, cap_mem,
+                           (float)a.coll[x], a.penalty[x] != 0,
+                           a.affinity[x], a.desired, a.spread_alg,
+                           a.dev_score[x], a.dev_fires, a.pre_score[x]);
+    bool ok = feas && fit;
+    if (ok) r.okc += 1;
+    return ok ? sc : NEG_INF;
+}
+
 // One sweep over the table rows [lo, hi): writes masked[x] for this
 // thread's rows.
 __device__ __forceinline__ Sweep local_sweep_rows(const LocalArgs& a,
@@ -172,34 +415,8 @@ __device__ __forceinline__ Sweep local_sweep_rows(const LocalArgs& a,
     r.okc = 0;
 #pragma unroll
     for (int dd = 0; dd < D_MAX; ++dd) r.cnt[dd] = 0;
-    for (int x = lo + threadIdx.x; x < hi; x += NT) {
-        bool feas = a.feasible[x] && (a.free_p[x] >= a.port_need)
-                    && a.port_ok[x] && (a.dev_slots[x] >= 1.0f);
-        bool fit = true, earlier = true;
-        float after0 = 0.0f, after1 = 0.0f;
-#pragma unroll
-        for (int dd = 0; dd < D_MAX; ++dd) {
-            if (dd < a.d) {
-                float af = a.used[x * a.d + dd] + s_ask[dd];
-                bool f = af <= a.capacity[x * a.d + dd] + 1e-6f;
-                if (feas && earlier && !f) r.cnt[dd] += 1;
-                earlier = earlier && f;
-                fit = fit && f;
-                if (dd == 0) after0 = af;
-                if (dd == 1) after1 = af;
-            }
-        }
-        float cap_cpu = fmaxf(a.capacity[x * a.d + 0], 1e-9f);
-        float cap_mem = fmaxf(a.capacity[x * a.d + 1], 1e-9f);
-        float sc = local_score(after0, after1, cap_cpu, cap_mem,
-                               (float)a.coll[x], a.penalty[x] != 0,
-                               a.affinity[x], a.desired, a.spread_alg,
-                               a.dev_score[x], a.dev_fires, a.pre_score[x]);
-        bool ok = feas && fit;
-        if (ok) r.okc += 1;
-        float m = ok ? sc : NEG_INF;
-        a.masked[x] = m;
-    }
+    for (int x = lo + threadIdx.x; x < hi; x += NT)
+        a.masked[x] = local_row(a, s_ask, x, r);
     return r;
 }
 

@@ -162,19 +162,62 @@ __global__ void __launch_bounds__(NT) chunked_batched_kernel(
 // (select.py:612-769). Outputs are written straight into the packed int
 // layout of select.py:765-768: per row [widx (W) | chunk (W) | top-k idx (5)
 // | exhausted (d) | feasible count | remaining | steps].
+//
+// Design (redesigned after the first version's 129 argmax passes a phase):
+//   * scores are node-local, so a phase changes masked only at the rows it
+//     placed on. masked is swept in full at each launch's first phase (a
+//     continuation launch too: the scratch is fresh); after that, each
+//     phase's winner threads rescore their own rows through local_row, the
+//     sweep's own per-row function. A phase whose top is invalid sweeps
+//     once more for the counts it reports (the loop ends there);
+//   * top_k(masked, W + 1) is block_topk_radix: a few radix passes over
+//     masked, a compaction in row order and a rank sort of <= 256
+//     candidates, in place of W + 1 argmax passes;
+//   * a chunk is min(max(first loser, 1), a_max), so each winner's stream
+//     stops at its first loser or once past a_max, in place of all
+//     W x CHUNK_J scores: a first round of 8 sub-placements for four
+//     winners a warp, then every later round (32 sub-placements) of every
+//     stream still open at once, shared by the warps (the double-precision
+//     pow of each score is what the streams cost).
+// Every output is bit for bit the first version's.
 // ---------------------------------------------------------------------------
+// The K-way streams' shared state: per winner, its first round's a_max,
+// first loser and whether it is still open, and the loser ballots of its
+// later rounds (32 sub-placements each, from sub-placement 8).
+#define STREAM_ROUNDS ((CHUNK_J - 8 + 31) / 32)
+struct StreamShared {
+    float a_max[W_MAX];
+    int fl[W_MAX];
+    int open[W_MAX];
+    int rounds[W_MAX];
+    unsigned lose[W_MAX * STREAM_ROUNDS];
+    unsigned lose0[STREAM_ROUNDS];
+    unsigned short pair[W_MAX * STREAM_ROUNDS];
+    int fl0, open0, npairs;
+};
+
+// The first loser of a stream still open after its first round, from the
+// ballots of its `rounds` later rounds; with none, the sub-placement its
+// walk stopped at (past a_max, or the end of the stream).
+__device__ __forceinline__ int stream_first_loser(const unsigned* lose,
+                                                  int rounds) {
+    for (int q = 0; q < rounds; ++q)
+        if (lose[q]) return 8 + 32 * q + __ffs(lose[q]) - 1;
+    return min(8 + 32 * rounds, CHUNK_J);
+}
+
 __device__ __forceinline__ void kway_body(const LocalArgs& a,
                                           const KwayOut& o) {
     __shared__ Red red;
+    // the top-k's scratch, and the streams' after it (never both live)
+    __shared__ union { TopkShared tk; StreamShared st; } sm;
     __shared__ float s_ask[D_MAX];
     __shared__ float s_tv[W_MAX + 1];
     __shared__ int s_ti[W_MAX + 1];
-    __shared__ unsigned s_lose[W_MAX * CHUNK_J / 32];
-    __shared__ unsigned s_lose0[CHUNK_J / 32];
     __shared__ float s_chunk[W_MAX];
-    __shared__ float s_amax0;
     __shared__ int s_ctl[2];
-    const int tid = threadIdx.x;
+    StreamShared& ss = sm.st;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int w = o.w;
     const int stride = 2 * w + TOP_K + a.d + 3;
     for (int s = tid; s < a.max_steps; s += NT) {
@@ -192,16 +235,25 @@ __device__ __forceinline__ void kway_body(const LocalArgs& a,
 
     int remaining = a.k_valid, step = 0;
     bool alive = true;
+    Sweep sw;
     while (remaining > 0 && alive && step < a.max_steps) {
-        const Sweep sw = local_sweep(a, s_ask);
-        block_topk(a.masked, a.n, w + 1, s_tv, s_ti, red);
-        __syncthreads();
+        // masked is swept in full at a launch's first phase only; after
+        // that each phase rescores the rows it placed on (below), the only
+        // rows whose carries it changed
+        if (step == 0) {
+            sw = local_sweep(a, s_ask);
+            __syncthreads();
+        }
+        block_topk_radix(a.masked, a.n, w + 1, s_tv, s_ti, sm.tk);
         const bool valid = s_tv[0] > HALF_NEG_INF;
         const float wl_val = s_tv[w];
         const int wl_idx = s_ti[w];
         int* row = o.packed + (size_t)step * stride;
 
         if (step == 0 || !valid) {
+            // a failing phase's counts: one more sweep, which rewrites
+            // masked with the values it holds
+            if (step > 0) sw = local_sweep(a, s_ask);
             for (int dd = 0; dd < a.d; ++dd) {
                 int tot = block_sum(sw.cnt[dd], red);
                 if (tid == 0) row[2 * w + TOP_K + dd] = tot;
@@ -224,67 +276,169 @@ __device__ __forceinline__ void kway_body(const LocalArgs& a,
             row[stride - 3] = -1;
         }
 
-        // [W, CHUNK_J] score streams: the losers of each winner's stream
-        // against the waterline, and of winner 0's against the runner-up,
-        // as per-warp ballots (w * CHUNK_J is a multiple of 32, so a warp
-        // is wholly inside the loop or wholly out)
-        for (int e = tid; e < w * CHUNK_J; e += NT) {
-            const int wi = e / CHUNK_J, j = e - wi * CHUNK_J;
-            const int c = s_ti[wi];
-            float fj = sub_score(a, s_ask, c, j);
-            bool wins = fj > wl_val || (fj == wl_val && c < wl_idx);
-            bool wins0 = wi != 0 || fj > s_tv[1]
-                         || (fj == s_tv[1] && c < s_ti[1]);
-            unsigned lose = __ballot_sync(0xffffffffu, !wins);
-            unsigned lose0 = __ballot_sync(0xffffffffu, !wins0);
-            if ((tid & 31) == 0) {
-                s_lose[e >> 5] = lose;
-                if (wi == 0) s_lose0[j >> 5] = lose0;
+        // the winners' CHUNK_J-long score streams, each walked until its
+        // first loser against the waterline, or until it has passed a_max
+        // (every chunk is capped there, so a later loser changes
+        // nothing). Winner 0's stream is also held against the runner-up
+        // (the overshoot fallback) by the same rule; it loses to the
+        // runner-up no later than to the waterline. A first round gives
+        // each winner 8 lanes of a warp (sub-placements 0-7: most streams
+        // end there), warp v winners v, v + 32, v + 64 and v + 96.
+        {
+            const int g = lane >> 3;
+            const int wi = warp + NWARPS * g;
+            int c = 0, fl = CHUNK_J, fl0 = CHUNK_J, open = 0, open0 = 0;
+            float a_max = 0.0f;
+            if (wi < w) {
+                c = s_ti[wi];
+                a_max = fminf(fit_cap(a, s_ask, c), (float)CHUNK_J);
+                open = s_tv[wi] > HALF_NEG_INF;
+                open0 = open && wi == 0;
+                if (open && 0.0f >= a_max) {
+                    fl = fl0 = 0;
+                    open = open0 = 0;
+                }
+            }
+            float fj = 0.0f;
+            if (open) fj = sub_score(a, s_ask, c, lane & 7);
+            const unsigned lose = __ballot_sync(
+                0xffffffffu,
+                open && !(fj > wl_val || (fj == wl_val && c < wl_idx)))
+                >> (8 * g) & 0xffu;
+            const unsigned lose0 = __ballot_sync(
+                0xffffffffu,
+                open0 && !(fj > s_tv[1] || (fj == s_tv[1] && c < s_ti[1])))
+                >> (8 * g) & 0xffu;
+            if (open && lose) {
+                fl = __ffs(lose) - 1;
+                open = 0;
+            }
+            if (open0 && lose0) {
+                fl0 = __ffs(lose0) - 1;
+                open0 = 0;
+            }
+            if ((lane & 7) == 0 && wi < w) {
+                ss.a_max[wi] = a_max;
+                ss.fl[wi] = fl;
+                ss.open[wi] = open;
+                if (wi == 0) {
+                    ss.fl0 = fl0;
+                    ss.open0 = open0;
+                }
+            }
+        }
+        __syncthreads();
+        // the streams still open go on from sub-placement 8, 32 a round,
+        // every round of every open stream at once: warp 0 lists them, one
+        // (winner, round) pair each up to the round that reaches a_max,
+        // and the warps share the list; a round past the stream's first
+        // loser is computed and not read
+        if (warp == 0) {
+            int nq[W_MAX / 32], tot = 0;
+            for (int r = 0; r < W_MAX / 32; ++r) {
+                const int k = (W_MAX / 32) * lane + r;
+                int q = 0;
+                if (k < w && ss.open[k])
+                    while (q < STREAM_ROUNDS
+                           && (float)(8 + 32 * q) < ss.a_max[k]) ++q;
+                nq[r] = q;
+                tot += q;
+            }
+            int start = tot;
+            for (int off = 1; off < 32; off <<= 1) {
+                const int o = __shfl_up_sync(0xffffffffu, start, off);
+                if (lane >= off) start += o;
+            }
+            if (lane == 31) ss.npairs = start;
+            start -= tot;
+            for (int r = 0; r < W_MAX / 32; ++r) {
+                const int k = (W_MAX / 32) * lane + r;
+                if (k < w) ss.rounds[k] = nq[r];
+                for (int q = 0; q < nq[r]; ++q)
+                    ss.pair[start++] = (unsigned short)(k * STREAM_ROUNDS + q);
+            }
+        }
+        __syncthreads();
+        for (int p = warp; p < ss.npairs; p += NWARPS) {
+            const int code = ss.pair[p];
+            const int k = code / STREAM_ROUNDS;
+            const int j = 8 + 32 * (code % STREAM_ROUNDS) + lane;
+            const int c = s_ti[k];
+            const float fj = sub_score(a, s_ask, c, j);
+            const unsigned l = __ballot_sync(
+                0xffffffffu, j < CHUNK_J
+                && !(fj > wl_val || (fj == wl_val && c < wl_idx)));
+            if (lane == 0) ss.lose[code] = l;
+            if (k == 0) {
+                const unsigned l0 = __ballot_sync(
+                    0xffffffffu, j < CHUNK_J
+                    && !(fj > s_tv[1] || (fj == s_tv[1] && c < s_ti[1])));
+                if (lane == 0) ss.lose0[code] = l0;
+            }
+        }
+        __syncthreads();
+        if (warp == 0) {
+            // each winner's chunk from its first loser; then the overshoot
+            // fallback (select.py:716-728): place on the best node only,
+            // chunked against the runner-up. The chunks are whole numbers
+            // and their sum is below 2^24, so the warp's sums are exact in
+            // any order.
+            float chunk[W_MAX / 32], chunk0 = 0.0f, total = 0.0f;
+            for (int r = 0; r < W_MAX / 32; ++r) {
+                const int k = lane + 32 * r;
+                chunk[r] = 0.0f;
+                if (k >= w) continue;
+                const float am = ss.a_max[k];
+                const int f = ss.open[k]
+                    ? stream_first_loser(ss.lose + k * STREAM_ROUNDS,
+                                         ss.rounds[k])
+                    : ss.fl[k];
+                chunk[r] = s_tv[k] > HALF_NEG_INF
+                    ? fminf(fmaxf((float)f, 1.0f), am) : 0.0f;
+                total = total + chunk[r];
+                if (k == 0) {
+                    const int f0 = ss.open0
+                        ? stream_first_loser(ss.lose0, ss.rounds[0])
+                        : ss.fl0;
+                    chunk0 = fminf(fminf(fmaxf((float)f0, 1.0f), am),
+                                   (float)remaining);
+                }
+            }
+            for (int off = 16; off > 0; off >>= 1)
+                total = total + __shfl_xor_sync(0xffffffffu, total, off);
+            chunk0 = __shfl_sync(0xffffffffu, chunk0, 0);
+            const bool first_only = total > (float)remaining;
+            int placed = 0;
+            for (int r = 0; r < W_MAX / 32; ++r) {
+                const int k = lane + 32 * r;
+                if (k >= w) continue;
+                float c = chunk[r];
+                if (first_only) c = k == 0 ? chunk0 : 0.0f;
+                if (!valid) c = 0.0f;
+                s_chunk[k] = c;
+                placed += (int)c;
+            }
+            placed = warp_sum(placed);
+            if (lane == 0) {
+                s_ctl[0] = remaining - placed;
+                s_ctl[1] = valid ? 1 : 0;
             }
         }
         __syncthreads();
         if (tid < w) {
-            const int c = s_ti[tid];
-            float a_max = fminf(fit_cap(a, s_ask, c), (float)CHUNK_J);
-            float chunk = fminf(
-                fmaxf((float)first_loser(s_lose + tid * (CHUNK_J / 32)),
-                      1.0f), a_max);
-            if (!(s_tv[tid] > HALF_NEG_INF)) chunk = 0.0f;
-            s_chunk[tid] = chunk;
-            if (tid == 0) s_amax0 = a_max;
-        }
-        __syncthreads();
-        if (tid == 0) {
-            // overshoot fallback (select.py:716-728): place on the best
-            // node only, chunked against the runner-up
-            float total = 0.0f;
-            for (int k = 0; k < w; ++k) total = total + s_chunk[k];
-            float chunk0 = fminf(fmaxf((float)first_loser(s_lose0), 1.0f),
-                                 s_amax0);
-            if (total > (float)remaining) {
-                s_chunk[0] = fminf(chunk0, (float)remaining);
-                for (int k = 1; k < w; ++k) s_chunk[k] = 0.0f;
-            }
-            if (!valid)
-                for (int k = 0; k < w; ++k) s_chunk[k] = 0.0f;
-        }
-        __syncthreads();
-        if (tid < w) {
-            // winner rows are distinct: one thread per row
+            // winner rows are distinct: one thread per row places, then
+            // rescores its row for the next phase (a row placed with
+            // chunk 0 rescores to the value it held)
             const int c = s_ti[tid];
             const float chunk = s_chunk[tid];
             const int chunk_i = (int)chunk;
             place(a, s_ask, c, chunk);
             row[tid] = chunk_i > 0 ? c : -1;
             row[w + tid] = chunk_i;
+            Sweep unused{};
+            a.masked[c] = local_row(a, s_ask, c, unused);
         }
-        __syncthreads();
-        if (tid == 0) {
-            int placed = 0;
-            for (int k = 0; k < w; ++k) placed += (int)s_chunk[k];
-            s_ctl[0] = remaining - placed;
-            s_ctl[1] = valid ? 1 : 0;
-        }
+        // the rescored rows before the next top-k reads them
         __syncthreads();
         remaining = s_ctl[0];
         alive = s_ctl[1] != 0;

@@ -12,38 +12,37 @@
 // or a parked mask's token may still be reading it.
 //
 // What bounds them on an H100: bytes, and at the main path's sizes (a
-// 256 KB used column, a 16 KB mask, m of 10 to 4,096 rows) the bound is
-// well under a microsecond, so a call costs its launches and the host work
-// around them.
+// 256 KB used column, a 64 KB port column, a 16 KB mask, m of 10 to 4,096
+// rows) the bound is well under a microsecond, so a call costs its launch
+// and the host work around it.
 //
-// scatter_set (first, simple version): the wrapper (ops/kernels.py) hands
-// the kernel a fresh copy of each column and the kernel writes the m rows
-// into it, one thread per (row, dim) element.
-//
-// overlay_add and feas_scatter (fused copy-and-patch): ONE launch writes
-// the whole output column exactly once, so no separate copy runs first.
-// Each block owns a contiguous tile of rows. Every thread loads its input
-// element into registers and clears its share of a slot map in shared
-// memory while the first warp finds the tile's slice [lo, hi) of the
-// sorted patch rows (two warp-wide searches over idx walked together, 32
-// probes each a round). After a barrier the block fills the map,
-// slot[r - r0] = k for patch row k (-1 elsewhere), and after a second
-// each thread adds (overlay_add) or sets (feas_scatter) the patch value
-// where slot >= 0 and writes its output once. The fill is shared by the
-// block, not left to the first warp: a 4,096-row mask tile may hold
-// thousands of patch rows. Nothing is ordered across blocks and no
-// atomics are needed: the wrapper proves on the host that the rows are in
-// range and distinct, and sorts them when they are not increasing.
-// `order` (may be null) maps a sorted position to the row of `vals`, for
-// values that are already on the card and were not sorted with the rows.
-// The wrapper ships the rows (and host-side values) in one asynchronous
-// upload of a pinned buffer.
+// All three are fused copy-and-patch kernels: ONE launch writes the whole
+// output (both columns, for scatter_set) exactly once, so no separate copy
+// runs first. Each block owns a contiguous tile of rows. Every thread
+// loads its input element into registers and clears its share of a slot
+// map in shared memory while the first warp finds the tile's slice
+// [lo, hi) of the sorted patch rows (two warp-wide searches over idx
+// walked together, 32 probes each a round). After a barrier the block
+// fills the map, slot[r - r0] = k for patch row k (-1 elsewhere), and
+// after a second each thread adds (overlay_add) or sets (scatter_set,
+// feas_scatter) the patch value where slot >= 0 and writes its output
+// once. The fill is shared by the block, not left to the first warp: a
+// 4,096-row mask tile may hold thousands of patch rows. Nothing is
+// ordered across blocks and no atomics are needed: the wrapper proves on
+// the host that the rows are in range and distinct, and sorts them when
+// they are not increasing (scatter_set's rows may repeat, as
+// `.at[idx].set` allows: the wrapper keeps each repeated row's last
+// value, as a sequential index_copy_ does). `order` (may be null) maps a
+// sorted position to the row of `vals`, for values that are already on
+// the card and were not sorted with the rows. The wrapper ships the rows
+// (and host-side values) in one asynchronous upload of a pinned buffer.
 //
 // Vector paths: at D = 4 a used row is one 16-byte float4 (one row a
-// thread); a mask is written 16 bytes (uint4) a thread, its ragged tail
-// byte by byte. Each is taken only when the input and output pointers are
-// 16-byte aligned (and, for overlay_add, D = 4); otherwise a scalar path
-// walks the tile element by element.
+// thread, with its port for scatter_set); a mask is written 16 bytes
+// (uint4) a thread, its ragged tail byte by byte. Each is taken only when
+// the input and output pointers are 16-byte aligned (and, for overlay_add
+// and scatter_set, D = 4); otherwise a scalar path walks the tile element
+// by element.
 //
 // overlay_add adds in IEEE float32 and nothing else (__fadd_rn; no FMA is
 // possible in a single add), so the result is bit-identical to the host's
@@ -57,21 +56,6 @@
 #define OVERLAY_TILE THREADS
 // feas_scatter: 16 bytes a thread on the vector path
 #define FEAS_TILE (THREADS * 16)
-
-__global__ void scatter_set_kernel(float* __restrict__ used,
-                                   float* __restrict__ ports,
-                                   const int* __restrict__ idx,
-                                   const float* __restrict__ used_rows,
-                                   const float* __restrict__ port_rows,
-                                   int m, int d) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)m * d) return;
-    int r = (int)(t / d);
-    int c = (int)(t - (long long)r * d);
-    long long row = idx[r];
-    used[row * d + c] = used_rows[t];
-    if (c == 0) ports[row] = port_rows[r];
-}
 
 // The tile's slice [lo, hi) of the sorted rows: lo the first k with
 // idx[k] >= r0 (m when none), hi the first with idx[k] >= r1. Called by a
@@ -166,6 +150,52 @@ overlay_add_kernel(const float* __restrict__ used, float* __restrict__ out,
     }
 }
 
+// `vals` and `pvals` each have their own order (null when the values were
+// packed in the rows' sorted order).
+__global__ void __launch_bounds__(THREADS)
+scatter_set_kernel(const float* __restrict__ used,
+                   const float* __restrict__ ports, float* __restrict__ out,
+                   float* __restrict__ out_ports, const int* __restrict__ idx,
+                   const float* __restrict__ vals,
+                   const int* __restrict__ order,
+                   const float* __restrict__ pvals,
+                   const int* __restrict__ porder, int n, int m, int d,
+                   int vec) {
+    __shared__ int slot[OVERLAY_TILE];
+    __shared__ int bounds[2];
+    const int r0 = blockIdx.x * OVERLAY_TILE;
+    const int rows = min(OVERLAY_TILE, n - r0);
+    const int t = threadIdx.x;
+    float4 row = make_float4(0.f, 0.f, 0.f, 0.f);
+    float port = 0.f;
+    if (t < rows) {
+        port = ports[r0 + t];
+        if (vec) row = reinterpret_cast<const float4*>(used)[r0 + t];
+    }
+    tile_slots(idx, m, r0, rows, slot, bounds);
+    if (t < rows) {
+        const int k = slot[t];
+        if (k >= 0) port = pvals[porder ? porder[k] : k];
+        out_ports[r0 + t] = port;
+        if (vec) {
+            if (k >= 0) {
+                const float* v = vals + (long long)(order ? order[k] : k) * 4;
+                row = make_float4(v[0], v[1], v[2], v[3]);
+            }
+            reinterpret_cast<float4*>(out)[r0 + t] = row;
+        }
+    }
+    if (vec) return;
+    const long long base = (long long)r0 * d;
+    for (int e = t; e < rows * d; e += THREADS) {
+        const int r = e / d;
+        const int k = slot[r];
+        out[base + e] = k >= 0
+            ? vals[(long long)(order ? order[k] : k) * d + (e - r * d)]
+            : used[base + e];
+    }
+}
+
 __global__ void __launch_bounds__(THREADS)
 feas_scatter_kernel(const uint8_t* __restrict__ mask,
                     uint8_t* __restrict__ out,
@@ -209,14 +239,18 @@ static bool aligned16(const void* a, const void* b) {
     return (((uintptr_t)a | (uintptr_t)b) & 15u) == 0;
 }
 
-extern "C" int nomad_scatter_set(float* used, float* ports, const int* idx,
-                                 const float* used_rows,
-                                 const float* port_rows, int m, int d,
+extern "C" int nomad_scatter_set(const float* used, const float* ports,
+                                 float* out, float* out_ports,
+                                 const int* idx, const float* vals,
+                                 const int* order, const float* pvals,
+                                 const int* porder, int n, int m, int d,
                                  void* stream) {
-    if (m < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    scatter_set_kernel<<<blocks_for((long long)m * d, THREADS), THREADS, 0,
-                         (cudaStream_t)stream>>>(used, ports, idx, used_rows,
-                                                 port_rows, m, d);
+    if (n < 1 || m < 1 || d < 1) return (int)cudaErrorInvalidValue;
+    const int vec = d == 4 && aligned16(used, out);
+    scatter_set_kernel<<<blocks_for(n, OVERLAY_TILE), THREADS, 0,
+                         (cudaStream_t)stream>>>(used, ports, out, out_ports,
+                                                 idx, vals, order, pvals,
+                                                 porder, n, m, d, vec);
     return (int)cudaGetLastError();
 }
 

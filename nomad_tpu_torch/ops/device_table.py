@@ -348,12 +348,13 @@ class DeviceNodeTable:
         from ..utils import stages
 
         t0 = _time.perf_counter() if stages.enabled else 0.0
-        idx = _rows(rows)
-        rows_np = idx.numpy()
+        # the host table's rows and values go to the wrapper as numpy
+        # arrays, packed from there straight into its upload
+        idx = _rows(rows).numpy()
         used, ports = kernels.scatter_set(
             st.used, st.free_ports, idx,
-            torch.from_numpy(table.base_used[rows_np].astype(np.float32)),
-            torch.from_numpy(table.free_ports[rows_np].astype(np.float32)))
+            table.base_used[idx].astype(np.float32, copy=False),
+            table.free_ports[idx].astype(np.float32, copy=False))
         if stages.enabled:
             stages.add("h2d", _time.perf_counter() - t0)
         self.delta_debt += m

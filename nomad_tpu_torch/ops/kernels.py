@@ -217,6 +217,26 @@ def _f32(x, device):
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
+def _local_sweep(capacity, used, feasible, ask, coll, penalty,
+                 affinity_norm, desired_count, port_need, free_p, port_ok,
+                 dev_slots, dev_score, dev_fires, pre_score, spread_alg):
+    """One sweep of the node-local kernels over every row, from the carries
+    (used, coll, free_p, dev_slots): (masked, feas, fit_dims, ok), masked
+    the score where a row is feasible and fits and NEG_INF elsewhere. Row
+    x's masked value reads only row x of the carries and the inputs."""
+    feas = feasible.bool() & (free_p >= port_need) & port_ok.bool() & \
+        (dev_slots >= 1.0)
+    after = used + ask[None, :]
+    fit_dims = after <= capacity + 1e-6
+    ok = feas & fit_dims.all(dim=1)
+    final = _local_final_score(
+        after, torch.clamp(capacity[:, 0], min=1e-9),
+        torch.clamp(capacity[:, 1], min=1e-9), coll, penalty.bool(),
+        affinity_norm, desired_count, spread_alg, dev_score, dev_fires,
+        pre_score)
+    return torch.where(ok, final, NEG_INF), feas, fit_dims, ok
+
+
 # -- chunked ---------------------------------------------------------------
 
 def chunked_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, penalty,
@@ -249,16 +269,10 @@ def chunked_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, penalty,
     big = _f32(1e9, dev)
     remaining, step, alive = int(k_valid), 0, True
     while remaining > 0 and alive and step < max_steps:
-        feas = feasible & (free_p >= port_need) & port_ok & \
-            (dev_slots >= 1.0)
-        after = used + ask[None, :]
-        fit_dims = after <= capacity + 1e-6
-        fit = fit_dims.all(dim=1)
-        final = _local_final_score(after, cap_cpu, cap_mem, coll, penalty,
-                                   affinity_norm, desired_count, spread_alg,
-                                   dev_score, dev_fires, pre_score)
-        ok = feas & fit
-        masked = torch.where(ok, final, NEG_INF)
+        masked, feas, fit_dims, ok = _local_sweep(
+            capacity, used, feasible, ask, coll, penalty, affinity_norm,
+            desired_count, port_need, free_p, port_ok, dev_slots, dev_score,
+            dev_fires, pre_score, spread_alg)
         if shards == 1:
             choice = int(torch.argmax(masked))
             masked2 = masked.clone()
@@ -357,16 +371,10 @@ def kway_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, penalty,
     big = _f32(1e9, dev)
     remaining, step, alive = int(k_valid), 0, True
     while remaining > 0 and alive and step < max_steps:
-        feas = feasible & (free_p >= port_need) & port_ok & \
-            (dev_slots >= 1.0)
-        after = used + ask[None, :]
-        fit_dims = after <= capacity + 1e-6
-        fit = fit_dims.all(dim=1)
-        final = _local_final_score(after, cap_cpu, cap_mem, coll, penalty,
-                                   affinity_norm, desired_count, spread_alg,
-                                   dev_score, dev_fires, pre_score)
-        ok = feas & fit
-        masked = torch.where(ok, final, NEG_INF)
+        masked, feas, fit_dims, ok = _local_sweep(
+            capacity, used, feasible, ask, coll, penalty, affinity_norm,
+            desired_count, port_need, free_p, port_ok, dev_slots, dev_score,
+            dev_fires, pre_score, spread_alg)
         tv, ti_all = _topk_shards(masked, w + 1, shards)
         widx = ti_all[:w].long()
         wl_val, wl_idx = tv[w], int(ti_all[w])
@@ -738,7 +746,7 @@ _ARGTYPES = {
     "nomad_select_kway_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_I, _P, _P, _P],
     "nomad_select_scan_batched": [_P] * 29 + [_I] * 7 + [_P] * 7 + [_P] * 14,
-    "nomad_scatter_set": [_P] * 5 + [_I, _I, _P],
+    "nomad_scatter_set": [_P] * 9 + [_I] * 3 + [_P],
     "nomad_overlay_add": [_P] * 5 + [_I] * 3 + [_P],
     "nomad_feas_scatter": [_P] * 5 + [_I] * 2 + [_P],
     "nomad_select_scan_sharded": [_P] * 29 + [_I] * 7 + [_F] * 6 + [_P] * 13
@@ -1256,26 +1264,18 @@ def select_scan_batched(*, k_steps: int, spread_alg: bool, s_live: int,
 
 def _cpu_rows(idx) -> np.ndarray:
     """A scatter's row indices as a numpy view, checked to be a 1-d int32
-    tensor on the CPU."""
-    if not isinstance(idx, torch.Tensor) or idx.device.type != "cpu" \
-            or idx.dtype != torch.int32 or idx.dim() != 1:
-        raise ValueError("idx must be a 1-d int32 tensor on the CPU")
-    return idx.numpy()
+    tensor on the CPU or a 1-d int32 numpy array."""
+    a = idx.numpy() if isinstance(idx, torch.Tensor) \
+        and idx.device.type == "cpu" else idx
+    if not isinstance(a, np.ndarray) or a.dtype != np.int32 or a.ndim != 1:
+        raise ValueError("idx must be a 1-d int32 tensor on the CPU or a "
+                         "1-d int32 numpy array")
+    return a
 
 
 def _in_range(lo: int, hi: int, n: int) -> None:
     if lo < 0 or hi >= n:
         raise ValueError(f"rows span [{lo}, {hi}], outside [0, {n})")
-
-
-def _host_rows(idx, n: int) -> int:
-    """Checks a scatter's row indices on the host: every row in [0, n). An
-    index out of range would be an out-of-bounds write on the card.
-    Returns the row count."""
-    a = _cpu_rows(idx)
-    if a.size:
-        _in_range(int(a.min()), int(a.max()), n)
-    return a.size
 
 
 def _patch_rows(idx, n: int):
@@ -1285,15 +1285,44 @@ def _patch_rows(idx, n: int):
     order and order None when idx already was, else the int32 permutation
     with rows = idx[order]. Plan and journal rows mostly arrive
     increasing, which proves them distinct in O(m)."""
-    rows, order = _cpu_rows(idx), None
-    if rows.size > 1 and not (rows[1:] > rows[:-1]).all():
-        order = np.argsort(rows, kind="stable").astype(np.int32)
-        rows = rows[order]
-        if (rows[1:] == rows[:-1]).any():
-            raise ValueError("patch rows repeat")
+    rows, order = _sorted_rows(idx)
+    if rows.size > 1 and (rows[1:] == rows[:-1]).any():
+        raise ValueError("patch rows repeat")
+    _rows_in(rows, n)
+    return rows, order
+
+
+def _set_rows(idx, n: int):
+    """scatter_set's rows checked on the host (in [0, n)) and sorted as
+    _patch_rows sorts them, except that a row may repeat, as
+    `.at[idx].set` allows: each repeated row is kept once, at its last
+    occurrence in idx (the value a sequential index_copy_ leaves), and
+    order then lists the kept rows' positions in idx."""
+    rows, order = _sorted_rows(idx)
+    if order is not None:
+        last = np.append(rows[1:] != rows[:-1], True)
+        if not last.all():
+            rows, order = rows[last], order[last]
+    _rows_in(rows, n)
+    return rows, order
+
+
+def _sorted_rows(idx):
+    """(rows, order): idx's rows in increasing order by a stable sort, and
+    the int32 permutation with rows = idx[order], None when idx was
+    strictly increasing already."""
+    rows = _cpu_rows(idx)
+    if rows.size < 2 or (rows[1:] > rows[:-1]).all():
+        return rows, None
+    order = np.argsort(rows, kind="stable").astype(np.int32)
+    return rows[order], order
+
+
+def _rows_in(rows, n: int) -> None:
+    """Sorted rows in [0, n): an index out of range would be an
+    out-of-bounds write on the card."""
     if rows.size:
         _in_range(int(rows[0]), int(rows[-1]), n)
-    return rows, order
 
 
 def pack_host(arrays, pin: bool = False):
@@ -1313,64 +1342,90 @@ def pack_host(arrays, pin: bool = False):
     return buf, offsets
 
 
-def _patch_on(device, rows, order, vals, dtype, shape):
-    """A patch on the card with no synchronising copy: (buffer, idx, vals,
-    order), the device buffer of ONE asynchronous upload of a pinned host
-    buffer (hold it until the launch returns) and the kernel's three
-    pointers (order 0 for none). Host values are packed with the rows in
-    the rows' sorted order; values already on the card are read in place,
-    and the order that sorted the rows, where there is one, is packed
-    with the rows for the kernel to follow. PyTorch's caching host
-    allocator does not hand the pinned buffer out again before the copy
-    that reads it has run, so it is dropped at once."""
-    if not isinstance(vals, torch.Tensor):
-        raise TypeError(f"vals: expected a tensor, got {type(vals)}")
-    on_card = vals.device == device
-    v = vals.contiguous()
-    _check("vals", v, dtype, shape, device if on_card else _CPU)
-    if on_card:
-        parts = [rows] if order is None else [rows, order]
-    else:
-        a = v.numpy()
-        parts = [rows, a if order is None else a[order]]
-    host, offsets = pack_host(parts, pin=True)
+_NUMPY = {torch.float32: np.float32, torch.bool: np.bool_}
+
+
+def _host_values(name: str, vals, dtype, shape) -> np.ndarray:
+    """Row values on the host (a CPU tensor or a numpy array) as a numpy
+    array, checked."""
+    if isinstance(vals, torch.Tensor):
+        if vals.device.type != "cpu":
+            raise ValueError(f"{name}: on {vals.device}, expected the CPU "
+                             "or the table's device")
+        vals = vals.contiguous()
+        _check(name, vals, dtype, shape, _CPU)
+        return vals.numpy()
+    if not isinstance(vals, np.ndarray):
+        raise TypeError(f"{name}: expected a tensor or an array, got "
+                        f"{type(vals)}")
+    if vals.dtype != _NUMPY[dtype] or vals.shape != tuple(shape):
+        raise ValueError(f"{name}: {vals.dtype} {vals.shape}, expected "
+                         f"{dtype} {tuple(shape)}")
+    return vals
+
+
+def _patch_on(device, rows, order, parts):
+    """A patch on the card with no synchronising copy: (held, idx, ptrs).
+    `parts` lists the value arrays as (name, vals, dtype, shape); ptrs
+    gives each one's (values, order) pointers for the kernel (order 0 for
+    none). ONE asynchronous upload of a pinned host buffer carries the
+    rows, the host values packed in the rows' sorted order, and, where
+    values already on the card are read in place and the rows were
+    sorted, the order that sorted them. `held` (the device buffer and the
+    values on the card) is kept until the launch is enqueued. PyTorch's
+    caching host allocator does not hand the pinned buffer out again
+    before the copy that reads it has run, so it is dropped at once."""
+    arrays, slots, held = [rows], [], []
+    for name, vals, dtype, shape in parts:
+        if isinstance(vals, torch.Tensor) and vals.device == device:
+            v = vals.contiguous()
+            _check(name, v, dtype, shape, device)
+            slots.append(v)
+            held.append(v)
+        else:
+            a = _host_values(name, vals, dtype, shape)
+            slots.append(len(arrays))
+            arrays.append(a if order is None else a[order])
+    card_order = order is not None and len(held) > 0
+    if card_order:
+        arrays.append(order)
+    host, offsets = pack_host(arrays, pin=True)
     buf = host.to(device, non_blocking=True)
     base = buf.data_ptr()
-    if on_card:
-        return buf, base, v.data_ptr(), \
-            (base + offsets[1] if order is not None else 0)
-    return buf, base, base + offsets[1], 0
-
-
-def _rows_on(name: str, t, dtype, shape, device) -> torch.Tensor:
-    """Row values on the table's device, checked."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t)}")
-    t = t.to(device).contiguous()
-    _check(name, t, dtype, shape, device)
-    return t
+    o = base + offsets[-1] if card_order else 0
+    ptrs = [(s.data_ptr(), o) if isinstance(s, torch.Tensor)
+            else (base + offsets[s], 0) for s in slots]
+    return [buf] + held, base, ptrs
 
 
 def scatter_set(used, ports, idx, used_rows, port_rows):
     """The resident table advanced past an alloc delta: new (used, ports)
-    with the rows idx set; arguments and results as scatter_set_plain."""
-    m = _host_rows(idx, used.shape[0])
+    with the rows idx set; arguments and results as scatter_set_plain,
+    except that idx and the row values may also be numpy arrays (the host
+    table's own). A repeated row takes its last value. On the card: one
+    fused copy-and-patch launch that writes both columns, fed by one
+    asynchronous upload."""
+    rows, order = _set_rows(idx, used.shape[0])
     if _is_cpu(used):
-        return scatter_set_plain(used, ports, idx, used_rows, port_rows)
-    if m == 0:
-        return used.clone(), ports.clone()
+        return scatter_set_plain(used, ports, torch.as_tensor(idx),
+                                 torch.as_tensor(used_rows),
+                                 torch.as_tensor(port_rows))
     dev = used.device
     n, d = used.shape
     _check("used", used, torch.float32, (n, d), dev)
     _check("ports", ports, torch.float32, (n,), dev)
-    rows = _rows_on("used_rows", used_rows, torch.float32, (m, d), dev)
-    prow = _rows_on("port_rows", port_rows, torch.float32, (m,), dev)
-    i = idx.to(dev)
-    out_used, out_ports = used.clone(), ports.clone()
-    lib = load_library()
-    rc = lib.nomad_scatter_set(out_used.data_ptr(), out_ports.data_ptr(),
-                               i.data_ptr(), rows.data_ptr(),
-                               prow.data_ptr(), m, d, _stream(dev))
+    if rows.size == 0:
+        return used.clone(), ports.clone()
+    m = _cpu_rows(idx).size
+    held, i, ((v, o), (pv, po)) = _patch_on(
+        dev, rows, order,
+        [("used_rows", used_rows, torch.float32, (m, d)),
+         ("port_rows", port_rows, torch.float32, (m,))])
+    out_used, out_ports = torch.empty_like(used), torch.empty_like(ports)
+    rc = load_library().nomad_scatter_set(
+        used.data_ptr(), ports.data_ptr(), out_used.data_ptr(),
+        out_ports.data_ptr(), i, v, o, pv, po, n, rows.size, d,
+        _stream(dev))
     _raise_on(rc, "scatter_set")
     LAUNCHES["scatter_set"] += 1
     return out_used, out_ports
@@ -1388,8 +1443,9 @@ def overlay_add(used, idx, vals):
     dev = used.device
     n, d = used.shape
     _check("used", used, torch.float32, (n, d), dev)
-    buf, i, v, o = _patch_on(dev, rows, order, vals, torch.float32,
-                             (rows.size, d))
+    held, i, ((v, o),) = _patch_on(dev, rows, order,
+                                   [("vals", vals, torch.float32,
+                                     (rows.size, d))])
     out = torch.empty_like(used)
     rc = load_library().nomad_overlay_add(
         used.data_ptr(), out.data_ptr(), i, v, o, n, rows.size, d,
@@ -1412,8 +1468,9 @@ def feas_scatter(mask, idx, vals):
     dev = mask.device
     n = mask.shape[0]
     _check("mask", mask, torch.bool, (n,), dev)
-    buf, i, v, o = _patch_on(dev, rows, order, vals, torch.bool,
-                             (rows.size,))
+    held, i, ((v, o),) = _patch_on(dev, rows, order,
+                                   [("vals", vals, torch.bool,
+                                     (rows.size,))])
     out = torch.empty_like(mask)
     rc = load_library().nomad_feas_scatter(
         mask.data_ptr(), out.data_ptr(), i, v, o, n, rows.size,

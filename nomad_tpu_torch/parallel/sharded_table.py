@@ -137,12 +137,13 @@ class ShardedDeviceNodeTable:
     def _scatter_locked(self, st: DeviceTableState, table,
                         rows: np.ndarray) -> DeviceTableState:
         m = len(rows)
-        idx = _rows(rows)
-        rows_np = idx.numpy()
+        # the host table's rows and values go to the wrapper as numpy
+        # arrays, packed from there straight into its upload
+        idx = _rows(rows).numpy()
         used, ports = kernels.scatter_set(
             st.used, st.free_ports, idx,
-            torch.from_numpy(table.base_used[rows_np].astype(np.float32)),
-            torch.from_numpy(table.free_ports[rows_np].astype(np.float32)))
+            table.base_used[idx].astype(np.float32, copy=False),
+            table.free_ports[idx].astype(np.float32, copy=False))
         self.delta_debt += m
         self.stats["delta_scatters"] += 1
         self.stats["delta_rows"] += m

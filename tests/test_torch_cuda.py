@@ -9,7 +9,9 @@ import torch
 from nomad_tpu_torch.ops import kernels
 from nomad_tpu_torch.ops import select as tsel
 from nomad_tpu_torch.state.carry import select_request_from_arrays
-from test_torch_device_table import EDGE_CASES, edge_inputs
+from test_torch_device_table import EDGE_CASES, edge_inputs, set_case
+from test_torch_kway import EDGE_CASES as KWAY_EDGE_CASES
+from test_torch_kway import kway_edge_args
 from test_torch_select import N_NODES, _fields
 
 pytestmark = pytest.mark.cuda
@@ -188,6 +190,121 @@ def test_fused_scatters_make_no_synchronising_call(cuda):
                                                     torch.from_numpy(vals)))
     assert torch.equal(b, kernels.feas_scatter_plain(
         mk, idx, torch.from_numpy(bits)))
+
+
+@pytest.mark.parametrize("label", ["one_row", "tile_edges", "ragged_10001",
+                                   "out_of_order", "repeated_equal",
+                                   "repeated_different", "offset"])
+@pytest.mark.parametrize("vals_on", ["host", "card"])
+def test_scatter_set_edge_shapes_on_card(cuda, label, vals_on):
+    """The fused scatter_set: one launch writing both columns, equal bit
+    for bit to scatter_set_plain on the CPU (where a repeated row's last
+    value wins), its inputs left as they were; columns 4 bytes off
+    alignment take the scalar path."""
+    used, ports, rows, vals, prow = set_case(label)
+    u, p = torch.from_numpy(used).to(cuda), torch.from_numpy(ports).to(cuda)
+    if label == "offset":
+        flat = torch.empty(u.numel() + 1, dtype=torch.float32, device=cuda)
+        flat[1:].copy_(u.view(-1))
+        u = flat[1:].view(u.shape)
+        assert u.data_ptr() % 16 == 4
+    v, pv = torch.from_numpy(vals), torch.from_numpy(prow)
+    if vals_on == "card":
+        v, pv = v.to(cuda), pv.to(cuda)
+    keep = (u.clone(), p.clone())
+    before = kernels.LAUNCHES["scatter_set"]
+    got = kernels.scatter_set(u, p, torch.from_numpy(rows), v, pv)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_set"] == before + 1
+    want = kernels.scatter_set_plain(
+        torch.from_numpy(used), torch.from_numpy(ports),
+        torch.from_numpy(rows), torch.from_numpy(vals),
+        torch.from_numpy(prow))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    assert torch.equal(u, keep[0]) and torch.equal(p, keep[1])
+
+
+def test_scatter_set_makes_no_synchronising_call(cuda):
+    """scatter_set, given host rows and host values (numpy, as the mirror
+    gives them), runs under sync debug mode "error"."""
+    used, ports, rows, vals, prow = set_case("out_of_order")
+    u, p = torch.from_numpy(used).to(cuda), torch.from_numpy(ports).to(cuda)
+    kernels.load_library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernels.scatter_set(u, p, rows, vals, prow)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = kernels.scatter_set_plain(u, p, torch.from_numpy(rows),
+                                     torch.from_numpy(vals),
+                                     torch.from_numpy(prow))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _on(cuda, args):
+    return {k: torch.from_numpy(v).to(cuda) if isinstance(v, np.ndarray)
+            else v for k, v in args.items()}
+
+
+@pytest.mark.parametrize("spread_alg", [False, True])
+@pytest.mark.parametrize("label", sorted(KWAY_EDGE_CASES))
+def test_kway_edge_shapes_on_card(cuda, label, spread_alg):
+    """The K-way kernel (radix top-(W + 1), winner-only rescoring, streams
+    that stop at their first loser) at the edge shapes, with a 2-phase
+    budget so that launches continue from the card's own carry: every
+    launch equal to kway_plain bit for bit."""
+    n, count, kind = KWAY_EDGE_CASES[label]
+    w = tsel._kway_w(tsel._pad_n(n))
+    targs = _on(cuda, kway_edge_args(n, count, kind, w, seed=1))
+    kw = dict(max_steps=2, spread_alg=spread_alg, w=w)
+    for _launch in range(6):
+        got = kernels.select_kway(**targs, **kw)
+        torch.cuda.synchronize()
+        want = kernels.kway_plain(**targs, **kw)
+        _assert_equal(got[0], want[0])
+        _assert_equal(got[1], want[1])
+        packed = got[1][0]
+        rem = int(packed[0, -2])
+        if rem <= 0 or int(packed[:, w:2 * w].sum()) == 0:
+            break
+        used, coll, freep, devs = got[0]
+        targs.update(used0=used, tg_coll0=coll, free_ports=freep,
+                     dev_slots0=devs, k_valid=rem)
+
+
+def test_kway_batched_mixed_lanes_on_card(cuda):
+    """Four K-way lanes over one capacity table with mixed counts and
+    feasibility (10, 600 and 600 instances, the last lane with no feasible
+    row): the batched launch equals the batched plain version and each
+    lane's solo kernel, exactly."""
+    n, w = 200, 32
+    lanes = [kway_edge_args(n, c, kind, w, seed=2)
+             for c, kind in ((10, "random"), (600, "random"), (600, "few"),
+                             (600, "none"))]
+    targs = {}
+    for k in lanes[0]:
+        if k == "capacity":
+            targs[k] = lanes[0][k]
+        elif k == "k_valid":
+            targs[k] = np.array([ln[k] for ln in lanes], np.int32)
+        elif isinstance(lanes[0][k], np.ndarray):
+            targs[k] = np.stack([ln[k] for ln in lanes])
+        else:
+            targs[k] = np.array([ln[k] for ln in lanes], np.float32)
+    targs = _on(cuda, targs)
+    kw = dict(max_steps=tsel._kway_steps(w), spread_alg=False, w=w)
+    got = kernels.select_kway_batched(**targs, **kw)
+    torch.cuda.synchronize()
+    want = kernels.kway_batched_plain(**targs, **kw)
+    _assert_equal(got[0], want[0])
+    _assert_equal(got[1], want[1])
+    for i in range(len(lanes)):
+        s_carry, s_outs = kernels.select_kway(**kernels.lane_args(targs, i),
+                                              **kw)
+        _assert_equal([t[i] for t in got[0]], s_carry)
+        _assert_equal([t[i] for t in got[1]], s_outs)
 
 
 @pytest.mark.parametrize("kind", ["chunked", "kway", "scan"])

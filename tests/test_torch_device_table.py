@@ -11,6 +11,12 @@ on CPU tensors, where the scatter wrappers run their plain versions.
 - The wrappers' host checks: a row out of range and a repeated overlay
   or feasibility row raise ValueError; distinct rows out of order are
   sorted (with their values) to the same result.
+- scatter_set at SET_CASES (rows out of order, a repeated row with equal
+  and with different values, tile edges, no row): against the JAX
+  program where a repeated row carries one value and against each row's
+  last value everywhere; numpy rows and values; the card path's host
+  helper (`_set_rows`: sort, last-wins dedupe, the order it returns) and
+  the layout of its one upload.
 - The plain overlay_add and feas_scatter against the JAX programs at the
   fused kernels' edge shapes (EDGE_CASES: one row, rows 0 and n_pad - 1,
   the tiles' first and last rows, every row, an n_pad that is not a
@@ -314,6 +320,131 @@ def test_sorted_rows_out_of_range_raise(which, end):
         else:
             kernels.feas_scatter(torch.from_numpy(mask), idx,
                                  torch.from_numpy(bits))
+
+
+# scatter_set's shapes: the fused kernel's tiles (256 rows), and the row
+# lists a repeat-tolerant `.at[idx].set` takes, as (n_pad, rows every case
+# holds, rows drawn at random besides, how they are arranged). "offset" is
+# "out_of_order" on a column 4 bytes off alignment (on the card).
+SET_CASES = {
+    "one_row": (1001, [517], 0, "sorted"),
+    "tile_edges": (8200, [0, 255, 256, 511, 4095, 4096, 8191, 8192, 8199],
+                   0, "sorted"),
+    "ragged_10001": (10_001, [0, 9999, 10_000], 300, "sorted"),
+    "out_of_order": (10_001, [0, 10_000], 200, "shuffled"),
+    "offset": (10_001, [0, 10_000], 200, "shuffled"),
+    "repeated_equal": (1000, [3, 999], 40, "repeat_equal"),
+    "repeated_different": (1000, [3, 999], 40, "repeat_different"),
+    "empty": (1000, [], 0, "sorted"),
+}
+
+
+def set_case(label):
+    """(used [n_pad, 4], ports [n_pad], rows, used_rows, port_rows) of one
+    scatter_set case, from a seed. A repeated row comes back at random
+    places in rows, with its first value (repeat_equal) or a new one."""
+    n_pad, fixed, extra, how = SET_CASES[label]
+    rng = np.random.default_rng(100 + sorted(SET_CASES).index(label))
+    rows = np.unique(np.concatenate(
+        [np.asarray(fixed, np.int64),
+         rng.choice(n_pad, extra, replace=False)])).astype(np.int32)
+    used = rng.uniform(0, 8000, (n_pad, D)).astype(np.float32)
+    ports = rng.integers(0, 12000, n_pad).astype(np.float32)
+    vals = rng.uniform(-500, 500, (rows.size, D)).astype(np.float32)
+    prow = rng.integers(0, 12000, rows.size).astype(np.float32)
+    if how.startswith("repeat"):
+        again = rng.choice(rows.size, 6, replace=False)
+        rows = np.concatenate([rows, rows[again]])
+        more_v = vals[again] if how == "repeat_equal" else \
+            rng.uniform(-500, 500, (6, D)).astype(np.float32)
+        more_p = prow[again] if how == "repeat_equal" else \
+            rng.integers(0, 12000, 6).astype(np.float32)
+        vals, prow = np.concatenate([vals, more_v]), np.concatenate(
+            [prow, more_p])
+    if how != "sorted":
+        perm = rng.permutation(rows.size)
+        rows, vals, prow = rows[perm], vals[perm], prow[perm]
+    return used, ports, rows, vals, prow
+
+
+@pytest.mark.parametrize("label", sorted(SET_CASES))
+def test_scatter_set_cases_match_jax(label):
+    """scatter_set (the plain version, here) at its edge shapes: against
+    the JAX package's `_scatter_set` where a repeated row carries one
+    value (its semantics are defined there), and against the last value
+    of each repeated row, set in order on the host, everywhere."""
+    used, ports, rows, vals, prow = set_case(label)
+    got_u, got_p = kernels.scatter_set(
+        torch.from_numpy(used), torch.from_numpy(ports),
+        torch.from_numpy(rows), torch.from_numpy(vals),
+        torch.from_numpy(prow))
+    want_u, want_p = used.copy(), ports.copy()
+    for r, v, p in zip(rows, vals, prow):
+        want_u[r], want_p[r] = v, p
+    _bytes_equal(got_u.numpy(), want_u)
+    _bytes_equal(got_p.numpy(), want_p)
+    if label != "repeated_different":
+        ju, jp = jdt._scatter_set(jnp.asarray(used), jnp.asarray(ports),
+                                  rows, vals, prow)
+        _bytes_equal(got_u.numpy(), ju)
+        _bytes_equal(got_p.numpy(), jp)
+
+
+@pytest.mark.parametrize("label", sorted(SET_CASES))
+def test_scatter_set_takes_numpy_rows_and_values(label):
+    """The host table's numpy rows and values give the tensors' result."""
+    used, ports, rows, vals, prow = set_case(label)
+    u, p = torch.from_numpy(used), torch.from_numpy(ports)
+    a = kernels.scatter_set(u, p, rows, vals, prow)
+    b = kernels.scatter_set(u, p, torch.from_numpy(rows),
+                            torch.from_numpy(vals), torch.from_numpy(prow))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("label", sorted(SET_CASES))
+def test_set_rows_sort_and_keep_each_rows_last_value(label):
+    """The card path's host helper: rows sorted and distinct, each the
+    last occurrence of its row in idx, order None only when idx was
+    strictly increasing; the kernel's slot k takes values[order[k]]."""
+    used, _p, rows, vals, _pr = set_case(label)
+    got, order = kernels._set_rows(rows, used.shape[0])
+    assert np.array_equal(got, np.unique(rows))
+    if order is None:
+        assert np.array_equal(got, rows)
+        assert rows.size < 2 or (rows[1:] > rows[:-1]).all()
+        return
+    assert order.dtype == np.int32
+    assert np.array_equal(rows[order], got)
+    last = {int(r): i for i, r in enumerate(rows)}
+    assert order.tolist() == [last[int(r)] for r in got]
+
+
+@pytest.mark.parametrize("end", ["first", "last"])
+@pytest.mark.parametrize("how", ["sorted", "shuffled"])
+def test_scatter_set_rows_out_of_range_raise(how, end):
+    used, ports, rows, vals, prow = set_case(
+        "ragged_10001" if how == "sorted" else "out_of_order")
+    rows = rows.copy()
+    pos = np.argmin(rows) if end == "first" else np.argmax(rows)
+    rows[pos] = -1 if end == "first" else used.shape[0]
+    with pytest.raises(ValueError, match="outside"):
+        kernels.scatter_set(torch.from_numpy(used), torch.from_numpy(ports),
+                            rows, vals, prow)
+
+
+def test_scatter_set_pack_layout():
+    """The one upload of a scatter_set call from the host: the sorted rows
+    at offset 0, then the used rows and the port rows in the rows' sorted
+    order (each at a 16-byte boundary), byte for byte."""
+    used, _p, rows, vals, prow = set_case("repeated_different")
+    got, order = kernels._set_rows(rows, used.shape[0])
+    buf, offs = kernels.pack_host([got, vals[order], prow[order]])
+    raw = buf.numpy()
+    assert offs[0] == 0 and all(o % 16 == 0 for o in offs)
+    for o, want in zip(offs, (got, vals[order], prow[order])):
+        _bytes_equal(raw[o:o + want.nbytes].view(want.dtype).reshape(
+            want.shape), want)
+    assert buf.numel() == offs[2] + prow[order].nbytes
 
 
 @pytest.mark.parametrize("label", sorted(EDGE_CASES))
