@@ -77,8 +77,14 @@ Phases (each raises on failure, so the process exits non-zero):
      the K-way loop, continuing from the card's carry) and against the
      solo kernel on the same padded request; then 2, 32 and the most
      shards the card holds at once, each held exactly against the 8-shard
-     result and timed (CUDA-event medians of 7), beside the solo kernel
-     and the plain version. Then set_mesh(make_mesh(8)) and the three
+     result and timed (CUDA-event medians of 7; us a step or K-way phase),
+     beside the solo kernel on the same padded request and the plain
+     version; then the sharded K-way kernel at the edge shapes of phase 2
+     and at mixed batched lanes (one with no feasible row, one that runs
+     dry) at 2, 8, 32 and the most shards, each call with an 8-phase
+     budget continued from the card's carry, every launch held bit for
+     bit against its plain version and the single-card kernel on the same
+     padded table. Then set_mesh(make_mesh(8)) and the three
      main-path evals through the card's Harness: placements identical to
      the single-card run's, both sharded kernels launched and no
      single-card placement kernel; and E1-E4 of the steady state on a
@@ -88,14 +94,16 @@ Phases (each raises on failure, so the process exits non-zero):
      row;
   9. the mesh's gateways: the batched node-sharded kernels (chunked-,
      scan- and K-way-batched over B lanes of S shards, B * S blocks) at
-     10,000 nodes and the main shapes of phase 6, with 8 shards, then 2
-     and 32 (32 shards of 8 chunked lanes exceed the card, so the lanes
-     launch in groups): every launch held exactly against its plain
+     10,000 nodes and the main shapes of phase 6, with 8 shards, then 2,
+     32 and the most the card holds (32 shards of 8 chunked lanes exceed
+     the card, so the lanes launch in groups): every launch held exactly
+     against its plain
      version and against the single-card batched kernel on the same
      padded lanes, and with an 8-phase budget every K-way lane continued
      on the single-card solo kernel from the batched carry; CUDA-event
-     medians of the kernel, the single-card batched kernel and the plain
-     version, and the bound as phase 6 counts it. Then phase 7's gateway
+     medians of the kernel (and us a step or phase of the longest lane),
+     the single-card batched kernel and the plain version, and the bound
+     as phase 6 counts it. Then phase 7's gateway
      groups under set_mesh(make_mesh(8)) on a fresh store: placements
      identical to the single-card groups', each batched sharded kernel
      launched and no single-card batched kernel.
@@ -305,16 +313,19 @@ def progress(kind, got, kw):
     return rem, steps, stalled
 
 
-def held_launches(kind, label, run, plain, targs, kw, count):
+def held_launches(kind, label, run, plain, targs, kw, count, single=None):
     """Run the kernel as SelectKernel's loop does, each launch after the
     first continuing from the carry the previous launch left on the card,
-    and hold every launch against the plain version on the same inputs.
-    When the first launch drains the count, one continuation launch (half
-    the count, from the first launch's carry) is held all the same, so
-    the continuation inputs are always checked. Returns the max abs error
-    and the (steps, remaining) of each launch."""
+    and hold every launch against the plain version on the same inputs
+    (and, given `single`, exactly against that kernel: the single-card
+    kernel beside a sharded one, called without `shards`). When the first
+    launch drains the count, one continuation launch (half the count, from
+    the first launch's carry) is held all the same, so the continuation
+    inputs are always checked. Returns the max abs error and the (steps,
+    remaining) of each launch."""
     import torch
     args, err, trail = dict(targs), 0.0, []
+    solo_kw = {k: v for k, v in kw.items() if k != "shards"}
     for launch in range(4):
         got = run(**args, **kw)
         torch.cuda.synchronize()
@@ -322,6 +333,12 @@ def held_launches(kind, label, run, plain, targs, kw, count):
         tag = f"{label} launch {launch}"
         err = max(err, compare(f"{tag} carry", got[0], want[0]),
                   compare(f"{tag} outputs", got[1], want[1]))
+        if single is not None:
+            ref = single(**args, **solo_kw)
+            err = max(err, compare(f"{tag} carry vs single card", got[0],
+                                   ref[0], 0.0),
+                      compare(f"{tag} outputs vs single card", got[1],
+                              ref[1], 0.0))
         if kind == "scan":
             return err, [(kw["k_steps"], 0)]
         rem, steps, stalled = progress(kind, got, kw)
@@ -461,6 +478,104 @@ def kway_edge_checks():
     print("kernel kway edge shapes: every launch equal to the plain "
           "version bit for bit (label, spread_alg, (phases, left) a "
           f"launch): {held}", flush=True)
+
+
+def mesh_shard_counts(device, kernel):
+    """The shard counts the mesh phases run: MESH_SHARDS, MESH_SWEEP and
+    the most the card holds at once."""
+    from nomad_tpu_torch.ops import kernels
+    return sorted(set((MESH_SHARDS,) + MESH_SWEEP
+                      + (kernels.max_shards(kernel, device),)))
+
+
+def kway_sharded_edge_checks(device):
+    """The node-sharded K-way kernel at KWAY_EDGES (one lane, binpack and
+    spread) and at mixed batched lanes (K-way lanes of 10, 2,000 and 2,000
+    instances over 50 feasible rows, one with no feasible row and one
+    that runs dry, over one capacity table), at S 2, 8, 32 and the most
+    the card holds, each table padded as a mesh of S shards pads it and
+    each call with an 8-phase budget continued from the card's own carry:
+    every launch held bit for bit against its plain version and against
+    the single-card kernel on the same padded table."""
+    import torch
+    from nomad_tpu_torch.mock.kway_edges import kway_edge_args, pad_rows
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shard_counts = mesh_shard_counts(device, "kway_sharded")
+    held = []
+    for i, (label, n, count, kind, w, keep) in enumerate(KWAY_EDGES):
+        args = kway_edge_args(n, count, kind, SEED + 40 + i,
+                              feasible_rows=keep)
+        for shards in shard_counts:
+            targs = _card(pad_rows(args, pad_for_mesh(
+                make_mesh(shards, device), n)))
+            for spread_alg in (False, True):
+                kw = dict(max_steps=8, spread_alg=spread_alg, w=w,
+                          shards=shards)
+                err, trail = held_launches(
+                    "kway", f"kway_sharded edge {label} (n {n}, w {w}, "
+                    f"spread_alg {spread_alg}, shards {shards})",
+                    kernels.select_kway_sharded, kernels.kway_sharded_plain,
+                    targs, kw, count, single=kernels.select_kway)
+                if err != 0.0:
+                    fail(f"kway_sharded edge {label}: max abs err {err}")
+                held.append((label, shards, spread_alg, len(trail)))
+    print("kernel kway_sharded edge shapes: every launch equal to the plain "
+          "version and the single-card kernel bit for bit (label, shards, "
+          f"spread_alg, launches): {held}", flush=True)
+
+    n, w = MAIN_NODES, 128
+    lanes = [kway_edge_args(n, c, kind, SEED + 60, feasible_rows=keep)
+             for c, kind, keep in ((10, "random", None),
+                                   (2_000, "random", None),
+                                   (2_000, "random", 50),
+                                   (2_000, "random", 0),
+                                   (40_000, "dry", None))]
+    trails = []
+    for shards in shard_counts:
+        n_pad = pad_for_mesh(make_mesh(shards, device), n)
+        padded = [pad_rows(ln, n_pad) for ln in lanes]
+        batch = {}
+        for k in padded[0]:
+            if k == "capacity":
+                batch[k] = padded[0][k]
+            elif k == "k_valid":
+                batch[k] = np.array([ln[k] for ln in padded], np.int32)
+            elif isinstance(padded[0][k], np.ndarray):
+                batch[k] = np.stack([ln[k] for ln in padded])
+            else:
+                batch[k] = np.array([ln[k] for ln in padded], np.float32)
+        targs = _card(batch)
+        kw = dict(max_steps=8, spread_alg=False, w=w)
+        trail = []
+        for launch in range(6):
+            tag = f"kway_batched_sharded mixed lanes shards {shards} " \
+                  f"launch {launch}"
+            got = kernels.select_kway_batched_sharded(**targs, **kw,
+                                                      shards=shards)
+            torch.cuda.synchronize()
+            want = kernels.kway_batched_sharded_plain(**targs, **kw,
+                                                      shards=shards)
+            ref = kernels.select_kway_batched(**targs, **kw)
+            for what, other in (("plain", want), ("single card", ref)):
+                compare(f"{tag} carry vs {what}", got[0], other[0], 0.0)
+                compare(f"{tag} outputs vs {what}", got[1], other[1], 0.0)
+            packed = got[1][0]
+            left = packed[:, 0, -2].clamp(min=0).to(torch.int32)
+            trail.append(left.tolist())
+            if int(left.sum()) == 0 or int(packed[:, :, w:2 * w].sum()) == 0:
+                break
+            used, coll, freep, devs = got[0]
+            targs.update(used0=used, tg_coll0=coll, free_ports=freep,
+                         dev_slots0=devs, k_valid=left)
+        if len(trail) < 2:
+            fail(f"kway_batched_sharded mixed lanes shards {shards}: "
+                 f"nothing continued ({trail})")
+        trails.append((shards, trail))
+    print("kernel kway_batched_sharded mixed lanes: every launch equal to "
+          "the plain version and the single-card batched kernel bit for "
+          "bit (shards, lanes' counts left after each 8-phase launch): "
+          f"{trails}", flush=True)
 
 
 def graph_ms(fn, launches=20, reps=7):
@@ -1469,10 +1584,10 @@ def sharded_kernel_phase(device):
         run = getattr(kernels, "select_" + name)
         plain = getattr(kernels, kind + "_sharded_plain")
         solo = getattr(kernels, "select_" + kind)
-        most = kernels.max_shards(name, device)
         ref = None
-        for shards in (MESH_SHARDS,) + tuple(
-                sorted(set(MESH_SWEEP + (most,)) - {MESH_SHARDS})):
+        for shards in [MESH_SHARDS] + [
+                x for x in mesh_shard_counts(device, name)
+                if x != MESH_SHARDS]:
             n_pad = pad_for_mesh(make_mesh(shards, device), n)
             req = select_request_from_arrays(fields)
             args, statics = S.pack_request(req, n_pad)
@@ -1492,16 +1607,9 @@ def sharded_kernel_phase(device):
                        n_pad=n_pad, main=shards == MESH_SHARDS)
             if ref is None:
                 err, trail = held_launches(kind, label, run, plain, targs,
-                                           skw, count)
-                want = solo(**targs, **kw)
-                err = max(err,
-                          compare(f"{label} carry vs solo", got[0], want[0],
-                                  0.0),
-                          compare(f"{label} outputs vs solo", got[1],
-                                  want[1], 0.0))
+                                           skw, count, single=solo)
                 ref, ref_pad = got, n_pad
                 row.update(launches_held=len(trail),
-                           solo_ms=cuda_ms(lambda: solo(**targs, **kw)),
                            plain_ms=cuda_ms(lambda: plain(**targs, **skw),
                                             reps=3))
             else:
@@ -1516,6 +1624,8 @@ def sharded_kernel_phase(device):
                           compare(f"{label} outputs vs {MESH_SHARDS} "
                                   f"shards", got[1], ref[1], 0.0))
             row["ms"] = cuda_ms(lambda: run(**targs, **skw))
+            # the single-card kernel on the same padded request
+            row["solo_ms"] = cuda_ms(lambda: solo(**targs, **kw))
             if kind == "scan":
                 steps = kw["k_steps"]
             else:
@@ -1528,15 +1638,19 @@ def sharded_kernel_phase(device):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
             row.update(steps=steps, max_abs_err=err,
+                       us_per_step=row["ms"] / max(steps, 1) * 1e3,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops
                        else "operations")
             rows.append(row)
-            extra = (f", solo kernel {row['solo_ms']:.3f} ms, plain "
-                     f"{row['plain_ms']:.3f} ms" if row["main"] else "")
+            extra = f", plain {row['plain_ms']:.3f} ms" if row["main"] else ""
             print(f"kernel {label} (n_pad {n_pad}, {steps} steps): equal "
-                  f"(max abs err {err:.3g}); {row['ms']:.3f} ms{extra}, "
-                  f"bound {row['bound_ms']:.6f} ms", flush=True)
+                  f"(max abs err {err:.3g}); {row['ms']:.3f} ms "
+                  f"({row['us_per_step']:.1f} us a "
+                  f"{'phase' if kind == 'kway' else 'step'}), single-card "
+                  f"kernel {row['solo_ms']:.3f} ms{extra}, bound "
+                  f"{row['bound_ms']:.6f} ms", flush=True)
+    kway_sharded_edge_checks(device)
     return rows
 
 
@@ -1620,7 +1734,9 @@ def batched_sharded_kernel_phase(device):
         plain = getattr(kernels, name + "_plain")
         single = getattr(kernels, "select_" + kind)
         most = kernels.max_shards(name, device)
-        for shards in (MESH_SHARDS,) + MESH_SWEEP:
+        for shards in [MESH_SHARDS] + [
+                x for x in mesh_shard_counts(device, name)
+                if x != MESH_SHARDS]:
             main = shards == MESH_SHARDS
             n_pad = pad_for_mesh(make_mesh(shards, device), n)
             packs, s_live, p_live = [], 0, 0
@@ -1667,7 +1783,7 @@ def batched_sharded_kernel_phase(device):
                       compare(f"{label} outputs vs single card", got[1],
                               ref[1], 0.0))
             nbytes = rows_bytes([targs["capacity"]], n, n_pad)
-            f32 = f64 = 0
+            f32 = f64 = longest = 0
             for i, f in enumerate(fields):
                 lane = kernels.lane_args(targs, i)
                 g_carry = [t[i] for t in got[0]]
@@ -1678,6 +1794,7 @@ def batched_sharded_kernel_phase(device):
                     steps = int(g_outs[0][0, -1])
                 else:
                     steps = int(g_outs[7])
+                longest = max(longest, steps)
                 b, o32, o64 = lane_bound(kind, lane, g_carry, g_outs, n,
                                          n_pad, steps, kw,
                                          len(f.get("spreads", ())),
@@ -1695,7 +1812,9 @@ def batched_sharded_kernel_phase(device):
                                           reps=3)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
-            row.update(bound_ms=max(t_bytes, t_ops),
+            row.update(steps=longest,
+                       us_per_step=row["ms"] / max(longest, 1) * 1e3,
+                       bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops
                        else "operations")
             rows.append(row)
@@ -1704,7 +1823,10 @@ def batched_sharded_kernel_phase(device):
                   f"{'es' if launches > 1 else ''}, the card holds {most} "
                   f"blocks): equal to its plain version and the single-card "
                   f"batched kernel (max abs err {err:.3g}); {row['ms']:.3f} "
-                  f"ms, single-card batched {row['solo_ms']:.3f} ms{extra}, "
+                  f"ms ({longest} steps in the longest lane, "
+                  f"{row['us_per_step']:.1f} us a "
+                  f"{'phase' if kind == 'kway_batched' else 'step'}), "
+                  f"single-card batched {row['solo_ms']:.3f} ms{extra}, "
                   f"bound {row['bound_ms']:.6f} ms", flush=True)
             if kind == "kway_batched" and main:
                 kway_continuations(targs, kw, run, plain, label, shards)
@@ -1864,7 +1986,8 @@ def main():
             library_ms=None, solo_ms=top["solo_ms"], shards=MESH_SHARDS,
             shapes=[{k: r[k] for k in (
                 "n", "count", "shards", "n_pad", "main", "steps", "ms",
-                "bound_ms", "bound_by", "max_abs_err")} for r in mine]))
+                "us_per_step", "solo_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for r in mine]))
     for name in BATCHED_SHARDED:
         mine = [r for r in bs_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])
@@ -1878,8 +2001,8 @@ def main():
             max_blocks=top["max_blocks"],
             shapes=[{k: r[k] for k in (
                 "n", "n_pad", "lanes", "counts", "shards", "launches_held",
-                "main", "ms", "solo_ms", "bound_ms", "bound_by",
-                "max_abs_err")} for r in mine]))
+                "main", "steps", "ms", "us_per_step", "solo_ms", "bound_ms",
+                "bound_by", "max_abs_err")} for r in mine]))
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

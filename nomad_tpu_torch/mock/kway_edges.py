@@ -63,3 +63,22 @@ def kway_edge_args(n, count, kind, seed, feasible_rows=None):
     a.update(ask=np.array([100., 128., 10., 0.], f32), k_valid=count,
              desired_count=float(count), port_need=1.0)
     return a
+
+
+# the arguments with one entry a table row
+ROW_ARGS = ("capacity", "used0", "feasible", "tg_coll0", "penalty",
+            "affinity_norm", "free_ports", "port_ok", "dev_slots0",
+            "dev_score", "pre_score")
+
+
+def pad_rows(args, n_pad):
+    """`args` (kway_edge_args' numpy arguments) over n_pad rows, the rows
+    past the request's own zero: infeasible, as `select.pack_request` pads
+    a table (a mesh pads its table so each shard holds equal rows)."""
+    out = dict(args)
+    for k in ROW_ARGS:
+        a = args[k]
+        pad = np.zeros((n_pad,) + a.shape[1:], a.dtype)
+        pad[:a.shape[0]] = a
+        out[k] = pad
+    return out

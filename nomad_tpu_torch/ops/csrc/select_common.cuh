@@ -83,9 +83,10 @@ static __device__ int block_sum(int x, Red& r) {
     return r.rs;
 }
 
-// top_k(masked, k) by k argmax passes: pass j takes the best element that
-// comes strictly after pass j-1's winner in (value desc, index asc) order,
-// so no exclusion set is needed. Thread t reads only the elements it wrote
+// top_k(masked, k) by k argmax passes, for the chunked and scan kernels'
+// k <= TOP_K (the K-way's w + 1 takes block_topk_radix below): pass j
+// takes the best element that comes strictly after pass j-1's winner in
+// (value desc, index asc) order, so no exclusion set is needed. Thread t reads only the elements it wrote
 // itself (x = t + m*NT), so the scratch needs no extra barrier. Thread 0
 // writes tv[j], ti[j]; the caller synchronises before others read them.
 static __device__ void block_topk(const float* masked, int n, int k,
@@ -106,30 +107,36 @@ static __device__ void block_topk(const float* masked, int n, int k,
     }
 }
 
-// top_k(masked, k) for k up to TOPK_CAND, in a few passes over masked
-// instead of k argmax passes. Each score maps to an unsigned key that
-// orders as the floats do (order_key; -0.0 and +0.0 one key, as better()
-// holds them equal). Warp w owns the contiguous rows [w * seg, (w + 1) *
-// seg), read 32 consecutive rows a round. Radix passes of 8 bits from the
-// top find the window of keys holding rank k: each pass counts, in warp
-// w's own histogram row, its keys whose upper bits match the window so
-// far (one add a distinct digit a round, by its __match_any_sync leader:
-// no atomics), and narrows the window to the bin holding rank k; each
-// warp then adds up its own keys above the new window and in it, and
-// clears its row. The passes stop once every key at or above the window
-// fits the candidate buffer, or after the last pass, when the window is
-// the k-th key itself. Each read of a warp's rows loads TOPK_DEPTH rounds
-// ahead (rows_ahead). A block scan of the warps' counts then gives each
-// warp the slots of its candidates, in row order: every key above the
-// window, plus all of the window's keys (early stop) or its lowest rows
-// up to rank k (the ties of lax.top_k: value desc, index asc; rows at
-// NEG_INF included); a warp with none skips its second read. A rank sort
-// of the at most TOPK_CAND candidates, each one 64-bit (key, ~row) word,
-// writes tv[r], ti[r] for r < k, with the score's own bits. masked stays
-// in global memory (L1/L2-resident), so n is not limited; 3 barriers a
-// pass and 3 more. Every thread calls it, after a barrier that orders the
-// writes to masked before its reads; the results are visible to all
-// threads when it returns.
+// top_k(v, k) for k up to TOPK_CAND, in a few passes over v instead of k
+// argmax passes. Entry x of v has row `rows[x]` (rows null: row x); the
+// order is (value desc, row asc), so the rows must ascend among equal
+// values in position order (true of x itself, and of the shards' sorted
+// lists laid end to end, shard by shard: see sharded_kernels.cu). Each
+// score maps to an unsigned key that orders as the floats do (order_key;
+// -0.0 and +0.0 one key, as better() holds them equal). Warp w owns the
+// contiguous positions [w * seg, (w + 1) * seg), read 32 consecutive ones
+// a round. Radix passes of 8 bits from the top find the window of keys
+// holding rank k: each pass counts, in warp w's own histogram row, its
+// keys whose upper bits match the window so far (one add a distinct digit
+// a round, by its __match_any_sync leader: no atomics), and narrows the
+// window to the bin holding rank k; each warp then adds up its own keys
+// above the new window and in it, and clears its row. The passes stop
+// once every key at or above the window fits the candidate buffer, or
+// after the last pass, when the window is the k-th key itself. Each read
+// of a warp's positions loads TOPK_DEPTH rounds ahead (rows_ahead). A
+// block scan of the warps' counts then gives each warp the slots of its
+// candidates, in position order: every key above the window, plus all of
+// the window's keys (early stop) or its first positions up to rank k (the
+// ties of lax.top_k: value desc, index asc; rows at NEG_INF included); a
+// warp with none skips its second read. A rank sort of the at most
+// TOPK_CAND candidates, each one 64-bit (key, ~row) word, writes tv[r],
+// ti[r] (the row) for r < k, with the score's own bits. v stays in global
+// memory, so n is not limited; 3 barriers a pass and 3 more. L2 reads v
+// and rows through L2 only (__ldcg), for lists other blocks wrote before
+// a grid sync; otherwise v is read through L1 (the block's own writes).
+// Every thread calls it, after a barrier that orders the writes to v
+// before its reads; the results are visible to all threads when it
+// returns.
 #define TOPK_CAND 256
 #define RADIX 256
 #define TOPK_DEPTH 8   // rounds of rows a warp loads ahead
@@ -162,17 +169,25 @@ __device__ __forceinline__ int warps_before(const int* s) {
     return warp_sum(lane < warp ? s[lane] : 0);
 }
 
-// masked[x + 32 u] for u < TOPK_DEPTH (0 past hi): a warp's next rounds
-// of rows, loaded before any is used, so their latencies overlap.
-__device__ __forceinline__ void rows_ahead(const float* masked, int x,
-                                           int hi, float* v) {
-#pragma unroll
-    for (int u = 0; u < TOPK_DEPTH; ++u)
-        v[u] = x + 32 * u < hi ? masked[x + 32 * u] : 0.0f;
+template <bool L2, typename T>
+__device__ __forceinline__ T load_as(const T* p) {
+    if constexpr (L2) return __ldcg(p);
+    else return *p;
 }
 
-static __device__ void block_topk_radix(const float* masked, int n, int k,
-                                        float* tv, int* ti,
+// v[x + 32 u] for u < TOPK_DEPTH (0 past hi): a warp's next rounds of
+// positions, loaded before any is used, so their latencies overlap.
+template <bool L2>
+__device__ __forceinline__ void rows_ahead(const float* v, int x, int hi,
+                                           float* out) {
+#pragma unroll
+    for (int u = 0; u < TOPK_DEPTH; ++u)
+        out[u] = x + 32 * u < hi ? load_as<L2>(v + x + 32 * u) : 0.0f;
+}
+
+template <bool L2>
+static __device__ void block_topk_radix(const float* vals, const int* rows,
+                                        int n, int k, float* tv, int* ti,
                                         TopkShared& t) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int seg = ((n + NWARPS - 1) / NWARPS + 31) & ~31;
@@ -188,7 +203,7 @@ static __device__ void block_topk_radix(const float* masked, int n, int k,
     for (int shift = 24;; shift -= 8) {
         for (int x0 = lo; x0 < hi; x0 += 32 * TOPK_DEPTH) {
             float v[TOPK_DEPTH];
-            rows_ahead(masked, x0 + lane, hi, v);
+            rows_ahead<L2>(vals, x0 + lane, hi, v);
 #pragma unroll
             for (int u = 0; u < TOPK_DEPTH; ++u) {
                 if (x0 + 32 * u >= hi) break;
@@ -260,7 +275,7 @@ static __device__ void block_topk_radix(const float* masked, int n, int k,
     for (int x0 = lo; x0 < hi && (ra < ra_end || rt < rt_end);
          x0 += 32 * TOPK_DEPTH) {
         float v[TOPK_DEPTH];
-        rows_ahead(masked, x0 + lane, hi, v);
+        rows_ahead<L2>(vals, x0 + lane, hi, v);
 #pragma unroll
         for (int u = 0; u < TOPK_DEPTH; ++u) {
             if (x0 + 32 * u >= hi) break;
@@ -279,8 +294,9 @@ static __device__ void block_topk_radix(const float* masked, int n, int k,
             if (tie && rt + __popc(bt & lt) < take)
                 slot = above + rt + __popc(bt & lt);
             if (slot >= 0) {
+                const int row = rows ? load_as<L2>(rows + x) : x;
                 t.cand[slot] = ((unsigned long long)key << 32)
-                               | (unsigned)~x;
+                               | (unsigned)~row;
                 t.val[slot] = v[u];
             }
             ra += __popc(bu);
@@ -465,6 +481,199 @@ __device__ __forceinline__ void place(const LocalArgs& a, const float* s_ask,
     a.coll[c] = a.coll[c] + (int)chunk;
     a.free_p[c] = a.free_p[c] + (-chunk) * a.port_need;
     a.dev_slots[c] = a.dev_slots[c] + (-chunk);
+}
+
+// The K-way streams' shared state, per owned winner (slot p of the
+// block's list): its first round's a_max, first loser and whether it is
+// still open, and the loser ballots of its later rounds (32
+// sub-placements each, from sub-placement 8); the same for winner 0's
+// stream against the runner-up.
+#define STREAM_ROUNDS ((CHUNK_J - 8 + 31) / 32)
+struct StreamShared {
+    float a_max[W_MAX];
+    int fl[W_MAX];
+    int open[W_MAX];
+    int rounds[W_MAX];
+    unsigned lose[W_MAX * STREAM_ROUNDS];
+    unsigned lose0[STREAM_ROUNDS];
+    unsigned short pair[W_MAX * STREAM_ROUNDS];
+    int fl0, open0, npairs;
+};
+
+// The first loser of a stream still open after its first round, from the
+// ballots of its `rounds` later rounds; with none, the sub-placement its
+// walk stopped at (past a_max, or the end of the stream).
+__device__ __forceinline__ int stream_first_loser(const unsigned* lose,
+                                                  int rounds) {
+    for (int q = 0; q < rounds; ++q)
+        if (lose[q]) return 8 + 32 * q + __ffs(lose[q]) - 1;
+    return min(8 + 32 * rounds, CHUNK_J);
+}
+
+// Block-wide, one K-way phase (select.py:668-714): the chunks of the
+// winners at positions own[p], p < nown, of the phase's top-(w + 1)
+// (tv, ti; entry w the waterline), own ascending, or every position < w
+// when own is null. A chunk is min(max(first loser, 1), a_max), a_max =
+// min(fit_cap, CHUNK_J), and 0 for an invalid winner; each winner's
+// CHUNK_J-long score stream is walked until its first loser against the
+// waterline, or until it has passed a_max (every chunk is capped there,
+// so a later loser changes nothing). Winner 0's stream, when owned, is
+// also held against the runner-up (tv[1], ti[1]; the overshoot fallback)
+// by the same rule, into *chunk0, not capped at the remaining count; it
+// loses to the runner-up no later than to the waterline. A first round
+// gives each owned winner 8 lanes of a warp (sub-placements 0-7: most
+// streams end there), warp v slots v, v + 32, v + 64 and v + 96; the
+// streams still open go on from sub-placement 8, 32 a round, every round
+// of every open stream at once: warp 0 lists them, one (slot, round) pair
+// each up to the round that reaches a_max, and the warps share the list
+// (a round past the stream's first loser is computed and not read). The
+// double-precision pow of each score is what the streams cost. Writes
+// chunk[own[p]] (shared or global memory) from thread p; the caller
+// synchronises before reading them. Every thread calls it, after a
+// barrier that orders tv, ti and own before its reads; ss may share its
+// memory with the top-k's scratch.
+static __device__ void kway_streams(const LocalArgs& a, const float* s_ask,
+                                    const float* tv, const int* ti, int w,
+                                    const int* own, int nown,
+                                    StreamShared& ss, float* chunk,
+                                    float* chunk0) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const float wl_val = tv[w], rv = tv[1];
+    const int wl_idx = ti[w], ri = ti[1];
+    // slot 0 holds winner 0 when the block owns it (own ascends)
+    const bool has0 = nown > 0 && (own == nullptr || own[0] == 0);
+    {
+        const int g = lane >> 3;
+        const int p = warp + NWARPS * g;
+        int c = 0, fl = CHUNK_J, fl0 = CHUNK_J, open = 0, open0 = 0;
+        float a_max = 0.0f;
+        if (p < nown) {
+            const int wi = own ? own[p] : p;
+            c = ti[wi];
+            a_max = fminf(fit_cap(a, s_ask, c), (float)CHUNK_J);
+            open = tv[wi] > HALF_NEG_INF;
+            open0 = open && wi == 0;
+            if (open && 0.0f >= a_max) {
+                fl = fl0 = 0;
+                open = open0 = 0;
+            }
+        }
+        float fj = 0.0f;
+        if (open) fj = sub_score(a, s_ask, c, lane & 7);
+        const unsigned lose = __ballot_sync(
+            0xffffffffu,
+            open && !(fj > wl_val || (fj == wl_val && c < wl_idx)))
+            >> (8 * g) & 0xffu;
+        const unsigned lose0 = __ballot_sync(
+            0xffffffffu, open0 && !(fj > rv || (fj == rv && c < ri)))
+            >> (8 * g) & 0xffu;
+        if (open && lose) {
+            fl = __ffs(lose) - 1;
+            open = 0;
+        }
+        if (open0 && lose0) {
+            fl0 = __ffs(lose0) - 1;
+            open0 = 0;
+        }
+        if ((lane & 7) == 0 && p < nown) {
+            ss.a_max[p] = a_max;
+            ss.fl[p] = fl;
+            ss.open[p] = open;
+            if (p == 0 && has0) {
+                ss.fl0 = fl0;
+                ss.open0 = open0;
+            }
+        }
+    }
+    __syncthreads();
+    if (warp == 0) {
+        int nq[W_MAX / 32], tot = 0;
+        for (int r = 0; r < W_MAX / 32; ++r) {
+            const int k = (W_MAX / 32) * lane + r;
+            int q = 0;
+            if (k < nown && ss.open[k])
+                while (q < STREAM_ROUNDS
+                       && (float)(8 + 32 * q) < ss.a_max[k]) ++q;
+            nq[r] = q;
+            tot += q;
+        }
+        int start = tot;
+        for (int off = 1; off < 32; off <<= 1) {
+            const int o = __shfl_up_sync(0xffffffffu, start, off);
+            if (lane >= off) start += o;
+        }
+        if (lane == 31) ss.npairs = start;
+        start -= tot;
+        for (int r = 0; r < W_MAX / 32; ++r) {
+            const int k = (W_MAX / 32) * lane + r;
+            if (k < nown) ss.rounds[k] = nq[r];
+            for (int q = 0; q < nq[r]; ++q)
+                ss.pair[start++] = (unsigned short)(k * STREAM_ROUNDS + q);
+        }
+    }
+    __syncthreads();
+    for (int p = warp; p < ss.npairs; p += NWARPS) {
+        const int code = ss.pair[p];
+        const int k = code / STREAM_ROUNDS;
+        const int j = 8 + 32 * (code % STREAM_ROUNDS) + lane;
+        const int c = ti[own ? own[k] : k];
+        const float fj = sub_score(a, s_ask, c, j);
+        const unsigned l = __ballot_sync(
+            0xffffffffu, j < CHUNK_J
+            && !(fj > wl_val || (fj == wl_val && c < wl_idx)));
+        if (lane == 0) ss.lose[code] = l;
+        if (k == 0 && has0) {
+            const unsigned l0 = __ballot_sync(
+                0xffffffffu, j < CHUNK_J
+                && !(fj > rv || (fj == rv && c < ri)));
+            if (lane == 0) ss.lose0[code] = l0;
+        }
+    }
+    __syncthreads();
+    if (tid < nown) {
+        const int wi = own ? own[tid] : tid;
+        const float am = ss.a_max[tid];
+        const int f = ss.open[tid]
+            ? stream_first_loser(ss.lose + tid * STREAM_ROUNDS,
+                                 ss.rounds[tid])
+            : ss.fl[tid];
+        chunk[wi] = tv[wi] > HALF_NEG_INF
+            ? fminf(fmaxf((float)f, 1.0f), am) : 0.0f;
+        if (wi == 0) {
+            const int f0 = ss.open0
+                ? stream_first_loser(ss.lose0, ss.rounds[0])
+                : ss.fl0;
+            *chunk0 = fminf(fmaxf((float)f0, 1.0f), am);
+        }
+    }
+}
+
+// Warp 0 of a K-way body, every lane: the overshoot fallback
+// (select.py:716-728) applied in place to the phase's chunks chunk[k], k
+// < w: when they sum past `remaining`, only the best node places, chunk0
+// (its stream against the runner-up) capped at `remaining`; an invalid
+// phase places nothing. Lane l reads and writes only k = l + 32 r. The
+// chunks are whole numbers and their sum is below 2^24, so the warp's
+// sums are exact in any order. Returns the instances placed, in every
+// lane.
+__device__ __forceinline__ int kway_fallback(float* chunk, float chunk0,
+                                             int w, int remaining,
+                                             bool valid) {
+    const int lane = threadIdx.x & 31;
+    float total = 0.0f;
+    for (int k = lane; k < w; k += 32) total = total + chunk[k];
+    for (int off = 16; off > 0; off >>= 1)
+        total = total + __shfl_xor_sync(0xffffffffu, total, off);
+    const bool first_only = total > (float)remaining;
+    int placed = 0;
+    for (int k = lane; k < w; k += 32) {
+        float c = chunk[k];
+        if (first_only) c = k == 0 ? fminf(chunk0, (float)remaining) : 0.0f;
+        if (!valid) c = 0.0f;
+        chunk[k] = c;
+        placed += (int)c;
+    }
+    return warp_sum(placed);
 }
 
 // Outputs of the K-way kernels, in the packed int layout of

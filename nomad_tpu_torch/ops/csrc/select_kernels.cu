@@ -179,33 +179,10 @@ __global__ void __launch_bounds__(NT) chunked_batched_kernel(
 //     winners a warp, then every later round (32 sub-placements) of every
 //     stream still open at once, shared by the warps (the double-precision
 //     pow of each score is what the streams cost).
-// Every output is bit for bit the first version's.
+// The top-k and the stream walk (kway_streams) live in select_common.cuh:
+// the node-sharded K-way kernel runs the same two, shard by shard. Every
+// output is bit for bit the first version's.
 // ---------------------------------------------------------------------------
-// The K-way streams' shared state: per winner, its first round's a_max,
-// first loser and whether it is still open, and the loser ballots of its
-// later rounds (32 sub-placements each, from sub-placement 8).
-#define STREAM_ROUNDS ((CHUNK_J - 8 + 31) / 32)
-struct StreamShared {
-    float a_max[W_MAX];
-    int fl[W_MAX];
-    int open[W_MAX];
-    int rounds[W_MAX];
-    unsigned lose[W_MAX * STREAM_ROUNDS];
-    unsigned lose0[STREAM_ROUNDS];
-    unsigned short pair[W_MAX * STREAM_ROUNDS];
-    int fl0, open0, npairs;
-};
-
-// The first loser of a stream still open after its first round, from the
-// ballots of its `rounds` later rounds; with none, the sub-placement its
-// walk stopped at (past a_max, or the end of the stream).
-__device__ __forceinline__ int stream_first_loser(const unsigned* lose,
-                                                  int rounds) {
-    for (int q = 0; q < rounds; ++q)
-        if (lose[q]) return 8 + 32 * q + __ffs(lose[q]) - 1;
-    return min(8 + 32 * rounds, CHUNK_J);
-}
-
 __device__ __forceinline__ void kway_body(const LocalArgs& a,
                                           const KwayOut& o) {
     __shared__ Red red;
@@ -215,8 +192,8 @@ __device__ __forceinline__ void kway_body(const LocalArgs& a,
     __shared__ float s_tv[W_MAX + 1];
     __shared__ int s_ti[W_MAX + 1];
     __shared__ float s_chunk[W_MAX];
+    __shared__ float s_chunk0;
     __shared__ int s_ctl[2];
-    StreamShared& ss = sm.st;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int w = o.w;
     const int stride = 2 * w + TOP_K + a.d + 3;
@@ -244,10 +221,9 @@ __device__ __forceinline__ void kway_body(const LocalArgs& a,
             sw = local_sweep(a, s_ask);
             __syncthreads();
         }
-        block_topk_radix(a.masked, a.n, w + 1, s_tv, s_ti, sm.tk);
+        block_topk_radix<false>(a.masked, nullptr, a.n, w + 1, s_tv, s_ti,
+                                sm.tk);
         const bool valid = s_tv[0] > HALF_NEG_INF;
-        const float wl_val = s_tv[w];
-        const int wl_idx = s_ti[w];
         int* row = o.packed + (size_t)step * stride;
 
         if (step == 0 || !valid) {
@@ -276,149 +252,14 @@ __device__ __forceinline__ void kway_body(const LocalArgs& a,
             row[stride - 3] = -1;
         }
 
-        // the winners' CHUNK_J-long score streams, each walked until its
-        // first loser against the waterline, or until it has passed a_max
-        // (every chunk is capped there, so a later loser changes
-        // nothing). Winner 0's stream is also held against the runner-up
-        // (the overshoot fallback) by the same rule; it loses to the
-        // runner-up no later than to the waterline. A first round gives
-        // each winner 8 lanes of a warp (sub-placements 0-7: most streams
-        // end there), warp v winners v, v + 32, v + 64 and v + 96.
-        {
-            const int g = lane >> 3;
-            const int wi = warp + NWARPS * g;
-            int c = 0, fl = CHUNK_J, fl0 = CHUNK_J, open = 0, open0 = 0;
-            float a_max = 0.0f;
-            if (wi < w) {
-                c = s_ti[wi];
-                a_max = fminf(fit_cap(a, s_ask, c), (float)CHUNK_J);
-                open = s_tv[wi] > HALF_NEG_INF;
-                open0 = open && wi == 0;
-                if (open && 0.0f >= a_max) {
-                    fl = fl0 = 0;
-                    open = open0 = 0;
-                }
-            }
-            float fj = 0.0f;
-            if (open) fj = sub_score(a, s_ask, c, lane & 7);
-            const unsigned lose = __ballot_sync(
-                0xffffffffu,
-                open && !(fj > wl_val || (fj == wl_val && c < wl_idx)))
-                >> (8 * g) & 0xffu;
-            const unsigned lose0 = __ballot_sync(
-                0xffffffffu,
-                open0 && !(fj > s_tv[1] || (fj == s_tv[1] && c < s_ti[1])))
-                >> (8 * g) & 0xffu;
-            if (open && lose) {
-                fl = __ffs(lose) - 1;
-                open = 0;
-            }
-            if (open0 && lose0) {
-                fl0 = __ffs(lose0) - 1;
-                open0 = 0;
-            }
-            if ((lane & 7) == 0 && wi < w) {
-                ss.a_max[wi] = a_max;
-                ss.fl[wi] = fl;
-                ss.open[wi] = open;
-                if (wi == 0) {
-                    ss.fl0 = fl0;
-                    ss.open0 = open0;
-                }
-            }
-        }
-        __syncthreads();
-        // the streams still open go on from sub-placement 8, 32 a round,
-        // every round of every open stream at once: warp 0 lists them, one
-        // (winner, round) pair each up to the round that reaches a_max,
-        // and the warps share the list; a round past the stream's first
-        // loser is computed and not read
-        if (warp == 0) {
-            int nq[W_MAX / 32], tot = 0;
-            for (int r = 0; r < W_MAX / 32; ++r) {
-                const int k = (W_MAX / 32) * lane + r;
-                int q = 0;
-                if (k < w && ss.open[k])
-                    while (q < STREAM_ROUNDS
-                           && (float)(8 + 32 * q) < ss.a_max[k]) ++q;
-                nq[r] = q;
-                tot += q;
-            }
-            int start = tot;
-            for (int off = 1; off < 32; off <<= 1) {
-                const int o = __shfl_up_sync(0xffffffffu, start, off);
-                if (lane >= off) start += o;
-            }
-            if (lane == 31) ss.npairs = start;
-            start -= tot;
-            for (int r = 0; r < W_MAX / 32; ++r) {
-                const int k = (W_MAX / 32) * lane + r;
-                if (k < w) ss.rounds[k] = nq[r];
-                for (int q = 0; q < nq[r]; ++q)
-                    ss.pair[start++] = (unsigned short)(k * STREAM_ROUNDS + q);
-            }
-        }
-        __syncthreads();
-        for (int p = warp; p < ss.npairs; p += NWARPS) {
-            const int code = ss.pair[p];
-            const int k = code / STREAM_ROUNDS;
-            const int j = 8 + 32 * (code % STREAM_ROUNDS) + lane;
-            const int c = s_ti[k];
-            const float fj = sub_score(a, s_ask, c, j);
-            const unsigned l = __ballot_sync(
-                0xffffffffu, j < CHUNK_J
-                && !(fj > wl_val || (fj == wl_val && c < wl_idx)));
-            if (lane == 0) ss.lose[code] = l;
-            if (k == 0) {
-                const unsigned l0 = __ballot_sync(
-                    0xffffffffu, j < CHUNK_J
-                    && !(fj > s_tv[1] || (fj == s_tv[1] && c < s_ti[1])));
-                if (lane == 0) ss.lose0[code] = l0;
-            }
-        }
+        // the winners' chunks (kway_streams: each stream walked up to its
+        // first loser), then the overshoot fallback
+        kway_streams(a, s_ask, s_tv, s_ti, w, nullptr, w, sm.st, s_chunk,
+                     &s_chunk0);
         __syncthreads();
         if (warp == 0) {
-            // each winner's chunk from its first loser; then the overshoot
-            // fallback (select.py:716-728): place on the best node only,
-            // chunked against the runner-up. The chunks are whole numbers
-            // and their sum is below 2^24, so the warp's sums are exact in
-            // any order.
-            float chunk[W_MAX / 32], chunk0 = 0.0f, total = 0.0f;
-            for (int r = 0; r < W_MAX / 32; ++r) {
-                const int k = lane + 32 * r;
-                chunk[r] = 0.0f;
-                if (k >= w) continue;
-                const float am = ss.a_max[k];
-                const int f = ss.open[k]
-                    ? stream_first_loser(ss.lose + k * STREAM_ROUNDS,
-                                         ss.rounds[k])
-                    : ss.fl[k];
-                chunk[r] = s_tv[k] > HALF_NEG_INF
-                    ? fminf(fmaxf((float)f, 1.0f), am) : 0.0f;
-                total = total + chunk[r];
-                if (k == 0) {
-                    const int f0 = ss.open0
-                        ? stream_first_loser(ss.lose0, ss.rounds[0])
-                        : ss.fl0;
-                    chunk0 = fminf(fminf(fmaxf((float)f0, 1.0f), am),
-                                   (float)remaining);
-                }
-            }
-            for (int off = 16; off > 0; off >>= 1)
-                total = total + __shfl_xor_sync(0xffffffffu, total, off);
-            chunk0 = __shfl_sync(0xffffffffu, chunk0, 0);
-            const bool first_only = total > (float)remaining;
-            int placed = 0;
-            for (int r = 0; r < W_MAX / 32; ++r) {
-                const int k = lane + 32 * r;
-                if (k >= w) continue;
-                float c = chunk[r];
-                if (first_only) c = k == 0 ? chunk0 : 0.0f;
-                if (!valid) c = 0.0f;
-                s_chunk[k] = c;
-                placed += (int)c;
-            }
-            placed = warp_sum(placed);
+            const int placed = kway_fallback(s_chunk, s_chunk0, w,
+                                             remaining, valid);
             if (lane == 0) {
                 s_ctl[0] = remaining - placed;
                 s_ctl[1] = valid ? 1 : 0;

@@ -59,16 +59,30 @@
 // are merged after the next sync. The loop ends after the first sync at
 // which no lane of the launch runs.
 //
-// K-way, each phase: every block of a running lane writes its local
-// top-(W+1) and counts; a grid sync; every block of the lane merges the S
-// sorted lists into the global top-(W+1), whose last entry is the
-// waterline. Each winner's owner scores that winner's CHUNK_J-long stream
-// against the waterline (winner 0's also against the runner-up) and writes
-// its chunk; a second grid sync; every block applies the overshoot fallback
-// (select.py:716-728) to the W chunks, so `remaining` agrees everywhere,
-// and owners place their winners. The lane's block 0 publishes whether the
-// lane runs the next phase; every block reads all lanes' flags after the
-// next phase's first sync.
+// K-way, each phase (the single-card body's design, kway_body, shard by
+// shard): every block of a running lane takes its shard's top-(w + 1) by
+// the radix top-k (block_topk_radix over its own rows of masked: its
+// whole slice when that is shorter) and writes it, with global rows, to
+// the exchange; a grid sync; every block of the lane takes the lane's
+// top-(w + 1) from the S lists by the same radix top-k, reading them end
+// to end in shard order (a shard's rows all lie below the next shard's
+// and each list is sorted, so among equal scores position order is row
+// order and the result is lax.top_k's, ties at NEG_INF included). Its
+// last entry is the waterline. Each block walks the streams of the
+// winners its shard owns (kway_streams, the single-card body's stream
+// walk: each stops at its first loser or past a_max; winner 0's also
+// against the runner-up) and writes their chunks; a second grid sync;
+// every block applies the overshoot fallback (select.py:716-728) to the W
+// chunks, so `remaining` agrees everywhere, and the owners place their
+// winners and rescore those rows (local_row, the sweep's own per-row
+// function): a block sweeps its shard only at a launch's first phase (a
+// continuation launch too: the scratch is fresh). The lane's top is
+// invalid only where every shard's is, so a block reports its counts at
+// phase 0 and once its own top turns invalid, after one more sweep of its
+// shard; no row of a shard without a feasible row is placed on again, so
+// those counts stand for the rest of the launch. The lane's block 0
+// publishes whether the lane runs the next phase; every block reads all
+// lanes' flags after the next phase's first sync.
 //
 // Exactness: the rules of select_kernels.cu, through the same pieces
 // (select_common.cuh). Every cross-shard reduction is exact: integer sums,
@@ -78,7 +92,9 @@
 //
 // What bounds it on an H100: latency, as for the solo kernels, not bytes or
 // operations. A shard sweeps 1/S of the table, but every step adds a grid
-// sync (two a K-way phase) and block-wide reductions over the S candidates.
+// sync (two a K-way phase) and block-wide reductions over the S candidates
+// (the K-way's over S * min(w + 1, per) of them: at S 132 the whole
+// table).
 // One 1024-thread block per shard keeps the shared device functions as they
 // are; at large S most of a block's threads idle. B * S may not exceed the
 // blocks the card holds at once (nomad_sharded_max_blocks): a cooperative
@@ -101,7 +117,9 @@ namespace cg = cooperative_groups;
 // grid sync stays readable until the next one.
 struct ShardXchg {
     float* lv;     // [lanes, 2, S, kl] each shard's candidates, by parity
-    int* li;       //   (scan kl = 1, its best; chunked 5; K-way w + 1)
+    int* li;       //   (scan kl = 1, its best; chunked 5; K-way w + 1,
+                   //   of which it fills min(w + 1, per) a shard, end to
+                   //   end, in parity 0)
     float* dv;     // [lanes, 2, S, TOP_K] a diagnostic step's top-5, by
     int* di;       //   parity
     int* cnt;      // [lanes, 2, S, CNT_W] first-failing-dimension counts,
@@ -549,21 +567,27 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
         LocalArgs a0, KwayOut o0, LocalLanes l, ShardXchg x0, int lanes) {
     cg::grid_group grid = cg::this_grid();
     __shared__ Red red;
+    // the top-k's scratch, and the streams' after it (never both live)
+    __shared__ union { TopkShared tk; StreamShared st; } sm;
     __shared__ float s_ask[D_MAX];
-    __shared__ float s_tv[W_MAX + 1];
+    __shared__ float s_lv[W_MAX + 1];   // the shard's top-(w + 1)
+    __shared__ int s_li[W_MAX + 1];
+    __shared__ float s_tv[W_MAX + 1];   // the lane's top-(w + 1)
     __shared__ int s_ti[W_MAX + 1];
-    __shared__ unsigned s_lose[W_MAX * CHUNK_J / 32];
-    __shared__ unsigned s_lose0[CHUNK_J / 32];
-    __shared__ int s_own[W_MAX];      // positions of the winners it owns
+    __shared__ int s_own[W_MAX];        // positions of the winners it owns
     __shared__ float s_chunk[W_MAX];
-    __shared__ int s_ctl[3];          // placed-after, valid, owned count
-    const int tid = threadIdx.x, S = x0.shards;
+    __shared__ int s_ctl[3];            // placed-after, valid, owned count
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int S = x0.shards;
     const int b = blockIdx.x / S, s = blockIdx.x - b * S;
     const LocalArgs a = l.k_valid ? local_lane(a0, l, b) : a0;
     const KwayOut o = kway_out_lane(o0, b, a0);
     const ShardXchg xg = xchg_lane(x0, b);
     const int lo = s * xg.per, hi = lo + xg.per;
     const int w = o.w, k1 = w + 1;
+    // each shard's list holds min(w + 1, per) entries: its whole slice
+    // when that is shorter, so the S lists hold at least w + 1 rows
+    const int kk = min(k1, xg.per);
     const int stride = 2 * w + TOP_K + a.d + 3;
     if (s == 0) {
         for (int r = tid; r < a.max_steps; r += NT) {
@@ -580,6 +604,8 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
     if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
     int remaining = a.k_valid, step = 0;
     bool alive = true;
+    bool dry = false;   // the shard has no feasible row; its counts stand
+    Sweep sw = {};
     if (s == 0 && tid == 0) xg.flag[0] = remaining > 0 && a.max_steps > 0;
     __syncthreads();
 
@@ -587,10 +613,30 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
         // replicated in the lane, and what its block 0 published
         const bool active = remaining > 0 && alive && step < a.max_steps;
         if (active) {
-            const Sweep sw = local_sweep_rows(a, s_ask, lo, hi);
-            shard_counts(sw.cnt, sw.okc, a.d, xg.cnt + s * CNT_W, red);
-            shard_topk(a.masked, lo, xg.per, k1, xg.lv + s * k1,
-                       xg.li + s * k1, red);
+            // the shard is swept at a launch's first phase only; after that
+            // its owned winners' rows are rescored (below), the only rows
+            // whose carries a phase changed
+            if (step == 0) {
+                sw = local_sweep_rows(a, s_ask, lo, hi);
+                __syncthreads();
+            }
+            block_topk_radix<false>(a.masked + lo, nullptr, xg.per, kk, s_lv,
+                                    s_li, sm.tk);
+            for (int j = tid; j < kk; j += NT) {
+                xg.lv[s * kk + j] = s_lv[j];
+                xg.li[s * kk + j] = s_li[j] + lo;
+            }
+            // the lane's top is invalid only where every shard's is, so a
+            // shard reports counts at phase 0 and once its own top turns
+            // invalid: one more sweep then (rewriting masked with the values
+            // it holds), after which no row of the shard is placed on and
+            // the counts it wrote stand for the rest of the launch
+            const bool local_valid = s_lv[0] > HALF_NEG_INF;
+            if (step == 0 || (!local_valid && !dry)) {
+                if (step > 0) sw = local_sweep_rows(a, s_ask, lo, hi);
+                shard_counts(sw.cnt, sw.okc, a.d, xg.cnt + s * CNT_W, red);
+            }
+            dry = !local_valid;
         }
         grid.sync();
         if (!any_lane(x0.flag, lanes, 0)) break;
@@ -599,19 +645,26 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
         int nown = 0;
         int* row = o.packed + (size_t)step * stride;
         if (active) {
-            // every block of the lane: the global top-(w+1) from the S
-            // sorted lists
-            merge_sorted(xg.lv, xg.li, S, k1, k1, k1, s_tv, s_ti, red);
-            if (tid == 0) {
+            // every block of the lane: the lane's top-(w + 1) from the S
+            // lists, laid end to end in shard order (rows ascend among
+            // equal scores), by the same radix top-k
+            block_topk_radix<true>(xg.lv, xg.li, S * kk, k1, s_tv, s_ti,
+                                   sm.tk);
+            if (warp == 0) {
+                // the winners this block owns, in position order
                 int own = 0;
-                for (int k = 0; k < w; ++k)
-                    if (s_ti[k] >= lo && s_ti[k] < hi) s_own[own++] = k;
-                s_ctl[2] = own;
+                for (int k0 = 0; k0 < w; k0 += 32) {
+                    const int k = k0 + lane;
+                    const bool mine = k < w && s_ti[k] >= lo && s_ti[k] < hi;
+                    const unsigned bal = __ballot_sync(0xffffffffu, mine);
+                    if (mine) s_own[own + __popc(bal & ((1u << lane) - 1u))]
+                        = k;
+                    own += __popc(bal);
+                }
+                if (lane == 0) s_ctl[2] = own;
             }
             __syncthreads();
             valid = s_tv[0] > HALF_NEG_INF;
-            const float wl_val = s_tv[w];
-            const int wl_idx = s_ti[w];
             nown = s_ctl[2];
 
             if (s == 0 && tid == 0) {
@@ -634,71 +687,36 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
                 }
             }
 
-            // the owned winners' score streams against the waterline, and
-            // winner 0's against the runner-up, as per-warp loser ballots
-            // (nown * CHUNK_J is a multiple of 32: a warp is wholly in or
-            // out)
-            for (int e = tid; e < nown * CHUNK_J; e += NT) {
-                const int p = e / CHUNK_J, j = e - p * CHUNK_J;
-                const int wi = s_own[p];
-                const int c = s_ti[wi];
-                const float fj = sub_score(a, s_ask, c, j);
-                const bool wins = fj > wl_val
-                                  || (fj == wl_val && c < wl_idx);
-                const bool wins0 = wi != 0 || fj > s_tv[1]
-                                   || (fj == s_tv[1] && c < s_ti[1]);
-                const unsigned lose = __ballot_sync(0xffffffffu, !wins);
-                const unsigned lose0 = __ballot_sync(0xffffffffu, !wins0);
-                if ((tid & 31) == 0) {
-                    s_lose[e >> 5] = lose;
-                    if (wi == 0) s_lose0[j >> 5] = lose0;
-                }
-            }
-            __syncthreads();
-            if (tid < nown) {
-                const int wi = s_own[tid];
-                const int c = s_ti[wi];
-                const float a_max = fminf(fit_cap(a, s_ask, c),
-                                          (float)CHUNK_J);
-                float chunk = fminf(
-                    fmaxf((float)first_loser(s_lose + tid * (CHUNK_J / 32)),
-                          1.0f), a_max);
-                if (!(s_tv[wi] > HALF_NEG_INF)) chunk = 0.0f;
-                xg.chunk[wi] = chunk;
-                if (wi == 0)
-                    xg.chunk[W_MAX] = fminf(
-                        fmaxf((float)first_loser(s_lose0), 1.0f), a_max);
-            }
+            // the owned winners' chunks (the stream walk of kway_body), and
+            // winner 0's against the runner-up, into the exchange
+            kway_streams(a, s_ask, s_tv, s_ti, w, s_own, nown, sm.st,
+                         xg.chunk, xg.chunk + W_MAX);
         }
         grid.sync();
 
         if (active) {
-            if (tid == 0) {
-                // overshoot fallback (select.py:716-728), in every block of
-                // the lane: place on the best node only, chunked against
-                // the runner-up
-                float total = 0.0f;
-                for (int k = 0; k < w; ++k) {
+            if (warp == 0) {
+                // every block of the lane: the overshoot fallback on the
+                // W chunks, so `remaining` agrees everywhere
+                for (int k = lane; k < w; k += 32)
                     s_chunk[k] = __ldcg(xg.chunk + k);
-                    total = total + s_chunk[k];
+                const int placed = kway_fallback(
+                    s_chunk, __ldcg(xg.chunk + W_MAX), w, remaining, valid);
+                if (lane == 0) {
+                    s_ctl[0] = remaining - placed;
+                    s_ctl[1] = valid ? 1 : 0;
                 }
-                const float chunk0 = __ldcg(xg.chunk + W_MAX);
-                if (total > (float)remaining) {
-                    s_chunk[0] = fminf(chunk0, (float)remaining);
-                    for (int k = 1; k < w; ++k) s_chunk[k] = 0.0f;
-                }
-                if (!valid)
-                    for (int k = 0; k < w; ++k) s_chunk[k] = 0.0f;
-                int placed = 0;
-                for (int k = 0; k < w; ++k) placed += (int)s_chunk[k];
-                s_ctl[0] = remaining - placed;
-                s_ctl[1] = valid ? 1 : 0;
             }
             __syncthreads();
             if (tid < nown) {
-                // the owner places its winners (rows are distinct)
+                // the owner places its winners (rows are distinct), then
+                // rescores each row for the next phase (a row placed with
+                // chunk 0 rescores to the value it held)
                 const int wi = s_own[tid];
-                place(a, s_ask, s_ti[wi], s_chunk[wi]);
+                const int c = s_ti[wi];
+                place(a, s_ask, c, s_chunk[wi]);
+                Sweep unused{};
+                a.masked[c] = local_row(a, s_ask, c, unused);
             }
             if (s == 0 && tid < w) {
                 const int chunk_i = (int)s_chunk[tid];
@@ -711,6 +729,7 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
         }
         if (s == 0 && tid == 0)
             xg.flag[0] = remaining > 0 && alive && step < a.max_steps;
+        // the rescored rows before the next top-k reads them
         __syncthreads();
     }
     if (s == 0) {

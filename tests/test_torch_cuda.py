@@ -12,6 +12,7 @@ from nomad_tpu_torch.state.carry import select_request_from_arrays
 from test_torch_device_table import EDGE_CASES, edge_inputs, set_case
 from test_torch_kway import EDGE_CASES as KWAY_EDGE_CASES
 from test_torch_kway import kway_edge_args
+from nomad_tpu_torch.mock.kway_edges import pad_rows
 from test_torch_select import N_NODES, _fields
 
 pytestmark = pytest.mark.cuda
@@ -488,3 +489,104 @@ def test_batched_sharded_lanes_beyond_the_card_launch_in_groups(cuda, kind):
     targs, kw = _lanes_batch(kind, 100, lanes, shards, cuda, seed=7)
     assert _held_batched_sharded(kind, targs, kw, shards) == \
         -(-lanes // per) >= 2
+
+
+def _shard_count(cuda, shards):
+    return kernels.max_shards("kway_sharded", cuda) if shards == "max" \
+        else shards
+
+
+def _continue(targs, got, w, lanes=None):
+    """The next launch's arguments from a K-way launch's carry on the card
+    (a batched launch's when lanes is given); None when nothing is left
+    to place or the last launch placed nothing."""
+    used, coll, freep, devs = got[0]
+    packed = got[1][0]
+    if lanes is None:
+        rem = int(packed[0, -2])
+        if rem <= 0 or int(packed[:, w:2 * w].sum()) == 0:
+            return None
+        k_valid = rem
+    else:
+        k_valid = packed[:, 0, -2].clamp(min=0).to(torch.int32)
+        if int(k_valid.sum()) == 0 or int(packed[:, :, w:2 * w].sum()) == 0:
+            return None
+    return dict(targs, used0=used, tg_coll0=coll, free_ports=freep,
+                dev_slots0=devs, k_valid=k_valid)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, "max"])
+@pytest.mark.parametrize("spread_alg", [False, True])
+@pytest.mark.parametrize("label", sorted(KWAY_EDGE_CASES))
+def test_kway_sharded_edge_shapes_on_card(cuda, label, spread_alg, shards):
+    """The node-sharded K-way kernel (the radix top-(W + 1) a shard and
+    across shards, winner-only rescoring by the owning shard, streams that
+    stop at their first loser) at the edge shapes, padded as a mesh of S
+    shards pads the table (S 1, 2, 8 and the most the card holds), with
+    an 8-phase budget so that launches continue from the card's own carry:
+    every launch equal to kway_sharded_plain and to the single-card kernel
+    on the same padded table, bit for bit."""
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shards = _shard_count(cuda, shards)
+    n, count, kind = KWAY_EDGE_CASES[label]
+    w = tsel._kway_w(tsel._pad_n(n))
+    args = pad_rows(kway_edge_args(n, count, kind, w, seed=3),
+                    pad_for_mesh(make_mesh(shards, cuda), n))
+    targs = _on(cuda, args)
+    kw = dict(max_steps=8, spread_alg=spread_alg, w=w)
+    for _launch in range(8):
+        got = kernels.select_kway_sharded(**targs, **kw, shards=shards)
+        torch.cuda.synchronize()
+        want = kernels.kway_sharded_plain(**targs, **kw, shards=shards)
+        _assert_equal(got[0], want[0])
+        _assert_equal(got[1], want[1])
+        single = kernels.select_kway(**targs, **kw)
+        _assert_equal(got[0], single[0])
+        _assert_equal(got[1], single[1])
+        targs = _continue(targs, got, w)
+        if targs is None:
+            break
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, "max"])
+def test_kway_batched_sharded_mixed_lanes_on_card(cuda, shards):
+    """Five K-way lanes over one capacity table (counts 10, 600 and 600 with
+    few feasible rows, a lane with no feasible row, and a lane that runs
+    dry), padded as a mesh of S shards pads it, launched with an 8-phase
+    budget and continued from the card's carry until every lane is done:
+    every launch equal to the batched plain version and to the
+    single-card batched kernel on the same padded lanes, bit for bit."""
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shards = _shard_count(cuda, shards)
+    n, w = 200, 32
+    n_pad = pad_for_mesh(make_mesh(shards, cuda), n)
+    lanes = [pad_rows(kway_edge_args(n, c, kind, w, seed=4), n_pad)
+             for c, kind in ((10, "random"), (600, "random"), (600, "few"),
+                             (600, "none"), (4000, "dry"))]
+    targs = {}
+    for k in lanes[0]:
+        if k == "capacity":
+            targs[k] = lanes[0][k]
+        elif k == "k_valid":
+            targs[k] = np.array([ln[k] for ln in lanes], np.int32)
+        elif isinstance(lanes[0][k], np.ndarray):
+            targs[k] = np.stack([ln[k] for ln in lanes])
+        else:
+            targs[k] = np.array([ln[k] for ln in lanes], np.float32)
+    targs = _on(cuda, targs)
+    kw = dict(max_steps=8, spread_alg=False, w=w)
+    launches = 0
+    while targs is not None and launches < 16:
+        got = kernels.select_kway_batched_sharded(**targs, **kw,
+                                                  shards=shards)
+        torch.cuda.synchronize()
+        want = kernels.kway_batched_sharded_plain(**targs, **kw,
+                                                  shards=shards)
+        _assert_equal(got[0], want[0])
+        _assert_equal(got[1], want[1])
+        single = kernels.select_kway_batched(**targs, **kw)
+        _assert_equal(got[0], single[0])
+        _assert_equal(got[1], single[1])
+        targs = _continue(targs, got, w, lanes=len(lanes))
+        launches += 1
+    assert launches > 1
