@@ -17,7 +17,19 @@ Phases (each raises on failure, so the process exits non-zero):
      w + 1, 50 feasible rows of 10,000, exactly w + 1, all-alike nodes at
      10,000 and 1,000 rows, an invalid first phase, a lane that runs dry),
      binpack and spread, each with an 8-phase budget so that its launches
-     continue from the card's carry, every launch bit for bit;
+     continue from the card's carry, every launch bit for bit; the scan
+     held bit for bit at its main shape, its bound counted from the work
+     its outputs need (scan_ops; a sweep of every row at every step
+     printed beside it), and the scan kernels at their edge shapes
+     (SCAN_EDGES of nomad_tpu_torch.mock.scan_edges: a tie storm, n not a
+     multiple of 1024, one feasible row, none, k_valid 1, a count above
+     1024, requests that run dry, every stanza with empty histograms,
+     16,384 rows all live: more than the kernels keep in shared memory,
+     which fails unless it is so), binpack and spread,
+     solo and as two lanes over one table, and ten batched lanes of counts
+     16-61 (one with no feasible row) at 10,000 nodes, every launch bit for
+     bit against its plain version and each batched lane against the solo
+     kernel;
   3. the resident table's three row scatters (scatter_set, overlay_add,
      feas_scatter, each one fused copy-and-patch launch) against their
      plain versions and the library call
@@ -127,12 +139,18 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, float32 without tensor cores
 FP64_OPS_PER_S = 34e12        # H100 SXM data sheet, float64 without tensor cores
 # Operations per node per step of the scoring sweep, counted from the
-# kernel's expression (local_score / scan_eval in select_kernels.cu).
+# kernel's expression (local_score / scan_eval in select_common.cuh).
 # float32: port and device-slot tests 2, AllocsFit add + compare over 4
 # dims 8, capacity clamps 2, free_cpu/free_mem 4, sum of the powers 1, fit
 # clip 3, binpack 1, anti-affinity 1, fired count 10, final sum and
 # division 6, masked select 1, argmax 1.
 F32_OPS_LOCAL = 40
+# Of those, what the scan composes a row a step from its node-local terms
+# and its spread total (scan_score, scan_compose): the spread's fired flag
+# and its add 2, the three adds after the spread term 3, the division 1,
+# masked select 1, argmax 1; the rest are the node-local terms.
+F32_OPS_COMPOSE = 8
+F32_OPS_NODE = F32_OPS_LOCAL - F32_OPS_COMPOSE
 # float64: each 10**x is pow(10.0, (double)x), counted as ONE float64
 # operation although the library routine takes many, so the bound stays a
 # lower bound.
@@ -406,32 +424,122 @@ def kernel_phase(device):
             run, plain = kernels.select_chunked, kernels.chunked_plain
         label = f"{kind} n={n} count={count}"
         err, trail = held_launches(kind, label, run, plain, targs, kw, count)
+        if kind == "scan" and err != 0.0:
+            fail(f"{label}: max abs err {err} against the plain version")
         # the timed call is the first launch, from the request's own inputs
         steps = trail[0][0]
         ms = cuda_ms(lambda: run(**targs, **kw))
         plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=5)
         got = run(**targs, **kw)
-        io_bytes, f32, f64 = lane_bound(kind, targs, got[0], got[1], n,
-                                        n_pad, steps, kw, len(req.spreads),
-                                        len(req.distinct_props))
-        io_bytes += rows_bytes([targs["capacity"]], n, n_pad)
-        t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
-        rows.append(dict(kind=kind, n=n, count=count, main=main,
-                         steps=steps, launches_held=len(trail),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         us_per_step=ms / steps * 1e3,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations"))
+        row = dict(kind=kind, n=n, count=count, main=main, steps=steps,
+                   launches_held=len(trail), max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, us_per_step=ms / steps * 1e3)
+        bounds = [False, True] if kind == "scan" else [False]
+        for full in bounds:
+            io_bytes, f32, f64 = lane_bound(
+                kind, targs, got[0], got[1], n, n_pad, steps, kw,
+                len(req.spreads), len(req.distinct_props), full)
+            io_bytes += rows_bytes([targs["capacity"]], n, n_pad)
+            b_ms, by = bound_of(io_bytes, f32, f64)
+            row.update({"bound_full_ms": b_ms} if full
+                       else dict(bound_ms=b_ms, bound_by=by))
+        extra = ""
+        if kind == "scan":
+            row["steps_run"] = scan_steps_run(got[1][0], kw["k_steps"])
+            extra = (f"; {row['steps_run']} steps run, "
+                     f"{ms / row['steps_run'] * 1e3:.1f} us each; bound "
+                     f"over every step and row {row['bound_full_ms']:.6f} ms")
+        rows.append(row)
         print(f"kernel {label}: agrees over {len(trail)} launches "
               f"(steps, remaining {trail}; max abs err {err:.3g}); first "
               f"launch {ms:.3f} ms ({ms / steps * 1e3:.1f} us a "
               f"{'phase' if kind == 'kway' else 'step'}), plain "
-              f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms",
+              f"{plain_ms:.3f} ms, bound {row['bound_ms']:.6f} ms{extra}",
               flush=True)
     kway_edge_checks()
+    scan_edge_checks()
     return rows
+
+
+def bound_of(nbytes, f32, f64):
+    """(ms, "bytes" or "operations"): the least time the card takes to
+    move nbytes and do the operations, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_steps_run(choice, k_steps):
+    """Steps a scan lane runs: up to and including its first invalid one
+    (the longest lane's, for a batch)."""
+    most = 0
+    for lane in choice.reshape(-1, k_steps).cpu():
+        bad = (lane < 0).nonzero()
+        most = max(most, int(bad[0]) + 1 if len(bad) else k_steps)
+    return most
+
+
+def scan_edge_checks():
+    """The scan kernels at SCAN_EDGES (nomad_tpu_torch.mock.scan_edges),
+    binpack and spread: the solo kernel against the plain version, and
+    each case as two lanes over one table (the case, and the same shape
+    from another seed) against the batched plain version and lane by lane
+    the solo kernel; then ten lanes of counts 16-61 with their own stanzas
+    and constraints, the last with no feasible row, at 10,000 nodes. Every
+    launch equal, max abs error 0."""
+    import torch
+    from nomad_tpu_torch.mock import scan_edges as edges
+    from nomad_tpu_torch.ops import kernels
+
+    def held(label, targs, kw, batched):
+        name = "scan_batched" if batched else "scan"
+        got = getattr(kernels, "select_" + name)(**targs, **kw)
+        torch.cuda.synchronize()
+        want = getattr(kernels, name + "_plain")(**targs, **kw)
+        compare(f"{label} carry", got[0], want[0], 0.0)
+        compare(f"{label} outputs", got[1], want[1], 0.0)
+        if batched:
+            for i in range(targs["used0"].shape[0]):
+                s_carry, s_outs = kernels.select_scan(
+                    **kernels.lane_args(targs, i), **kw)
+                compare(f"{label} lane {i} carry vs solo",
+                        [t[i] for t in got[0]], s_carry, 0.0)
+                compare(f"{label} lane {i} outputs vs solo",
+                        [t[i] for t in got[1]], s_outs, 0.0)
+        # the rows live at step 0 (its ok_count), the most of any lane
+        live = int(got[1][12].reshape(-1, kw["k_steps"])[:, 0].max())
+        return scan_steps_run(got[1][0], kw["k_steps"]), live
+
+    held_runs = []
+    for i, label in enumerate(edges.SCAN_EDGES):
+        for spread_alg in (False, True):
+            seed = SEED + 80 + i
+            args, st = edges.edge_case(label, seed, spread_alg)
+            solo = held(f"scan edge {label} (spread_alg {spread_alg})",
+                        _card(args), st, False)
+            lanes = [edges.edge_case(label, seed + j, spread_alg)
+                     for j in range(2)]
+            lanes[1][0]["capacity"] = lanes[0][0]["capacity"]
+            args, st = edges.lanes_batch(lanes)
+            st["k_steps"] = lanes[0][1]["k_steps"]
+            batched = held(f"scan_batched edge {label} (spread_alg "
+                           f"{spread_alg})", _card(args), st, True)
+            held_runs.append((label, spread_alg, st["k_steps"], solo[0],
+                              batched[0], solo[1]))
+    args, st = edges.mixed_lanes(MAIN_NODES, SEED + 90)
+    mixed = held("scan_batched mixed lanes", _card(args), st, True)
+    slots = (kernels.scan_shared_slots(), kernels.scan_shared_slots(True))
+    print("kernel scan edge shapes: every launch equal to the plain version "
+          "bit for bit, each batched lane also to the solo kernel (label, "
+          "spread_alg, k_steps, steps run solo, steps run batched, rows "
+          f"live at step 0 solo): {held_runs}; mixed lanes at {MAIN_NODES} "
+          f"nodes: {mixed[0]} of {st['k_steps']} steps run, {mixed[1]} rows "
+          f"live at step 0 in the largest lane; live records kept in shared "
+          f"memory (solo, batched): {slots}", flush=True)
+    past = [r for r in held_runs if r[5] > max(slots)]
+    if not past:
+        fail("scan edge shapes: no case has more live rows than the "
+             f"kernels' {slots} records in shared memory")
 
 
 # The K-way kernel's edge shapes (its radix top-(w + 1), winner-only
@@ -451,9 +559,13 @@ KWAY_EDGES = (("n = w + 1", 129, 2_000, "random", 128, None),
 
 
 def _card(a):
+    """Arguments on the card: arrays as tensors there, numpy scalars as
+    Python numbers (as the wrappers and plain versions take them)."""
     import torch
     return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
-            if isinstance(v, np.ndarray) else v for k, v in a.items()}
+            if isinstance(v, np.ndarray)
+            else v.item() if isinstance(v, np.generic) else v
+            for k, v in a.items()}
 
 
 def kway_edge_checks():
@@ -1231,19 +1343,47 @@ def lane_batch(kind, counts, seed, variant=""):
     return lanes
 
 
-def lane_bound(kind, lane, carry, outs, n, n_pad, steps, kw, nspread, ndp):
+def lane_bound(kind, lane, carry, outs, n, n_pad, steps, kw, nspread, ndp,
+               full=False):
     """(bytes, float32 ops, float64 ops) of one lane's launch, its inputs
-    without the shared capacity."""
+    without the shared capacity; `full` as scan_ops takes it."""
     max_steps = kw.get("max_steps")
     nbytes = (rows_bytes([v for k, v in lane.items() if k != "capacity"], n,
                          n_pad)
               + rows_bytes(carry, n, n_pad)
               + rows_bytes(outs, n, n_pad, steps, max_steps))
     if kind.startswith("scan"):
-        f32 = steps * n * (F32_OPS_LOCAL + F32_OPS_SPREAD * nspread
-                           + F32_OPS_DP * ndp)
-        return nbytes, f32, steps * n * F64_OPS_POW
+        return (nbytes,) + scan_ops(outs, n, kw["k_steps"], nspread, ndp,
+                                    carry[6].shape[-1], full)
     return (nbytes,) + greedy_ops(kind, outs, n, steps, kw.get("w", 1))
+
+
+def scan_ops(outs, n, k_steps, nspread, ndp, c_axis, full=False):
+    """(float32, float64) operations a scan launch needs for the outputs
+    this run's data gave. A step changes the node-local state of its
+    winner's row only, so the node-local terms are needed once a row a
+    launch and once more a placement (the winner's row rescored), their
+    two powers only where a row is live at step 0 (feasible, fitting and
+    admitted: ok_count[0]; no other row ever is) and at each placement.
+    The spread and distinct_property terms depend on a row only through
+    its codes, so each step up to and including the first invalid one
+    (every later step repeats it) needs them once a code (c_axis codes a
+    stanza or constraint), and a live row only its stanzas' adds and its
+    score composed and compared. With `full`, the count before that:
+    every term of every row at every one of the k_steps steps."""
+    if full:
+        f32 = k_steps * n * (F32_OPS_LOCAL + F32_OPS_SPREAD * nspread
+                             + F32_OPS_DP * ndp)
+        return f32, k_steps * n * F64_OPS_POW
+    choice = outs[0].cpu().numpy().reshape(-1)
+    bad = np.nonzero(choice < 0)[0]
+    steps = int(bad[0]) + 1 if len(bad) else k_steps
+    placed = int((choice >= 0).sum())
+    live = max(int(outs[12].reshape(-1)[0]), 0)
+    f32 = ((n + placed) * F32_OPS_NODE
+           + steps * c_axis * (F32_OPS_SPREAD * nspread + F32_OPS_DP * ndp)
+           + steps * live * (nspread + F32_OPS_COMPOSE))
+    return f32, (live + placed) * F64_OPS_POW
 
 
 def greedy_ops(kind, outs, n, steps, w):
@@ -1325,6 +1465,7 @@ def batched_kernel_phase(device):
                   compare(f"{label} outputs vs plain", got[1], want[1], 0.0))
         nbytes = rows_bytes([targs["capacity"]], n, n_pad)
         f32 = f64 = 0
+        full = np.zeros(3)   # the scan's bound over every step and row
         most = 0
         for i, lane in enumerate(lanes):
             s_carry, s_outs = solo(**lane, **kw)
@@ -1340,34 +1481,43 @@ def batched_kernel_phase(device):
                 steps = int(g_outs[0][0, -1])
             else:
                 steps = int(g_outs[7])
+            nspread = len(fields[i].get("spreads", ()))
+            ndp = len(fields[i].get("distinct_props", ()))
             b, o32, o64 = lane_bound(kind, lane, g_carry, g_outs, n, n_pad,
-                                     steps, kw,
-                                     len(fields[i].get("spreads", ())),
-                                     len(fields[i].get("distinct_props",
-                                                       ())))
+                                     steps, kw, nspread, ndp)
             nbytes, f32, f64 = nbytes + b, f32 + o32, f64 + o64
+            if kind == "scan_batched":
+                full += np.array(lane_bound(kind, lane, g_carry, g_outs, n,
+                                            n_pad, steps, kw, nspread, ndp,
+                                            full=True))
             most = max(most, steps)
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: run(**targs, **kw))
         solo_ms = cuda_ms(lambda: [solo(**ln, **kw) for ln in lanes])
         plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=3)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
-        rows.append(dict(kind=kind, n=n, lanes=len(counts),
-                         counts=[min(counts), max(counts)], main=main,
-                         max_abs_err=err, ms=ms, solo_ms=solo_ms,
-                         plain_ms=plain_ms, steps=most,
-                         us_per_step=ms / max(most, 1) * 1e3,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations"))
+        b_ms, by = bound_of(nbytes, f32, f64)
+        row = dict(kind=kind, n=n, lanes=len(counts),
+                   counts=[min(counts), max(counts)], main=main,
+                   max_abs_err=err, ms=ms, solo_ms=solo_ms,
+                   plain_ms=plain_ms, steps=most,
+                   us_per_step=ms / max(most, 1) * 1e3, bound_ms=b_ms,
+                   bound_by=by)
+        extra = ""
+        if kind == "scan_batched":
+            row["steps_run"] = scan_steps_run(got[1][0], kw["k_steps"])
+            row["bound_full_ms"] = bound_of(
+                full[0] + rows_bytes([targs["capacity"]], n, n_pad),
+                full[1], full[2])[0]
+            extra = (f"; {row['steps_run']} steps run in the longest lane, "
+                     f"{ms / row['steps_run'] * 1e3:.1f} us each; bound over "
+                     f"every step and row {row['bound_full_ms']:.6f} ms")
+        rows.append(row)
         print(f"kernel {label}{' ' + variant if variant else ''}: every "
               f"lane equals the plain version and the solo kernel (max abs "
               f"err {err:.3g}); {ms:.3f} ms ({most} steps in the longest "
               f"lane, {ms / max(most, 1) * 1e3:.1f} us a step), "
               f"{len(counts)} solo launches {solo_ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms",
-              flush=True)
+              f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms{extra}", flush=True)
         if kind == "kway_batched" and main:
             kway_continuations(targs, kw, run, plain, label)
     return rows
@@ -1941,9 +2091,10 @@ def main():
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=None,
             shapes=[{k: r[k] for k in ("n", "count", "main", "steps",
-                                       "launches_held", "ms", "us_per_step",
-                                       "plain_ms", "bound_ms", "bound_by",
-                                       "max_abs_err")} for r in mine]))
+                                       "steps_run", "launches_held", "ms",
+                                       "us_per_step", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err") if k in r}
+                    for r in mine]))
     for name in TABLE_KERNELS:
         mine = [r for r in table_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])
@@ -1971,9 +2122,9 @@ def main():
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=None, solo_ms=top["solo_ms"],
             shapes=[{k: r[k] for k in (
-                "n", "lanes", "counts", "main", "steps", "ms", "us_per_step",
-                "solo_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")} for r in mine]))
+                "n", "lanes", "counts", "main", "steps", "steps_run", "ms",
+                "us_per_step", "solo_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err") if k in r} for r in mine]))
     for name in SHARDED:
         mine = [r for r in sharded_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])

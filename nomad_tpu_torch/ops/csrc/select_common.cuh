@@ -744,88 +744,757 @@ struct ScanEval {
     float binpack, anti, pen, aff, spread, dev, final_;
 };
 
+// One row's node-local terms (select.py:202-253 and the fired count's
+// node-local flags): everything in its score and feasibility but the
+// spread and distinct_property terms, which depend on the row only through
+// its codes. A step changes them only at its winner's row.
+struct ScanLocal {
+    bool feas, fit;      // node-local feasibility; every dimension fits
+    unsigned fit_bits;   // bit dd: dimension dd fits
+    float free_cpu, free_mem;   // the powers' exponents
+    float binpack, anti, pen, aff, dev, pre;
+    float part;          // ((binpack + anti) + pen) + aff
+    float fired_base;    // the fired count without the spread's flag
+};
+
+// What row x's node-local terms read, its loads issued in one round (no
+// short-circuit makes one wait on another): its fit to one more instance
+// dimension by dimension, and its other state and inputs.
+struct ScanRow {
+    unsigned fit_bits;        // bit dd: used + ask fits dimension dd
+    bool fit;                 // every dimension fits
+    float after0, after1;     // used + ask in dimensions 0 and 1
+    float cap0, cap1;         // capacity in dimensions 0 and 1
+    float free_p, dev_slots, affinity, dev_score, pre;
+    int job_cnt, scan_placed, tg_coll;
+    bool feasible, port_ok, penalty;
+};
+
+// One dimension's fit (select.py:220-222), and the row's after and
+// capacity in dimensions 0 and 1.
+__device__ __forceinline__ void row_dim(ScanRow& v, int dd, float used,
+                                        float cap, float ask) {
+    const float af = used + ask;
+    const bool f = af <= cap + 1e-6f;
+    if (f) v.fit_bits |= 1u << dd;
+    v.fit = v.fit && f;
+    if (dd == 0) { v.after0 = af; v.cap0 = cap; }
+    if (dd == 1) { v.after1 = af; v.cap1 = cap; }
+}
+
+// Row x's state and inputs but its dimensions.
+__device__ __forceinline__ void row_scalars(ScanRow& v, const ScanArgs& a,
+                                            int x) {
+    v.free_p = a.free_p[x];
+    v.dev_slots = a.dev_slots[x];
+    v.affinity = a.affinity[x];
+    v.dev_score = a.dev_score[x];
+    v.pre = a.pre_score[x];
+    v.job_cnt = a.job_cnt[x];
+    v.scan_placed = a.scan_placed[x];
+    v.tg_coll = a.tg_coll[x];
+    v.feasible = a.feasible[x] != 0;
+    v.port_ok = a.port_ok[x] != 0;
+    v.penalty = a.penalty[x] != 0;
+}
+
+__device__ __forceinline__ ScanRow scan_row(const ScanArgs& a,
+                                            const float* s_ask, int x) {
+    ScanRow v;
+    v.fit_bits = 0u;
+    v.fit = true;
+    v.after0 = v.after1 = v.cap0 = v.cap1 = 0.0f;
+#pragma unroll
+    for (int dd = 0; dd < D_MAX; ++dd)
+        if (dd < a.d)
+            row_dim(v, dd, a.used[x * a.d + dd], a.capacity[x * a.d + dd],
+                    s_ask[dd]);
+    row_scalars(v, a, x);
+    return v;
+}
+
+// A row's node-local terms but binpack and part, which take the two
+// powers (scan_local_fit), from what scan_row loaded.
+static __device__ __forceinline__ ScanLocal scan_local_of(
+        const ScanArgs& a, const ScanRow& v) {
+    ScanLocal l;
+    bool feas = v.feasible;
+    if (a.distinct_hosts > 0.0f) feas = feas && v.job_cnt == 0;
+    if (a.scan_exclusive > 0.0f) feas = feas && v.scan_placed == 0;
+    feas = feas && (v.free_p >= a.port_need);
+    feas = feas && v.port_ok;
+    feas = feas && (v.dev_slots >= 1.0f);
+    const float cap_cpu = fmaxf(v.cap0, 1e-9f);
+    const float cap_mem = fmaxf(v.cap1, 1e-9f);
+    l.free_cpu = 1.0f - v.after0 / cap_cpu;
+    l.free_mem = 1.0f - v.after1 / cap_mem;
+    const float coll = (float)v.tg_coll;
+    const bool anti_f = coll > 0.0f;
+    l.anti = anti_f ? -(coll + 1.0f) / fmaxf(a.desired, 1.0f) : 0.0f;
+    const bool pen_f = v.penalty;
+    l.pen = pen_f ? -1.0f : 0.0f;
+    l.aff = v.affinity;
+    const bool aff_f = l.aff != 0.0f;
+    l.dev = a.dev_fires > 0.0f ? v.dev_score : 0.0f;
+    l.pre = v.pre;
+    const bool pre_f = l.pre != 0.0f;
+    // whole numbers below 8: exact in any order
+    l.fired_base = 1.0f + (anti_f ? 1.0f : 0.0f) + (pen_f ? 1.0f : 0.0f)
+                   + (aff_f ? 1.0f : 0.0f)
+                   + (a.dev_fires > 0.0f ? 1.0f : 0.0f)
+                   + (pre_f ? 1.0f : 0.0f);
+    l.feas = feas;
+    l.fit = v.fit;
+    l.fit_bits = v.fit_bits;
+    return l;
+}
+
+// Row x's node-local terms but binpack and part.
+static __device__ __forceinline__ ScanLocal scan_local_terms(
+        const ScanArgs& a, const float* s_ask, int x) {
+    return scan_local_of(a, scan_row(a, s_ask, x));
+}
+
+// binpack and part from total = 10**free_cpu + 10**free_mem.
+__device__ __forceinline__ void scan_local_fit(const ScanArgs& a,
+                                               ScanLocal& l, float total) {
+    float fs = a.spread_alg ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f)
+                            : fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
+    l.binpack = fs / 18.0f;
+    l.part = l.binpack + l.anti + l.pen + l.aff;
+}
+
+// Row x's node-local terms. With `lazy`, the two pow are taken only where
+// the row is feasible, fits and is `admitted` (by the distinct_property
+// limits): elsewhere binpack and part are meaningless, and no caller reads
+// them.
+static __device__ __forceinline__ ScanLocal scan_local(const ScanArgs& a,
+                                                       const float* s_ask,
+                                                       int x,
+                                                       bool lazy = false,
+                                                       bool admitted = true) {
+    ScanLocal l = scan_local_terms(a, s_ask, x);
+    float total = 0.0f;
+    if (!lazy || (l.feas && l.fit && admitted))
+        total = pow10_exact(l.free_cpu) + pow10_exact(l.free_mem);
+    scan_local_fit(a, l, total);
+    return l;
+}
+
+// Spread stanza s's term for a row of attribute code `code`
+// (select.py:256-296), from the histograms and the step's bounds over the
+// present codes (min_cnt, max_cnt, any); 0.0f for a stanza that is not
+// valid.
+static __device__ __forceinline__ float spread_term_at(const ScanShared& sh,
+                                                       int s, int code,
+                                                       float min_cnt,
+                                                       float max_cnt,
+                                                       int any) {
+    const bool missing = code == C_AXIS - 1;
+    const float used_cnt = sh.cnt[s * C_AXIS + code] + 1.0f;
+    const float desired = sh.des[s * C_AXIS + code];
+    const bool has_desired = desired >= 0.0f;
+    const float targeted = has_desired
+        ? (desired - used_cnt) / fmaxf(desired, 1e-9f) * sh.w[s]
+        : -1.0f;
+    const float cur = sh.cnt[s * C_AXIS + code];
+    float even = (min_cnt == 0.0f)
+        ? -1.0f : (min_cnt - cur) / fmaxf(min_cnt, 1e-9f);
+    if (cur == min_cnt)
+        even = (min_cnt == max_cnt) ? -1.0f
+             : ((min_cnt == 0.0f) ? 1.0f
+                : (max_cnt - min_cnt) / fmaxf(min_cnt, 1e-9f));
+    if (!any) even = 0.0f;
+    if (missing) even = -1.0f;
+    const float contrib = sh.hast[s] ? (missing ? -1.0f : targeted) : even;
+    return sh.spv[s] ? contrib : 0.0f;
+}
+
+// spread_term_at with the bounds in sh.mn, sh.mx, sh.any.
+static __device__ __forceinline__ float spread_term(const ScanShared& sh,
+                                                    int s, int code) {
+    return spread_term_at(sh, s, code, sh.mn[s], sh.mx[s], sh.any[s]);
+}
+
+// Whether distinct_property p admits one more placement on a row of code
+// `code` (select.py:211-217); true for a constraint that is not valid.
+static __device__ __forceinline__ bool dp_admits(const ScanShared& sh, int p,
+                                                 int code) {
+    const float cnt = sh.dp[p * C_AXIS + code];
+    const bool missing = code == C_AXIS - 1;
+    const bool ok = (cnt + 1.0f <= sh.dpl[p]) && !missing;
+    return !sh.dpv[p] || ok;
+}
+
+// A row's score from its node-local terms and its spread total st: the sum
+// (binpack + anti + pen + aff + st + dev + pre) left to right, over the
+// fired count with the spread's flag added last (select.py:298-305).
+__device__ __forceinline__ float scan_score(float part, float st, float dev,
+                                            float pre, float fired_base) {
+    return (((part + st) + dev) + pre)
+           / (fired_base + (st != 0.0f ? 1.0f : 0.0f));
+}
+
 // One node's feasibility and score components (select.py:202-304).
 static __device__ ScanEval scan_eval(const ScanArgs& a,
                                      const ScanShared& sh,
                                      const float* s_ask, int x) {
+    const ScanLocal l = scan_local(a, s_ask, x);
     ScanEval e;
-    bool feas = a.feasible[x] != 0;
-    if (a.distinct_hosts > 0.0f) feas = feas && a.job_cnt[x] == 0;
-    if (a.scan_exclusive > 0.0f) feas = feas && a.scan_placed[x] == 0;
-    feas = feas && (a.free_p[x] >= a.port_need);
-    feas = feas && (a.port_ok[x] != 0);
-    feas = feas && (a.dev_slots[x] >= 1.0f);
-    for (int p = 0; p < a.p_live; ++p) {
-        const int code = a.dp_codes[p * a.n + x];
-        const float cnt = sh.dp[p * C_AXIS + code];
-        const bool missing = code == C_AXIS - 1;
-        const bool ok = (cnt + 1.0f <= sh.dpl[p]) && !missing;
-        if (sh.dpv[p]) feas = feas && ok;
-    }
-    bool fit = true;
-    unsigned bits = 0;
-    float after0 = 0.0f, after1 = 0.0f;
-    for (int dd = 0; dd < a.d; ++dd) {
-        float af = a.used[x * a.d + dd] + s_ask[dd];
-        bool f = af <= a.capacity[x * a.d + dd] + 1e-6f;
-        if (f) bits |= 1u << dd;
-        fit = fit && f;
-        if (dd == 0) after0 = af;
-        if (dd == 1) after1 = af;
-    }
-    const float cap_cpu = fmaxf(a.capacity[x * a.d + 0], 1e-9f);
-    const float cap_mem = fmaxf(a.capacity[x * a.d + 1], 1e-9f);
-    float free_cpu = 1.0f - after0 / cap_cpu;
-    float free_mem = 1.0f - after1 / cap_mem;
-    float total = pow10_exact(free_cpu) + pow10_exact(free_mem);
-    float fs = a.spread_alg ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f)
-                            : fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
-    e.binpack = fs / 18.0f;
-    const float coll = (float)a.tg_coll[x];
-    const bool anti_f = coll > 0.0f;
-    e.anti = anti_f ? -(coll + 1.0f) / fmaxf(a.desired, 1.0f) : 0.0f;
-    const bool pen_f = a.penalty[x] != 0;
-    e.pen = pen_f ? -1.0f : 0.0f;
-    e.aff = a.affinity[x];
-    const bool aff_f = e.aff != 0.0f;
-    e.dev = a.dev_fires > 0.0f ? a.dev_score[x] : 0.0f;
-    const float pre = a.pre_score[x];
-    const bool pre_f = pre != 0.0f;
-
+    bool feas = l.feas;
+    for (int p = 0; p < a.p_live; ++p)
+        feas = feas && dp_admits(sh, p, a.dp_codes[p * a.n + x]);
     float st = 0.0f;
-    for (int s = 0; s < a.s_live; ++s) {
-        const int code = a.sp_codes[s * a.n + x];
-        const bool missing = code == C_AXIS - 1;
-        const float used_cnt = sh.cnt[s * C_AXIS + code] + 1.0f;
-        const float desired = sh.des[s * C_AXIS + code];
-        const bool has_desired = desired >= 0.0f;
-        const float targeted = has_desired
-            ? (desired - used_cnt) / fmaxf(desired, 1e-9f) * sh.w[s]
-            : -1.0f;
-        const float min_cnt = sh.mn[s], max_cnt = sh.mx[s];
-        const float cur = sh.cnt[s * C_AXIS + code];
-        float even = (min_cnt == 0.0f)
-            ? -1.0f : (min_cnt - cur) / fmaxf(min_cnt, 1e-9f);
-        if (cur == min_cnt)
-            even = (min_cnt == max_cnt) ? -1.0f
-                 : ((min_cnt == 0.0f) ? 1.0f
-                    : (max_cnt - min_cnt) / fmaxf(min_cnt, 1e-9f));
-        if (!sh.any[s]) even = 0.0f;
-        if (missing) even = -1.0f;
-        const float contrib = sh.hast[s] ? (missing ? -1.0f : targeted) : even;
-        st = st + (sh.spv[s] ? contrib : 0.0f);
-    }
+    for (int s = 0; s < a.s_live; ++s)
+        st = st + spread_term(sh, s, a.sp_codes[s * a.n + x]);
+    e.binpack = l.binpack;
+    e.anti = l.anti;
+    e.pen = l.pen;
+    e.aff = l.aff;
+    e.dev = l.dev;
     e.spread = st;
-    const bool spread_f = st != 0.0f;
-    const float fired = 1.0f + (anti_f ? 1.0f : 0.0f) + (pen_f ? 1.0f : 0.0f)
-                        + (aff_f ? 1.0f : 0.0f) + (spread_f ? 1.0f : 0.0f)
-                        + (a.dev_fires > 0.0f ? 1.0f : 0.0f)
-                        + (pre_f ? 1.0f : 0.0f);
-    e.final_ = (e.binpack + e.anti + e.pen + e.aff + st + e.dev + pre) / fired;
+    e.final_ = scan_score(l.part, st, l.dev, l.pre, l.fired_base);
     e.feas = feas;
-    e.fit = fit;
-    e.fit_bits = bits;
+    e.fit = l.fit;
+    e.fit_bits = l.fit_bits;
     return e;
+}
+
+// ---------------------------------------------------------------------------
+// The scan body's cached terms (select_kernels.cu, scan_body): each row's
+// node-local terms, kept between steps.
+//   rec   by row (part, dev, pre, flags); flags (the float's bits) hold the
+//         fit bits (0-7), the fired count without the spread's flag
+//         (8-11), node-local feasibility (bit 12) and whether every
+//         dimension fits (bit 13);
+//   codes by row: the S_MAX spread codes (.x) and the P_MAX
+//         distinct_property codes (.y), a byte each (codes are at most
+//         C_AXIS - 1).
+// A row that is not feasible or does not fit at step 0 never is at a later
+// step: its state changes only if it wins a step, which takes a row that
+// is feasible and fits, and the distinct_property counts only grow. So
+// step 0 lists the other rows, the live ones, in row order: slot i is row
+// lrow[i], with its record (part, dev, pre, w: scan_slot_rec) and codes in
+// the dynamic shared memory below slot ns and in device memory from it,
+// and its score components (binpack, anti, pen, aff) in lcomp for the
+// winner's outputs. The later steps sweep only the slots; the records by
+// row give the first invalid step's top-5 and counts. After step 0 only
+// the winner's records change, rescored from its updated state.
+// ---------------------------------------------------------------------------
+#define REC_FIRED_SHIFT 8
+#define REC_FEAS (1u << 12)
+#define REC_FIT (1u << 13)
+
+struct ScanRecs {
+    float4* rec;     // [n] by row
+    uint2* codes;    // [n] by row
+    float4* lrec;    // [n] by slot: the live rows' records, from slot ns
+    uint2* lcodes;   // [n] by slot, from slot ns
+    float4* lcomp;   // [n] by slot
+    int* lrow;       // [n] by slot: the slot's row
+    // the first ns slots' records in shared memory (scan_body)
+    float4* srec;
+    uint2* scodes;
+    int ns;
+};
+
+// Slot i's record and codes, in shared memory below ns.
+__device__ __forceinline__ float4* slot_rec(const ScanRecs& r, int i) {
+    return i < r.ns ? r.srec + i : r.lrec + i;
+}
+__device__ __forceinline__ uint2* slot_codes(const ScanRecs& r, int i) {
+    return i < r.ns ? r.scodes + i : r.lcodes + i;
+}
+
+// The step's per-code tables: sp[s][code] is spread_term(s, code) for s <
+// s_live and +0.0f past it; dp[p][code] is dp_admits(p, code) for p <
+// p_live and 1 past it (scan_tables_init). A row's spread total adds all
+// S_MAX terms from +0.0f: a sum that starts at +0.0f is never -0.0f (in
+// round-to-nearest x + y is -0.0f only where both are), so adding +0.0f
+// past s_live leaves its bits as scan_eval's; and admitting past p_live
+// changes nothing. So a row's terms take no branch on s_live or p_live.
+struct ScanTables {
+    float sp[S_MAX][C_AXIS];
+    uint8_t dp[P_MAX][C_AXIS];
+    // each live stanza's bounds over its present codes (scan_tables): the
+    // minimum count and how many present codes hold it, the maximum, any
+    float mn[S_MAX], mx[S_MAX];
+    int nmin[S_MAX], any[S_MAX];
+    int full[S_MAX];   // this step rebuilds the stanza's whole column
+};
+
+// The tables' entries past s_live and p_live, once a launch; the caller
+// synchronises before they are read.
+__device__ __forceinline__ void scan_tables_init(ScanTables& t) {
+    for (int e = threadIdx.x; e < S_MAX * C_AXIS; e += NT)
+        (&t.sp[0][0])[e] = 0.0f;
+    for (int e = threadIdx.x; e < P_MAX * C_AXIS; e += NT)
+        (&t.dp[0][0])[e] = 1;
+}
+
+// A record from a row's node-local terms.
+__device__ __forceinline__ float4 scan_rec(const ScanLocal& l) {
+    const unsigned flags = l.fit_bits
+        | ((unsigned)l.fired_base << REC_FIRED_SHIFT)
+        | (l.feas ? REC_FEAS : 0u) | (l.fit ? REC_FIT : 0u);
+    return make_float4(l.part, l.dev, l.pre, __uint_as_float(flags));
+}
+
+// A slot's record: (part, dev, pre, w), w the fired count without the
+// spread's flag where the row is feasible (node-local) and fits, -1
+// elsewhere. (Slots that kept the row's record, its flags decoded in the
+// sweep, took 4-9% longer a launch at the main shapes on an H100:
+// scripts/profile_scan.py --compare.)
+__device__ __forceinline__ float4 scan_slot_rec(const ScanLocal& l) {
+    return make_float4(l.part, l.dev, l.pre,
+                       l.feas && l.fit ? l.fired_base : -1.0f);
+}
+
+// Row x's codes, a byte each.
+__device__ __forceinline__ uint2 scan_codes(const ScanArgs& a, int x) {
+    unsigned sp = 0u, dp = 0u;
+#pragma unroll
+    for (int s = 0; s < S_MAX; ++s)
+        sp |= (unsigned)a.sp_codes[s * a.n + x] << (8 * s);
+#pragma unroll
+    for (int p = 0; p < P_MAX; ++p)
+        dp |= (unsigned)a.dp_codes[p * a.n + x] << (8 * p);
+    return make_uint2(sp, dp);
+}
+
+// Whether every distinct_property admits a row of these codes (1 or 0).
+__device__ __forceinline__ unsigned scan_dp_ok(const ScanTables& t,
+                                               unsigned dp) {
+    return t.dp[0][dp & 255u] & t.dp[1][(dp >> 8) & 255u]
+           & t.dp[2][(dp >> 16) & 255u] & t.dp[3][dp >> 24];
+}
+
+// A row's spread total from its spread codes: scan_eval's sum over the
+// stanzas, in stanza order, from +0.0f.
+__device__ __forceinline__ float scan_spread(const ScanTables& t,
+                                             unsigned sp) {
+    float st = 0.0f;
+    st = st + t.sp[0][sp & 255u];
+    st = st + t.sp[1][(sp >> 8) & 255u];
+    st = st + t.sp[2][(sp >> 16) & 255u];
+    st = st + t.sp[3][sp >> 24];
+    return st;
+}
+
+// A row's masked score from its record and codes and the step's tables
+// (its score where it is feasible and fits, NEG_INF elsewhere): scan_eval's
+// float operations in its order, with no pow and no branch. feas is the
+// row's whole feasibility (node-local and distinct_property), st its
+// spread total.
+__device__ __forceinline__ float scan_compose(const float4& rec,
+                                              const uint2& cd,
+                                              const ScanTables& t,
+                                              bool& feas, float& st) {
+    const unsigned flags = __float_as_uint(rec.w);
+    // REC_FEAS's bit and the constraints' (bitwise: no branch)
+    feas = ((flags >> 12) & scan_dp_ok(t, cd.y)) != 0u;
+    st = scan_spread(t, cd.x);
+    const float fired_base = (float)((flags >> REC_FIRED_SHIFT) & 15u);
+    const float sc = scan_score(rec.x, st, rec.y, rec.z, fired_base);
+    return feas && (flags & REC_FIT) ? sc : NEG_INF;
+}
+
+// Named barriers beside __syncthreads (barrier 0), used by scan_body and
+// scan_tables: the sweepers' start; the tables' hand-over from the warps
+// that build them to the winner's warp; and one a stanza, among the warps
+// that build its table.
+#define BAR_SWEEP 1
+#define BAR_TABLES 2
+#define BAR_STANZA 3   // BAR_STANZA + s for stanza s < S_MAX
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The warps that build the tables: STANZA_WARPS a spread stanza (one code
+// a thread), then one a distinct_property.
+#define STANZA_WARPS 3
+#define TABLE_WARPS (STANZA_WARPS * S_MAX + P_MAX)
+
+// The step's tables from the histograms, on warps 0 to TABLE_WARPS - 1.
+// When `won` is given (the last valid step's winner's codes), the first
+// warp of stanza s counts the placement in its histogram and the warp of
+// distinct_property p in its counts, every stanza and constraint row, live
+// or padding. A placement changes one code's count a stanza, so with
+// `build` only that code's entries change, unless a stanza's bounds over
+// its present codes change, on which every code's even-spread term
+// depends (select.py:270-293): the counting thread finds the new bounds
+// from the old ones where one comparison does (a count that rises past
+// the maximum, or a code at the minimum that others share or that was not
+// present before: bounds change only as the full scan would change them)
+// and fills that code's entry; a targeted stanza's entries need no bounds.
+// Otherwise, and at the first build, the STANZA_WARPS warps of the stanza
+// meet at their named barrier, each finds its bounds over the present
+// codes (a minimum and a maximum are exact in any order), and each thread
+// fills one code's entry. The caller synchronises before the tables are
+// read.
+static __device__ __forceinline__ void scan_tables(const ScanArgs& a,
+                                                   ScanShared& sh,
+                                                   ScanTables& t,
+                                                   const uint2* won,
+                                                   bool build) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (warp < STANZA_WARPS * S_MAX) {
+        const int s = warp / STANZA_WARPS, k = warp - s * STANZA_WARPS;
+        const bool live = build && s < a.s_live;
+        if (won && k == 0 && lane == 0) {
+            // byte s of the codes (a byte permute: no shift kept live)
+            const int c = __byte_perm(won->x, 0u, 0x4440u | s);
+            const float old = sh.cnt[s * C_AXIS + c];
+            const bool was = sh.pres[s * C_AXIS + c] != 0;
+            const float now = old + 1.0f;
+            sh.cnt[s * C_AXIS + c] = now;
+            sh.pres[s * C_AXIS + c] = 1;
+            if (live) {
+                bool full = false;
+                int nmin = t.nmin[s];
+                if (!sh.hast[s]) {
+                    if (!t.any[s] || now > t.mx[s]) full = true;
+                    else if (was && old == t.mn[s]) {
+                        if (nmin > 1) nmin -= 1;
+                        else full = true;
+                    } else if (!was && now <= t.mn[s]) {
+                        if (now < t.mn[s]) full = true;
+                        else nmin += 1;
+                    }
+                }
+                t.full[s] = full;
+                if (!full) {
+                    t.nmin[s] = nmin;
+                    t.sp[s][c] = spread_term_at(sh, s, c, t.mn[s], t.mx[s],
+                                                t.any[s]);
+                }
+            }
+        }
+        if (!live) return;
+        // the count (and the step's choice of rebuild) before the stanza's
+        // warps read them
+        named_sync(BAR_STANZA + s, 32 * STANZA_WARPS);
+        if (won && !t.full[s]) return;
+        float mn = 1e30f, mx = -1e30f;
+        int any = 0;
+        for (int c = lane; c < C_AXIS; c += 32) {
+            const bool p = sh.pres[s * C_AXIS + c] != 0;
+            const float v = sh.cnt[s * C_AXIS + c];
+            mn = fminf(mn, p ? v : 1e30f);
+            mx = fmaxf(mx, p ? v : -1e30f);
+            any |= p ? 1 : 0;
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+            mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            any |= __shfl_xor_sync(0xffffffffu, any, off);
+        }
+        const int c = k * 32 + lane;
+        if (c < C_AXIS) t.sp[s][c] = spread_term_at(sh, s, c, mn, mx, any);
+        if (k == 0) {
+            // the present codes at the minimum, for the next steps
+            int at = 0;
+            for (int x = lane; x < C_AXIS; x += 32)
+                at += sh.pres[s * C_AXIS + x] != 0
+                      && sh.cnt[s * C_AXIS + x] == mn;
+            at = warp_sum(at);
+            if (lane == 0) {
+                t.mn[s] = mn;
+                t.mx[s] = mx;
+                t.any[s] = any;
+                t.nmin[s] = at;
+            }
+        }
+    } else if (warp < TABLE_WARPS) {
+        // a count changes one code's entry only
+        const int p = warp - STANZA_WARPS * S_MAX;
+        const bool live = build && p < a.p_live;
+        if (won) {
+            if (lane == 0) {
+                const int c = __byte_perm(won->y, 0u, 0x4440u | p);
+                sh.dp[p * C_AXIS + c] += 1.0f;
+                if (live) t.dp[p][c] = dp_admits(sh, p, c) ? 1 : 0;
+            }
+        } else if (live) {
+            for (int c = lane; c < C_AXIS; c += 32)
+                t.dp[p][c] = dp_admits(sh, p, c) ? 1 : 0;
+        }
+    }
+}
+
+// A sweep's per-thread best (score, slot) and that row's spread total.
+struct ScanBest {
+    float bv, bst;
+    int bi;
+};
+
+__device__ __forceinline__ ScanBest no_best() {
+    ScanBest b;
+    b.bv = -INFINITY;
+    b.bst = 0.0f;
+    b.bi = INT_MAX;
+    return b;
+}
+
+// A sweep's per-thread first-failing-dimension and ok counts, where a
+// step reports them (step 0 and the first invalid step). Kept apart from
+// ScanBest, so that the live rows' sweep carries no count.
+struct ScanCounts {
+    int okc;
+    int cnt[D_MAX];
+};
+
+__device__ __forceinline__ ScanCounts no_counts() {
+    ScanCounts c;
+    c.okc = 0;
+#pragma unroll
+    for (int dd = 0; dd < D_MAX; ++dd) c.cnt[dd] = 0;
+    return c;
+}
+
+// A row's first-failing-dimension and ok counts (select.py:318-325).
+__device__ __forceinline__ void sweep_count(ScanCounts& w, unsigned flags,
+                                            bool feas, int d) {
+    bool earlier = true;
+#pragma unroll
+    for (int dd = 0; dd < D_MAX; ++dd) {
+        if (dd < d) {
+            const bool f = (flags >> dd) & 1u;
+            if (feas && earlier && !f) w.cnt[dd] += 1;
+            earlier = earlier && f;
+        }
+    }
+    if (feas && (flags & REC_FIT)) w.okc += 1;
+}
+
+// Step 0's sweep over every row, thread t taking rows t + m * NT, in two
+// passes. The first finds the live rows (feasible, fitting and admitted
+// by every distinct_property limit: those whose score is not NEG_INF) and
+// gives them slots in row order, a round of NT rows at a time (a ballot a
+// warp and the warps' counts in s_cnt, double-buffered, one barrier a
+// round); masked[x] holds row x's slot (or -1) until the second pass,
+// which writes every row's record (rec, codes; the two pow only for live
+// rows), its masked score and its counts, and the live rows' slot records,
+// with no barrier. The argmax is over slots. Returns the live rows' count
+// in *nlive, in every thread.
+static __device__ __forceinline__ ScanBest scan_sweep_build(
+        const ScanArgs& a, const float* s_ask, const ScanRecs& r,
+        const ScanTables& t, int (*s_cnt)[NWARPS], int* nlive,
+        ScanCounts& cs) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int live = 0;
+    for (int x0 = 0, round = 0; x0 < a.n; x0 += NT, ++round) {
+        const int x = x0 + threadIdx.x;
+        bool ok = false;
+        if (x < a.n) {
+            const ScanLocal l = scan_local_terms(a, s_ask, x);
+            ok = l.feas && l.fit && scan_dp_ok(t, scan_codes(a, x).y);
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, ok);
+        int* cnt = s_cnt[round & 1];
+        if (lane == 0) cnt[warp] = __popc(bal);
+        __syncthreads();
+        const int i = live + warps_before(cnt)
+                      + __popc(bal & ((1u << lane) - 1u));
+        if (x < a.n) a.masked[x] = __int_as_float(ok ? i : -1);
+        live += warp_sum(cnt[lane]);
+    }
+    *nlive = live;
+
+    ScanBest w = no_best();
+    cs = no_counts();
+    for (int x = threadIdx.x; x < a.n; x += NT) {
+        const int i = __float_as_int(a.masked[x]);
+        const uint2 cd = scan_codes(a, x);
+        const ScanLocal l = scan_local(a, s_ask, x, true, i >= 0);
+        const float4 rec = scan_rec(l);
+        r.rec[x] = rec;
+        r.codes[x] = cd;
+        bool feas;
+        float st;
+        const float m = scan_compose(rec, cd, t, feas, st);
+        sweep_count(cs, __float_as_uint(rec.w), feas, a.d);
+        a.masked[x] = m;
+        if (i >= 0) {
+            *slot_rec(r, i) = scan_slot_rec(l);
+            *slot_codes(r, i) = cd;
+            r.lcomp[i] = make_float4(l.binpack, l.anti, l.pen, l.aff);
+            r.lrow[i] = x;
+            if (better(m, i, w.bv, w.bi)) { w.bv = m; w.bi = i; w.bst = st; }
+        }
+    }
+    return w;
+}
+
+// A live slot's masked score from its slot record and codes (scan_compose's
+// float operations in its order), with SL spread and PL distinct_property
+// lookups, SL >= s_live and PL >= p_live: the tables past those add +0.0f
+// and admit, so SL and PL need not be the request's own.
+template <int SL, int PL>
+__device__ __forceinline__ float scan_compose_slot(const float4& rec,
+                                                   const uint2& cd,
+                                                   const ScanTables& t,
+                                                   float& st) {
+    bool ok = rec.w > 0.0f;
+#pragma unroll
+    for (int p = 0; p < PL; ++p)
+        ok = ok & (t.dp[p][(cd.y >> (8 * p)) & 255u] != 0);
+    st = 0.0f;
+#pragma unroll
+    for (int s = 0; s < SL; ++s) st = st + t.sp[s][(cd.x >> (8 * s)) & 255u];
+    const float sc = scan_score(rec.x, st, rec.y, rec.z, rec.w);
+    return ok ? sc : NEG_INF;
+}
+
+// One live slot composed into the sweep's argmax.
+template <int SL, int PL>
+__device__ __forceinline__ void sweep_slot(ScanBest& w, const float4& rec,
+                                           const uint2& cd,
+                                           const ScanTables& t, int i) {
+    float st;
+    const float m = scan_compose_slot<SL, PL>(rec, cd, t, st);
+    if (better(m, i, w.bv, w.bi)) {
+        w.bv = m;
+        w.bi = i;
+        w.bst = st;
+    }
+}
+
+// A later step's sweep over the live rows' slots but `skip` (the last
+// winner's, rescored meanwhile by another warp), by the first NT - 32
+// threads, thread t taking slots t + m * (NT - 32): those in shared memory,
+// then the others from device memory. The argmax is over slots (slots
+// ascend with rows, so ties go to the lower row). (Every slot read from
+// device memory, through L2, took 18-60% longer a launch at the main
+// shapes on an H100.)
+#define SWEEPERS (NT - 32)
+template <int SL, int PL>
+static __device__ __forceinline__ ScanBest scan_sweep_live(
+        const ScanRecs& r, const ScanTables& t, int nlive, int skip) {
+    ScanBest w = no_best();
+    const int ns = min(r.ns, nlive);
+    for (int i = threadIdx.x; i < ns; i += SWEEPERS)
+        if (i != skip) sweep_slot<SL, PL>(w, r.srec[i], r.scodes[i], t, i);
+    for (int i = ns + threadIdx.x; i < nlive; i += SWEEPERS)
+        if (i != skip)
+            sweep_slot<SL, PL>(w, __ldcg(r.lrec + i), __ldcg(r.lcodes + i),
+                               t, i);
+    // the row of this thread's best into L1, where the winner's warp reads
+    // it if the slot wins
+    if (w.bi < nlive)
+        asm volatile("prefetch.global.L1 [%0];" :: "l"(r.lrow + w.bi));
+    return w;
+}
+
+// scan_sweep_live with as few lookups as the request's stanzas and
+// constraints allow: 0, 1, 2 or S_MAX spread lookups, 0, 1 or P_MAX
+// distinct_property ones. (The <S_MAX, P_MAX> sweep for every request
+// took 7-16% longer a launch at the main shapes on an H100.)
+static __device__ __forceinline__ ScanBest scan_sweep_live_for(
+        const ScanArgs& a, const ScanRecs& r, const ScanTables& t,
+        int nlive, int skip) {
+    const int sl = a.s_live <= 2 ? a.s_live : S_MAX;
+    const int pl = a.p_live <= 1 ? a.p_live : P_MAX;
+    switch (sl * (P_MAX + 1) + pl) {
+#define SCAN_LIVE_CASE(S, P) \
+        case S * (P_MAX + 1) + P: return scan_sweep_live<S, P>(r, t, nlive, skip);
+        SCAN_LIVE_CASE(0, 0) SCAN_LIVE_CASE(0, 1) SCAN_LIVE_CASE(0, P_MAX)
+        SCAN_LIVE_CASE(1, 0) SCAN_LIVE_CASE(1, 1) SCAN_LIVE_CASE(1, P_MAX)
+        SCAN_LIVE_CASE(2, 0) SCAN_LIVE_CASE(2, 1) SCAN_LIVE_CASE(2, P_MAX)
+#undef SCAN_LIVE_CASE
+        default:
+            return sl == S_MAX && pl == 0 ? scan_sweep_live<S_MAX, 0>(r, t, nlive, skip)
+                 : sl == S_MAX && pl == 1 ? scan_sweep_live<S_MAX, 1>(r, t, nlive, skip)
+                 : scan_sweep_live<S_MAX, P_MAX>(r, t, nlive, skip);
+    }
+}
+
+// The first invalid step's sweep over every row's record: its masked
+// scores and counts (no argmax: the step places nothing).
+static __device__ __forceinline__ ScanCounts scan_sweep_meta(
+        const ScanArgs& a, const ScanRecs& r, const ScanTables& t) {
+    ScanCounts cs = no_counts();
+    for (int x = threadIdx.x; x < a.n; x += NT) {
+        const float4 rec = __ldcg(r.rec + x);
+        const uint2 cd = __ldcg(r.codes + x);
+        bool feas;
+        float st;
+        a.masked[x] = scan_compose(rec, cd, t, feas, st);
+        sweep_count(cs, __float_as_uint(rec.w), feas, a.d);
+    }
+    return cs;
+}
+
+// One warp, every lane: the last valid step's winner (slot i, step
+// `step`). Lane dd < d takes the row's dimension dd: its used updated
+// (select.py:337-345) and stored, and its fit to one more instance; every
+// lane loads the row's other state, and lane 0 writes the winner's
+// component outputs from its slot (the state before the update) and the
+// other carries' update. The record is rescored from the updated values,
+// the two powers on lanes 0 and 1 at once, and lane 0 writes it. Returns
+// the new slot record. The step's choice is the row; the owner of the slot
+// wrote final_ and spread when the step found it.
+static __device__ __forceinline__ float4 scan_winner(const ScanArgs& a,
+                                                     const ScanOut& o,
+                                                     const ScanRecs& r,
+                                                     const float* s_ask,
+                                                     int i, int step) {
+    const int lane = threadIdx.x & 31;
+    const int c = r.lrow[i];   // in L1 (scan_sweep_live)
+    const bool dim = lane < a.d;
+    float u = 0.0f, cap = 0.0f;
+    if (dim) {
+        u = a.used[c * a.d + lane];
+        cap = a.capacity[c * a.d + lane];
+    }
+    ScanRow v;
+    row_scalars(v, a, c);
+    const float4 rc = i < r.ns ? r.srec[i] : __ldcg(r.lrec + i);
+    const float4 cp = __ldcg(r.lcomp + i);
+    u = u + s_ask[lane < D_MAX ? lane : 0];
+    if (dim) a.used[c * a.d + lane] = u;
+    const float af = u + s_ask[lane < D_MAX ? lane : 0];
+    v.fit_bits = __ballot_sync(0xffffffffu, dim && af <= cap + 1e-6f);
+    v.fit = v.fit_bits == (1u << a.d) - 1u;
+    v.after0 = __shfl_sync(0xffffffffu, af, 0);
+    v.after1 = __shfl_sync(0xffffffffu, af, 1);
+    v.cap0 = __shfl_sync(0xffffffffu, cap, 0);
+    v.cap1 = __shfl_sync(0xffffffffu, cap, 1);
+    v.tg_coll += 1;
+    v.job_cnt += 1;
+    v.scan_placed += 1;
+    v.free_p = v.free_p + (-1.0f * a.port_need);
+    v.dev_slots = v.dev_slots + (-1.0f);
+    if (lane == 0) {
+        o.choice[step] = c;
+        o.binpack[step] = cp.x;
+        o.anti[step] = cp.y;
+        o.pen[step] = cp.z;
+        o.aff[step] = cp.w;
+        o.dev[step] = rc.y;
+        o.pre[step] = rc.z;
+        a.tg_coll[c] = v.tg_coll;
+        a.job_cnt[c] = v.job_cnt;
+        a.scan_placed[c] = v.scan_placed;
+        a.free_p[c] = v.free_p;
+        a.dev_slots[c] = v.dev_slots;
+    }
+    ScanLocal l = scan_local_of(a, v);
+    const float pw = pow10_exact(lane == 1 ? l.free_mem : l.free_cpu);
+    scan_local_fit(a, l, __shfl_sync(0xffffffffu, pw, 0)
+                             + __shfl_sync(0xffffffffu, pw, 1));
+    const float4 sr = scan_slot_rec(l);
+    if (lane == 0) {
+        r.rec[c] = scan_rec(l);
+        *slot_rec(r, i) = sr;
+        r.lcomp[i] = make_float4(l.binpack, l.anti, l.pen, l.aff);
+    }
+    return sr;
 }
 
 // ---------------------------------------------------------------------------
@@ -948,6 +1617,18 @@ __device__ __forceinline__ ScanArgs scan_lane(ScanArgs a,
     a.dev_fires = l.dev_fires[b];
     a.sum_spread_w = l.sum_spread_w[b];
     return a;
+}
+
+__device__ __forceinline__ ScanRecs scan_recs_lane(ScanRecs r, int b,
+                                                   const ScanArgs& a) {
+    const size_t n = a.n;
+    r.rec += b * n;
+    r.codes += b * n;
+    r.lrec += b * n;
+    r.lcodes += b * n;
+    r.lcomp += b * n;
+    r.lrow += b * n;
+    return r;
 }
 
 __device__ __forceinline__ ScanOut scan_out_lane(ScanOut o, int b,

@@ -30,7 +30,9 @@
 // card's memory rate; the design accepts that to stay exact and simple.
 // A batched launch fills B SMs with B such sweeps; B lanes' used columns
 // (256 KB a lane at 16,384 rows) stay in the 50 MB L2. A grid-wide or
-// cluster version is later work.
+// cluster version is later work. The K-way and scan bodies have since been
+// redesigned (see their sections): each evaluates every row's node-local
+// terms once a launch and then only the rows its steps placed on.
 //
 // The __device__ pieces these kernels share with the node-sharded kernels
 // (sharded_kernels.cu) live in select_common.cuh.
@@ -308,14 +310,59 @@ __global__ void __launch_bounds__(NT) kway_batched_kernel(
 // surface — distinct_hosts, reserved-port exclusivity, distinct_property
 // limits, spread stanzas (select.py:180-374). The S spread histograms and
 // the P distinct-property counts live in shared memory.
+//
+// Design (redesigned after the first version's full scan_eval of every row,
+// two double-precision pow each, at every step):
+//   * a step changes the node-local state of one row, its winner's, so each
+//     row's node-local terms are cached in a record (ScanRecs,
+//     select_common.cuh): step 0's sweep writes every row's record; after
+//     a valid step, the winner's row alone is rescored by the same
+//     functions (scan_local_of, scan_local_fit) before a sweep reads it;
+//   * a row that is not feasible or does not fit at step 0 never is later,
+//     so step 0 lists the live rows in row order, and the later steps sweep
+//     only their records (scan_sweep_live), kept in the dynamic shared
+//     memory as far as it holds them (about 9,400 rows) and in device
+//     memory past that;
+//   * the spread and distinct_property terms depend on a row only through
+//     its codes, so they are per-code tables in shared memory (scan_tables:
+//     a placement changes one code's entries a stanza, or the whole column
+//     where the stanza's bounds move), and a row's score is composed from
+//     its record and the tables with scan_eval's float operations in its
+//     order (scan_compose): the sweep has no pow and no branch, and takes
+//     as many table lookups as the request has stanzas and constraints;
+//   * the last winner's outputs, update and rescoring (its two powers on
+//     two lanes) run on one warp while warps 0-15 count its placement in
+//     the histograms and build the step's tables and the other warps sweep
+//     the other live rows; the winner's warp composes its new score from
+//     the tables (handed over through a named barrier) and joins the
+//     argmax;
+//   * the carry changes only at a valid step, and a step is invalid from
+//     the first invalid one on (step >= k_valid, or no feasible row left),
+//     so every later step repeats the first invalid one: the body stops
+//     there and copies its outputs into the rows after it.
+// masked is written only where a step reports its top-5 and counts: step 0
+// and the first invalid step. Every output and carry is bit for bit the
+// first version's.
 // ---------------------------------------------------------------------------
 
+// the warp that runs a winner's update and rescoring: one that builds no
+// table and sweeps no slot (scan_sweep_live's SWEEPERS are the others)
+#define WINNER_WARP (NWARPS - 1)
+
 __device__ __forceinline__ void scan_body(const ScanArgs& a,
-                                          const ScanOut& o) {
+                                          const ScanOut& o,
+                                          ScanRecs r) {
+    // the first live slots' records, as many as the launch's dynamic
+    // shared memory holds (scan_smem)
+    extern __shared__ float4 s_dyn[];
+    r.srec = s_dyn;
+    r.scodes = (uint2*)(s_dyn + r.ns);
     __shared__ Red red;
     __shared__ ScanShared sh;
+    __shared__ ScanTables tab;
     __shared__ float s_ask[D_MAX];
-    const int tid = threadIdx.x;
+    __shared__ int s_cnt[2][NWARPS];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
         sh.cnt[e] = a.sp_counts0[e];
         sh.pres[e] = a.sp_present0[e];
@@ -332,105 +379,130 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a,
         sh.dpv[tid] = a.dp_valid[tid];
     }
     if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
+    scan_tables_init(tab);
     __syncthreads();
 
-    for (int step = 0; step < a.k_steps; ++step) {
-        // even-spread bounds over the present codes (select.py:270-275)
-        if (tid < a.s_live) {
-            float mn = 1e30f, mx = -1e30f;
-            int any = 0;
-            for (int c = 0; c < C_AXIS; ++c) {
-                const bool p = sh.pres[tid * C_AXIS + c] != 0;
-                const float v = sh.cnt[tid * C_AXIS + c];
-                mn = fminf(mn, p ? v : 1e30f);
-                mx = fmaxf(mx, p ? v : -1e30f);
-                any |= p ? 1 : 0;
+    int nlive = 0;
+    int won = -1;   // the last step's winner (its slot), while its update
+                    // waits; then the loop ends at the first invalid step
+    int step = 0;
+    for (;; ++step) {
+        const bool last = step == a.k_steps;
+        // a step that sweeps the live slots: the last winner's outputs,
+        // update and rescoring on WINNER_WARP, while the table warps count
+        // its placement in the histograms and build the step's tables, and
+        // then every other warp sweeps the other slots
+        const bool overlap = won >= 0 && !last && step < a.k_valid;
+        ScanBest sw;
+        ScanCounts cs;   // set where the step reports its counts
+        if (overlap) {
+            if (warp == WINNER_WARP) {
+                const float4 rec = scan_winner(a, o, r, s_ask, won,
+                                               step - 1);
+                // the step's tables, then the winner's new score
+                named_sync(BAR_TABLES, 32 * (TABLE_WARPS + 1));
+                sw = no_best();
+                if (lane == 0)
+                    sweep_slot<S_MAX, P_MAX>(sw, rec, *slot_codes(r, won),
+                                             tab, won);
+            } else {
+                scan_tables(a, sh, tab, slot_codes(r, won), true);
+                if (warp < TABLE_WARPS)
+                    named_arrive(BAR_TABLES, 32 * (TABLE_WARPS + 1));
+                named_sync(BAR_SWEEP, SWEEPERS);
+                sw = scan_sweep_live_for(a, r, tab, nlive, won);
             }
-            sh.mn[tid] = mn;
-            sh.mx[tid] = mx;
-            sh.any[tid] = any;
-        }
-        __syncthreads();
-
-        float bv = -INFINITY;
-        int bi = INT_MAX;
-        int cnt[D_MAX];
-        int okc = 0;
-#pragma unroll
-        for (int dd = 0; dd < D_MAX; ++dd) cnt[dd] = 0;
-        for (int x = tid; x < a.n; x += NT) {
-            ScanEval e = scan_eval(a, sh, s_ask, x);
-            bool earlier = true;
-#pragma unroll
-            for (int dd = 0; dd < D_MAX; ++dd) {
-                if (dd < a.d) {
-                    const bool f = (e.fit_bits >> dd) & 1u;
-                    if (e.feas && earlier && !f) cnt[dd] += 1;
-                    earlier = earlier && f;
-                }
+        } else {
+            // step 0 (every row's record written, the live rows listed),
+            // a step at or past k_valid (the first invalid one: every row's
+            // record swept for its top-5 and counts), or the end: the last
+            // winner's update done before the step's tables and sweep
+            if (won >= 0 && warp == WINNER_WARP)
+                scan_winner(a, o, r, s_ask, won, step - 1);
+            scan_tables(a, sh, tab, won >= 0 ? slot_codes(r, won) : nullptr,
+                        !last);
+            __syncthreads();
+            if (last) break;
+            if (step == 0) {
+                sw = scan_sweep_build(a, s_ask, r, tab, s_cnt, &nlive, cs);
+            } else {
+                cs = scan_sweep_meta(a, r, tab);
+                sw = no_best();
             }
-            const bool ok = e.feas && e.fit;
-            if (ok) okc += 1;
-            const float m = ok ? e.final_ : NEG_INF;
-            a.masked[x] = m;
-            if (better(m, x, bv, bi)) { bv = m; bi = x; }
         }
+        bool meta = !overlap;
+        float bv = sw.bv;
+        int bi = sw.bi;
         block_best(bv, bi, red);
-        const int c = bi;
         const bool valid = bv > HALF_NEG_INF && step < a.k_valid;
+        if (!valid && !meta) {
+            // no feasible row is left: this step's counts and top-5, from
+            // every row's record
+            cs = scan_sweep_meta(a, r, tab);
+            meta = true;
+        }
 
-        if (step == 0 || !valid) {
+        if (meta) {
             for (int dd = 0; dd < a.d; ++dd) {
-                int tot = block_sum(cnt[dd], red);
+                int tot = block_sum(cs.cnt[dd], red);
                 if (tid == 0) o.exh[step * a.d + dd] = tot;
             }
-            int okt = block_sum(okc, red);
+            int okt = block_sum(cs.okc, red);
             if (tid == 0) o.ok_count[step] = okt;
             block_topk(a.masked, a.n, TOP_K, o.ts + step * TOP_K,
                        o.ti + step * TOP_K, red);
-        } else if (tid == 0) {
-            for (int k = 0; k < TOP_K; ++k) {
-                o.ti[step * TOP_K + k] = -1;
-                o.ts[step * TOP_K + k] = NEG_INF;
+        } else if (warp == 1) {
+            if (lane < TOP_K) {
+                o.ti[step * TOP_K + lane] = -1;
+                o.ts[step * TOP_K + lane] = NEG_INF;
             }
-            for (int dd = 0; dd < a.d; ++dd) o.exh[step * a.d + dd] = -1;
-            o.ok_count[step] = -1;
+            if (lane < a.d) o.exh[step * a.d + lane] = -1;
+            if (lane == 0) o.ok_count[step] = -1;
         }
 
-        if (tid == 0) {
-            // the chosen node's components, recomputed from the same
-            // pre-update state with the same function: bit-identical
-            const ScanEval e = scan_eval(a, sh, s_ask, c);
-            o.choice[step] = valid ? c : -1;
-            o.final_[step] = valid ? bv : 0.0f;
-            o.binpack[step] = valid ? e.binpack : 0.0f;
-            o.anti[step] = valid ? e.anti : 0.0f;
-            o.pen[step] = valid ? e.pen : 0.0f;
-            o.aff[step] = valid ? e.aff : 0.0f;
-            o.spread[step] = valid ? e.spread : 0.0f;
-            o.dev[step] = valid ? e.dev : 0.0f;
-            o.pre[step] = valid ? a.pre_score[c] : 0.0f;
-            if (valid) {
-                for (int dd = 0; dd < a.d; ++dd)
-                    a.used[c * a.d + dd] = a.used[c * a.d + dd] + s_ask[dd];
-                a.tg_coll[c] += 1;
-                a.job_cnt[c] += 1;
-                a.scan_placed[c] += 1;
-                a.free_p[c] = a.free_p[c] + (-1.0f * a.port_need);
-                a.dev_slots[c] = a.dev_slots[c] + (-1.0f);
-                // every stanza row, live or padding, counts the placement
-                for (int s = 0; s < S_MAX; ++s) {
-                    const int code = a.sp_codes[s * a.n + c];
-                    sh.cnt[s * C_AXIS + code] += 1.0f;
-                    sh.pres[s * C_AXIS + code] = 1;
-                }
-                for (int p = 0; p < P_MAX; ++p) {
-                    const int code = a.dp_codes[p * a.n + c];
-                    sh.dp[p * C_AXIS + code] += 1.0f;
-                }
+        if (!valid) {
+            if (tid == 0) {
+                o.choice[step] = -1;
+                o.final_[step] = 0.0f;
+                o.binpack[step] = 0.0f;
+                o.anti[step] = 0.0f;
+                o.pen[step] = 0.0f;
+                o.aff[step] = 0.0f;
+                o.spread[step] = 0.0f;
+                o.dev[step] = 0.0f;
+                o.pre[step] = 0.0f;
             }
+            break;
         }
-        __syncthreads();
+        // the winner's slot is its sweeper's own best
+        if (sw.bi == bi) {
+            o.final_[step] = bv;
+            o.spread[step] = sw.bst;
+        }
+        won = bi;
+    }
+    // the invalid step's outputs before the copies read them
+    __syncthreads();
+    const int stop = step;   // the first invalid step, or k_steps
+
+    // every step after the first invalid one repeats it
+    for (int s = stop + 1 + tid; s < a.k_steps; s += NT) {
+        o.choice[s] = -1;
+        o.final_[s] = 0.0f;
+        o.binpack[s] = 0.0f;
+        o.anti[s] = 0.0f;
+        o.pen[s] = 0.0f;
+        o.aff[s] = 0.0f;
+        o.spread[s] = 0.0f;
+        o.dev[s] = 0.0f;
+        o.pre[s] = 0.0f;
+        for (int k = 0; k < TOP_K; ++k) {
+            o.ti[s * TOP_K + k] = o.ti[stop * TOP_K + k];
+            o.ts[s * TOP_K + k] = o.ts[stop * TOP_K + k];
+        }
+        for (int dd = 0; dd < a.d; ++dd)
+            o.exh[s * a.d + dd] = o.exh[stop * a.d + dd];
+        o.ok_count[s] = o.ok_count[stop];
     }
     for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
         a.sp_counts[e] = sh.cnt[e];
@@ -439,17 +511,64 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a,
     for (int e = tid; e < P_MAX * C_AXIS; e += NT) a.dp_counts[e] = sh.dp[e];
 }
 
-__global__ void __launch_bounds__(NT) scan_kernel(ScanArgs a, ScanOut o) {
-    scan_body(a, o);
+// The live slots whose records and codes `smem` bytes of shared memory hold.
+static int scan_slots(int smem) {
+    return smem / (int)(sizeof(float4) + sizeof(uint2));
 }
 
-// _scan_batched_jit (select.py:395): one block per lane. k_steps, s_live
-// and p_live are the batch's largest; a lane's stanzas past its own count
-// have sp_valid / dp_valid false and add nothing.
+// The records of `lanes` lanes in one scratch buffer of 17 floats a row a
+// lane (kernels.py, _scan_records): the 16-byte arrays first, n a lane
+// each, then the 8-byte ones, then lrow; and the slots that the dynamic
+// shared memory of `smem` bytes holds.
+static ScanRecs scan_recs(void* buf, int lanes, int n, int smem) {
+    ScanRecs r;
+    const size_t m = (size_t)lanes * n;
+    r.rec = (float4*)buf;
+    r.lrec = r.rec + m;
+    r.lcomp = r.lrec + m;
+    r.codes = (uint2*)(r.lcomp + m);
+    r.lcodes = r.codes + m;
+    r.lrow = (int*)(r.lcodes + m);
+    r.srec = nullptr;
+    r.scodes = nullptr;
+    r.ns = scan_slots(smem);
+    return r;
+}
+
+// The dynamic shared memory a scan kernel launches with: all that a block
+// may have beside its static shared memory (set once a kernel; the same
+// value for every caller).
+static int scan_smem(const void* kernel) {
+    cudaFuncAttributes fa;
+    int dev = 0, optin = 0;
+    if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess
+            || cudaGetDevice(&dev) != cudaSuccess
+            || cudaDeviceGetAttribute(
+                   &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
+                   != cudaSuccess)
+        return -1;
+    const int bytes = optin - (int)fa.sharedSizeBytes;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess)
+        return -1;
+    return bytes;
+}
+
+__global__ void __launch_bounds__(NT) scan_kernel(ScanArgs a, ScanOut o,
+                                                  ScanRecs r) {
+    scan_body(a, o, r);
+}
+
+// _scan_batched_jit (select.py:395): one block per lane, each stopping at
+// its own first invalid step. k_steps, s_live and p_live are the batch's
+// largest; a lane's stanzas past its own count have sp_valid / dp_valid
+// false and add nothing.
 __global__ void __launch_bounds__(NT) scan_batched_kernel(
-        ScanArgs a, ScanOut o, ScanLanes l) {
+        ScanArgs a, ScanOut o, ScanLanes l, ScanRecs r) {
     const int b = blockIdx.x;
-    scan_body(scan_lane(a, l, b), scan_out_lane(o, b, a));
+    scan_body(scan_lane(a, l, b), scan_out_lane(o, b, a),
+              scan_recs_lane(r, b, a));
 }
 
 // ---------------------------------------------------------------------------
@@ -509,7 +628,7 @@ extern "C" int nomad_select_scan(
         const float* dp_counts0, const float* dp_limit,
         const uint8_t* dp_valid,
         float* sp_counts, uint8_t* sp_present, float* dp_counts,
-        float* masked, int n, int d, int k_valid, int k_steps,
+        float* masked, void* recs, int n, int d, int k_valid, int k_steps,
         int spread_alg, int s_live, int p_live,
         float distinct_hosts, float scan_exclusive, float desired,
         float port_need, float dev_fires, float sum_spread_w,
@@ -531,8 +650,22 @@ extern "C" int nomad_select_scan(
     ScanOut o = {out_choice, out_final, out_binpack, out_anti, out_pen,
                  out_aff, out_spread, out_dev, out_pre, out_ti, out_ts,
                  out_exh, out_ok};
-    scan_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(a, o);
+    static const int smem = scan_smem((const void*)scan_kernel);
+    if (smem < 0) return (int)cudaErrorInvalidConfiguration;
+    scan_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
+        a, o, scan_recs(recs, 1, n, smem));
     return (int)cudaGetLastError();
+}
+
+// The live slots a scan kernel keeps in shared memory (the solo kernel, or
+// the batched one where `batched`): *out; the sweep reads the later slots'
+// records from device memory.
+extern "C" int nomad_scan_shared_slots(int batched, int* out) {
+    const int smem = scan_smem(batched ? (const void*)scan_batched_kernel
+                                       : (const void*)scan_kernel);
+    if (smem < 0) return (int)cudaErrorInvalidConfiguration;
+    *out = scan_slots(smem);
+    return (int)cudaSuccess;
 }
 
 // Batched entry points: B = `lanes` requests over one shared capacity table
@@ -593,7 +726,7 @@ extern "C" int nomad_select_scan_batched(
         const float* dp_counts0, const float* dp_limit,
         const uint8_t* dp_valid,
         float* sp_counts, uint8_t* sp_present, float* dp_counts,
-        float* masked, int lanes, int n, int d, int k_steps,
+        float* masked, void* recs, int lanes, int n, int d, int k_steps,
         int spread_alg, int s_live, int p_live,
         const int* k_valid, const float* distinct_hosts,
         const float* scan_exclusive, const float* desired,
@@ -618,6 +751,9 @@ extern "C" int nomad_select_scan_batched(
                  out_exh, out_ok};
     ScanLanes l = {k_valid, distinct_hosts, scan_exclusive, desired,
                    port_need, dev_fires, sum_spread_w};
-    scan_batched_kernel<<<lanes, NT, 0, (cudaStream_t)stream>>>(a, o, l);
+    static const int smem = scan_smem((const void*)scan_batched_kernel);
+    if (smem < 0) return (int)cudaErrorInvalidConfiguration;
+    scan_batched_kernel<<<lanes, NT, smem, (cudaStream_t)stream>>>(
+        a, o, l, scan_recs(recs, lanes, n, smem));
     return (int)cudaGetLastError();
 }

@@ -455,6 +455,134 @@ def kway_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, penalty,
 
 
 # -- scan ------------------------------------------------------------------
+# The scan's carry, in order: used, tg_coll, job_cnt, scan_placed, free_p,
+# dev_slots, sp_counts, sp_present, dp_counts.
+
+def _scan_local(a: Dict, carry, spread_alg: bool) -> Dict:
+    """The node-local terms of one scan step over every row (the JAX
+    `_select_scan_fn`'s step, select.py:202-253), from the carry and the
+    scan's arguments by name (SCAN_NAMES): node-local feasibility, the fit
+    per dimension and in all, the score components and the scorers'
+    flags."""
+    used, tg_coll, job_cnt, scan_placed, free_p, dev_slots = carry[:6]
+    capacity, ask = a["capacity"], a["ask"]
+    feas = a["feasible"].bool().clone()
+    if a["distinct_hosts_flag"] > 0:
+        feas &= job_cnt == 0
+    if a["scan_exclusive"] > 0:
+        feas &= scan_placed == 0
+    feas &= free_p >= a["port_need"]
+    feas &= a["port_ok"].bool()
+    feas &= dev_slots >= 1.0
+    after = used + ask[None, :]
+    fit_dims = after <= capacity + 1e-6
+    free_cpu = 1.0 - after[:, 0] / torch.clamp(capacity[:, 0], min=1e-9)
+    free_mem = 1.0 - after[:, 1] / torch.clamp(capacity[:, 1], min=1e-9)
+    total = _pow10(free_cpu) + _pow10(free_mem)
+    if spread_alg:
+        fit_score = torch.clamp(total - 2.0, 0.0, 18.0)
+    else:
+        fit_score = torch.clamp(20.0 - total, 0.0, 18.0)
+    coll = tg_coll.to(torch.float32)
+    anti_fires = coll > 0
+    penalty = a["penalty"].bool()
+    dev_score = a["dev_score"]
+    return dict(
+        feas=feas, fit_dims=fit_dims, fit=fit_dims.all(dim=1),
+        binpack=_div(fit_score, 18.0),
+        anti=torch.where(anti_fires,
+                         _div(-(coll + 1.0), max(a["desired_count"], 1.0)),
+                         0.0),
+        pen=torch.where(penalty, -1.0, 0.0), aff=a["affinity_norm"],
+        dev=dev_score if a["dev_fires"] > 0 else torch.zeros_like(dev_score),
+        anti_fires=anti_fires, pen_fires=penalty,
+        aff_fires=a["affinity_norm"] != 0.0,
+        pre_fires=a["pre_score"] != 0.0)
+
+
+def _spread_term(a: Dict, carry, s: int, codes: torch.Tensor):
+    """Spread stanza s's term (0.0 where the stanza is not valid) at the
+    attribute codes `codes` (select.py:256-296): a row's codes, or every
+    code for the kernel's per-code table."""
+    sp_counts, sp_present = carry[6], carry[7]
+    dev = codes.device
+    c_axis = sp_counts.shape[-1]
+    missing = codes == c_axis - 1
+    used_cnt = sp_counts[s][codes] + 1.0
+    desired = a["sp_desired"][s][codes]
+    has_desired = desired >= 0.0
+    w = _div(a["sp_weight"][s], max(a["sum_spread_w"], 1e-9))
+    targeted = torch.where(
+        has_desired,
+        (desired - used_cnt) / torch.clamp(desired, min=1e-9) * w,
+        -1.0)
+    pres = sp_present[s]
+    cnts = sp_counts[s]
+    min_cnt = torch.where(pres, cnts, 1e30).min()
+    max_cnt = torch.where(pres, cnts, -1e30).max()
+    any_present = bool(pres.any())
+    cur = sp_counts[s][codes]
+    even = torch.where(min_cnt == 0.0, -1.0,
+                       (min_cnt - cur) / torch.clamp(min_cnt, min=1e-9))
+    at_min = cur == min_cnt
+    if bool(min_cnt == max_cnt):
+        at_val = _f32(-1.0, dev)
+    elif bool(min_cnt == 0.0):
+        at_val = _f32(1.0, dev)
+    else:
+        at_val = (max_cnt - min_cnt) / torch.clamp(min_cnt, min=1e-9)
+    even = torch.where(at_min, at_val, even)
+    if not any_present:
+        even = torch.zeros_like(even)
+    even = torch.where(missing, -1.0, even)
+    if bool(a["sp_has_targets"][s]):
+        contrib = torch.where(missing, -1.0, targeted)
+    else:
+        contrib = even
+    if bool(a["sp_valid"][s]):
+        return contrib
+    return torch.zeros_like(contrib)
+
+
+def _dp_admits(a: Dict, carry, p: int, codes: torch.Tensor):
+    """Whether distinct_property p admits one more placement at the codes
+    `codes` (select.py:211-217), or None where p is not valid."""
+    dp_counts = carry[8]
+    if not bool(a["dp_valid"][p]):
+        return None
+    missing = codes == dp_counts.shape[-1] - 1
+    return (dp_counts[p][codes] + 1.0 <= a["dp_limit"][p]) & ~missing
+
+
+def _scan_sweep(a: Dict, carry, *, spread_alg: bool, s_live: int,
+                p_live: int):
+    """One step of the scan's sweep over every row, term for term as the
+    JAX `_select_scan_fn`'s step: (masked, feas, fit_dims, ok, binpack,
+    anti, pen, aff, spread_total, dev)."""
+    loc = _scan_local(a, carry, spread_alg)
+    feas = loc["feas"]
+    for p in range(p_live):
+        ok_p = _dp_admits(a, carry, p, a["dp_codes"][p].long())
+        if ok_p is not None:
+            feas &= ok_p
+    spread_total = torch.zeros(feas.shape[0], dtype=torch.float32,
+                               device=feas.device)
+    for s in range(s_live):
+        spread_total = spread_total + _spread_term(a, carry, s,
+                                                   a["sp_codes"][s].long())
+    fired = (1.0 + loc["anti_fires"].to(torch.float32)
+             + loc["pen_fires"].to(torch.float32)
+             + loc["aff_fires"].to(torch.float32)
+             + (spread_total != 0.0).to(torch.float32)
+             + (1.0 if a["dev_fires"] > 0 else 0.0)
+             + loc["pre_fires"].to(torch.float32))
+    final = (loc["binpack"] + loc["anti"] + loc["pen"] + loc["aff"]
+             + spread_total + loc["dev"] + a["pre_score"]) / fired
+    ok = feas & loc["fit"]
+    return (torch.where(ok, final, NEG_INF), feas, loc["fit_dims"], ok,
+            loc["binpack"], loc["anti"], loc["pen"], loc["aff"],
+            spread_total, loc["dev"])
+
 
 def scan_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, job_count0,
                distinct_hosts_flag, scan_exclusive, penalty, affinity_norm,
@@ -467,15 +595,16 @@ def scan_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, job_count0,
     """Plain version of the one-instance-per-step scan, mirroring the JAX
     `_select_scan_fn`: returns (carry, 13 per-step output buffers). With
     `shards` the node axis is split as scan_sharded_plain says."""
+    a = dict(zip(SCAN_NAMES, (
+        capacity, used0, feasible, ask, k_valid, tg_coll0, job_count0,
+        distinct_hosts_flag, scan_exclusive, penalty, affinity_norm,
+        desired_count, port_need, free_ports, port_ok, dev_slots0,
+        dev_score, dev_fires, pre_score, sp_codes, sp_counts0, sp_present0,
+        sp_desired, sp_weight, sp_has_targets, sp_valid, sum_spread_w,
+        dp_codes, dp_counts0, dp_limit, dp_valid)))
     dev = capacity.device
     n, d = capacity.shape
-    feasible, penalty, port_ok = feasible.bool(), penalty.bool(), \
-        port_ok.bool()
-    sp_has_targets, sp_valid, dp_valid = sp_has_targets.bool(), \
-        sp_valid.bool(), dp_valid.bool()
     sp_codes_l, dp_codes_l = sp_codes.long(), dp_codes.long()
-    cap_cpu = torch.clamp(capacity[:, 0], min=1e-9)
-    cap_mem = torch.clamp(capacity[:, 1], min=1e-9)
     used = used0.clone()
     tg_coll = tg_coll0.clone()
     job_cnt = job_count0.clone()
@@ -485,103 +614,15 @@ def scan_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, job_count0,
     sp_counts = sp_counts0.clone()
     sp_present = sp_present0.bool().clone()
     dp_counts = dp_counts0.clone()
-    c_axis = sp_counts.shape[-1]
+    carry = (used, tg_coll, job_cnt, scan_placed, free_p, dev_slots,
+             sp_counts, sp_present, dp_counts)
     rows_s = torch.arange(sp_counts.shape[0], device=dev)
     rows_p = torch.arange(dp_counts.shape[0], device=dev)
-    dev_on = dev_fires > 0
     outs = []
     for step_i in range(k_steps):
-        feas = feasible.clone()
-        if distinct_hosts_flag > 0:
-            feas &= job_cnt == 0
-        if scan_exclusive > 0:
-            feas &= scan_placed == 0
-        feas &= free_p >= port_need
-        feas &= port_ok
-        feas &= dev_slots >= 1.0
-        for p in range(p_live):
-            codes = dp_codes_l[p]
-            cnt = dp_counts[p][codes]
-            missing = codes == c_axis - 1
-            ok_p = (cnt + 1.0 <= dp_limit[p]) & ~missing
-            if bool(dp_valid[p]):
-                feas &= ok_p
-
-        after = used + ask[None, :]
-        fit_dims = after <= capacity + 1e-6
-        fit = fit_dims.all(dim=1)
-        free_cpu = 1.0 - after[:, 0] / cap_cpu
-        free_mem = 1.0 - after[:, 1] / cap_mem
-        total = _pow10(free_cpu) + _pow10(free_mem)
-        if spread_alg:
-            fit_score = torch.clamp(total - 2.0, 0.0, 18.0)
-        else:
-            fit_score = torch.clamp(20.0 - total, 0.0, 18.0)
-        binpack = _div(fit_score, 18.0)
-        coll = tg_coll.to(torch.float32)
-        anti_fires = coll > 0
-        anti = torch.where(anti_fires,
-                           _div(-(coll + 1.0), max(desired_count, 1.0)),
-                           0.0)
-        pen = torch.where(penalty, -1.0, 0.0)
-        aff_fires = affinity_norm != 0.0
-        aff = affinity_norm
-        dev_v = dev_score if dev_on else torch.zeros_like(dev_score)
-        pre_fires = pre_score != 0.0
-
-        spread_total = torch.zeros(n, dtype=torch.float32, device=dev)
-        for s in range(s_live):
-            codes = sp_codes_l[s]
-            missing = codes == c_axis - 1
-            used_cnt = sp_counts[s][codes] + 1.0
-            desired = sp_desired[s][codes]
-            has_desired = desired >= 0.0
-            w = _div(sp_weight[s], max(sum_spread_w, 1e-9))
-            targeted = torch.where(
-                has_desired,
-                (desired - used_cnt) / torch.clamp(desired, min=1e-9) * w,
-                -1.0)
-            pres = sp_present[s]
-            cnts = sp_counts[s]
-            min_cnt = torch.where(pres, cnts, 1e30).min()
-            max_cnt = torch.where(pres, cnts, -1e30).max()
-            any_present = bool(pres.any())
-            cur = sp_counts[s][codes]
-            even = torch.where(min_cnt == 0.0, -1.0,
-                               (min_cnt - cur) / torch.clamp(min_cnt,
-                                                             min=1e-9))
-            at_min = cur == min_cnt
-            if bool(min_cnt == max_cnt):
-                at_val = _f32(-1.0, dev)
-            elif bool(min_cnt == 0.0):
-                at_val = _f32(1.0, dev)
-            else:
-                at_val = (max_cnt - min_cnt) / torch.clamp(min_cnt, min=1e-9)
-            even = torch.where(at_min, at_val, even)
-            if not any_present:
-                even = torch.zeros_like(even)
-            even = torch.where(missing, -1.0, even)
-            if bool(sp_has_targets[s]):
-                contrib = torch.where(missing, -1.0, targeted)
-            else:
-                contrib = even
-            if bool(sp_valid[s]):
-                spread_total = spread_total + contrib
-            else:
-                spread_total = spread_total + 0.0
-        spread_fires = spread_total != 0.0
-
-        fired = (1.0 + anti_fires.to(torch.float32)
-                 + penalty.to(torch.float32)
-                 + aff_fires.to(torch.float32)
-                 + spread_fires.to(torch.float32)
-                 + (1.0 if dev_on else 0.0)
-                 + pre_fires.to(torch.float32))
-        final = (binpack + anti + pen + aff + spread_total + dev_v
-                 + pre_score) / fired
-
-        ok = feas & fit
-        masked = torch.where(ok, final, NEG_INF)
+        (masked, feas, fit_dims, ok, binpack, anti, pen, aff, spread_total,
+         dev_v) = _scan_sweep(a, carry, spread_alg=spread_alg,
+                              s_live=s_live, p_live=p_live)
         choice = _argmax_shards(masked, shards)
         valid = bool(masked[choice] > NEG_INF / 2) and step_i < k_valid
         if step_i == 0 or not valid:
@@ -630,8 +671,6 @@ def scan_plain(capacity, used0, feasible, ask, k_valid, tg_coll0, job_count0,
            torch.stack([o[10] for o in outs]).to(torch.float32),
            torch.stack([o[11] for o in outs]),
            torch.tensor([o[12] for o in outs], **i32))
-    carry = (used, tg_coll, job_cnt, scan_placed, free_p, dev_slots,
-             sp_counts, sp_present, dp_counts)
     return carry, out
 
 
@@ -740,12 +779,13 @@ _XCHG = [_P] * 7 + [_I] * 2 + [_P]
 _ARGTYPES = {
     "nomad_select_chunked": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P] * 8,
     "nomad_select_kway": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P, _P, _P],
-    "nomad_select_scan": [_P] * 29 + [_I] * 7 + [_F] * 6 + [_P] * 14,
+    "nomad_select_scan": [_P] * 30 + [_I] * 7 + [_F] * 6 + [_P] * 14,
     "nomad_select_chunked_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_P] * 8,
     "nomad_select_kway_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_I, _P, _P, _P],
-    "nomad_select_scan_batched": [_P] * 29 + [_I] * 7 + [_P] * 7 + [_P] * 14,
+    "nomad_select_scan_batched": [_P] * 30 + [_I] * 7 + [_P] * 7
+    + [_P] * 14,
     "nomad_scatter_set": [_P] * 9 + [_I] * 3 + [_P],
     "nomad_overlay_add": [_P] * 5 + [_I] * 3 + [_P],
     "nomad_feas_scatter": [_P] * 5 + [_I] * 2 + [_P],
@@ -760,6 +800,7 @@ _ARGTYPES = {
     "nomad_select_scan_batched_sharded": [_P] * 29 + [_I] * 7 + [_P] * 7
     + [_P] * 13 + _XCHG,
     "nomad_sharded_max_blocks": [_I, ctypes.POINTER(ctypes.c_int)],
+    "nomad_scan_shared_slots": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -1055,6 +1096,12 @@ def _scan_outputs(lead, k: int, d: int, dev):
             torch.empty(lead + (k,), dtype=i32, device=dev))
 
 
+def _scan_records(lanes: int, n: int, dev) -> torch.Tensor:
+    """Scratch for the scan kernels' per-row records (select_common.cuh,
+    ScanRecs): 68 bytes a row a lane."""
+    return torch.empty(lanes * n * 17, dtype=torch.float32, device=dev)
+
+
 def _check_live(s_live: int, p_live: int) -> None:
     if not (0 <= s_live <= S_MAX and 0 <= p_live <= P_MAX):
         raise ValueError(f"s_live={s_live}, p_live={p_live} out of range")
@@ -1084,10 +1131,12 @@ def select_scan(capacity, used0, feasible, ask, k_valid, tg_coll0,
     inputs, carry, n, d = _scan_inputs(dict(zip(SCAN_NAMES, args)))
     k = int(k_steps)
     outs = _scan_outputs((), k, d, dev)
+    recs = _scan_records(1, n, dev)
     lib = load_library()
     rc = lib.nomad_select_scan(
-        *[t.data_ptr() for t in inputs], n, d, int(k_valid), k, int(bool(spread_alg)), int(s_live),
-        int(p_live), float(distinct_hosts_flag), float(scan_exclusive),
+        *[t.data_ptr() for t in inputs], recs.data_ptr(), n, d, int(k_valid),
+        k, int(bool(spread_alg)), int(s_live), int(p_live),
+        float(distinct_hosts_flag), float(scan_exclusive),
         float(desired_count), float(port_need), float(dev_fires),
         float(sum_spread_w), *[t.data_ptr() for t in outs], _stream(dev))
     _raise_on(rc, "scan")
@@ -1252,11 +1301,12 @@ def select_scan_batched(*, k_steps: int, spread_alg: bool, s_live: int,
         sum_spread_w=a["sum_spread_w"])
     k = int(k_steps)
     outs = _scan_outputs((b,), k, d, dev)
+    recs = _scan_records(b, n, dev)
     lib = load_library()
     rc = lib.nomad_select_scan_batched(
-        *[t.data_ptr() for t in inputs], b, n, d, k, int(bool(spread_alg)), int(s_live),
-        int(p_live), *_at(lane), *[t.data_ptr() for t in outs],
-        _stream(dev))
+        *[t.data_ptr() for t in inputs], recs.data_ptr(), b, n, d, k,
+        int(bool(spread_alg)), int(s_live), int(p_live), *_at(lane),
+        *[t.data_ptr() for t in outs], _stream(dev))
     _raise_on(rc, "scan_batched")
     LAUNCHES["scan_batched"] += 1
     return carry, outs
@@ -1529,6 +1579,17 @@ def max_shards(kernel: str, device) -> int:
         _raise_on(rc, f"{kernel} occupancy query")
         _MAX_SHARDS[key] = out.value
     return _MAX_SHARDS[key]
+
+
+def scan_shared_slots(batched: bool = False) -> int:
+    """The live rows whose records the scan kernel (or the batched one)
+    keeps in shared memory on the current card; its sweep reads the later
+    live rows' records from device memory."""
+    out = ctypes.c_int(0)
+    _raise_on(load_library().nomad_scan_shared_slots(int(batched),
+                                                     ctypes.byref(out)),
+              "scan shared-memory query")
+    return out.value
 
 
 def _check_coresident(kernel: str, shards: int, device) -> int:

@@ -30,10 +30,11 @@ Needs a CUDA card; imports nothing of JAX.
 
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
+
+from profile_common import PROBE_ACCESS, copy_sources, insert, load, \
+    ptxas_report
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -56,66 +57,34 @@ MARKS = (
     ("        // the rescored rows before the next top-k reads them\n"
      "        __syncthreads();\n", 7),
 )
+SLOTS = 16
 PROBE = """
-__device__ unsigned long long g_prof[16];
-extern "C" int nomad_prof_read(unsigned long long* out) {
-    return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-}
-extern "C" int nomad_prof_reset() {
-    unsigned long long z[16] = {0};
-    return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
-}
+__device__ unsigned long long g_prof[%d];
 #define PROF(i) do { __syncthreads();                                     \\
     if (blockIdx.x == 0 && threadIdx.x == 0) {                          \\
         const unsigned long long t_ = clock64();                        \\
         g_prof[i] += t_ - t_last; t_last = t_; } } while (0)
-"""
+""" % SLOTS + PROBE_ACCESS % SLOTS
 
 
 def instrumented(src: Path, dst: Path) -> None:
     """A copy of the kernels' sources with the section probes added."""
-    dst.mkdir(parents=True, exist_ok=True)
-    for f in src.iterdir():
-        shutil.copy(f, dst / f.name)
+    copy_sources(src, dst)
     text = (dst / "sharded_kernels.cu").read_text()
-    text = text.replace("#define CNT_W (D_MAX + 1)\n",
-                        "#define CNT_W (D_MAX + 1)\n" + PROBE, 1)
+    text = insert(text, "#define CNT_W (D_MAX + 1)\n", PROBE,
+                  "the kernel's constants")
     start = text.index("kway_batched_sharded_kernel(\n        LocalArgs a0")
     head, body = text[:start], text[start:]
-    body = body.replace("    while (true) {\n",
-                        "    unsigned long long t_last = clock64();\n"
-                        "    while (true) {\n", 1)
+    body = insert(body, "    while (true) {\n",
+                  "    unsigned long long t_last = clock64();\n",
+                  "the phase loop", before=True)
     for anchor, i in MARKS:
-        if body.count(anchor) != 1:
-            raise SystemExit(f"profile: anchor of section {i} not found "
-                             f"once in sharded_kernels.cu")
         probe = f"        PROF({i});\n"
         if i == 7:
             probe += ("        if (blockIdx.x == 0 && threadIdx.x == 0) "
                       "g_prof[8] += 1;\n")
-        body = body.replace(anchor, anchor + probe, 1)
+        body = insert(body, anchor, probe, f"section {i}")
     (dst / "sharded_kernels.cu").write_text(head + body)
-
-
-def load(kernels, src: Path, build: Path):
-    """The kernels' library built from `src` into `build`, made current."""
-    kernels._LIB = None
-    kernels._MAX_SHARDS.clear()
-    kernels.SOURCES = tuple(src / p.name for p in kernels.SOURCES)
-    kernels.HEADERS = tuple(src / p.name for p in kernels.HEADERS)
-    kernels.BUILD_DIR = build
-    return kernels.load_library()
-
-
-def ptxas_report(kernels) -> str:
-    out = subprocess.run(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         "/dev/null", str(kernels._CSRC / "sharded_kernels.cu")],
-        capture_output=True, text=True).stderr.splitlines()
-    at = next(i for i, ln in enumerate(out)
-              if "Compiling entry function" in ln
-              and "kway_batched_sharded_kernel" in ln)
-    return " ".join(ln.split(":", 1)[-1].strip() for ln in out[at + 2:at + 4])
 
 
 def cases(kernels, S):
@@ -159,8 +128,9 @@ def main():
     from nomad_tpu_torch.ops import kernels, select as S
     from nomad_tpu_torch.utils.platform import device_info
     print(device_info()["raw"], flush=True)
-    print(f"ptxas, kway_batched_sharded_kernel: {ptxas_report(kernels)}",
-          flush=True)
+    report = ptxas_report(kernels, "sharded_kernels.cu",
+                          "kway_batched_sharded_kernel")
+    print(f"ptxas, kway_batched_sharded_kernel: {report}", flush=True)
     src = kernels._CSRC
     build = ROOT / "nomad_tpu_torch" / "_build"
     instrumented(src, build / "profile_sharded" / "src")
@@ -186,7 +156,7 @@ def main():
         prof_lib.nomad_prof_reset()
         run(**targs, **kw, shards=shards)
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * 16)()
+        buf = (ctypes.c_ulonglong * SLOTS)()
         prof_lib.nomad_prof_read(buf)
         per = max(int(buf[8]), 1)
         cycles = {name: buf[i] / per for i, name in enumerate(SECTIONS)}

@@ -13,6 +13,9 @@ from test_torch_device_table import EDGE_CASES, edge_inputs, set_case
 from test_torch_kway import EDGE_CASES as KWAY_EDGE_CASES
 from test_torch_kway import kway_edge_args
 from nomad_tpu_torch.mock.kway_edges import pad_rows
+from nomad_tpu_torch.mock.scan_edges import (
+    SCAN_EDGES, edge_case as scan_edge_case, lanes_batch as scan_lanes_batch,
+    mixed_lanes as scan_mixed_lanes)
 from test_torch_select import N_NODES, _fields
 
 pytestmark = pytest.mark.cuda
@@ -246,7 +249,8 @@ def test_scatter_set_makes_no_synchronising_call(cuda):
 
 def _on(cuda, args):
     return {k: torch.from_numpy(v).to(cuda) if isinstance(v, np.ndarray)
-            else v for k, v in args.items()}
+            else v.item() if isinstance(v, np.generic) else v
+            for k, v in args.items()}
 
 
 @pytest.mark.parametrize("spread_alg", [False, True])
@@ -590,3 +594,60 @@ def test_kway_batched_sharded_mixed_lanes_on_card(cuda, shards):
         targs = _continue(targs, got, w, lanes=len(lanes))
         launches += 1
     assert launches > 1
+
+
+def _held_scan(targs, kw, batched=False):
+    """One scan launch (solo or batched) held exactly against its plain
+    version and, batched, lane by lane against the solo kernel."""
+    name = "scan_batched" if batched else "scan"
+    before = kernels.LAUNCHES[name]
+    got = getattr(kernels, f"select_{name}")(**targs, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    want = getattr(kernels, f"{name}_plain")(**targs, **kw)
+    _assert_equal(got[0], want[0])
+    _assert_equal(got[1], want[1])
+    if batched:
+        for i in range(targs["used0"].shape[0]):
+            s_carry, s_outs = kernels.select_scan(
+                **kernels.lane_args(targs, i), **kw)
+            _assert_equal([t[i] for t in got[0]], s_carry)
+            _assert_equal([t[i] for t in got[1]], s_outs)
+    return got
+
+
+@pytest.mark.parametrize("spread_alg", [False, True])
+@pytest.mark.parametrize("label", sorted(SCAN_EDGES))
+def test_scan_edge_shapes_on_card(cuda, label, spread_alg):
+    """The scan kernels (cached records, per-code tables, winner-only
+    rescoring, the stop at the first invalid step) at the edge shapes:
+    the solo kernel equal to scan_plain, and the case as two lanes over one
+    table equal to scan_batched_plain and to the solo kernel, exactly."""
+    args, st = scan_edge_case(label, 31, spread_alg)
+    _held_scan(_on(cuda, args), st)
+    lanes = [scan_edge_case(label, 31 + i, spread_alg) for i in range(2)]
+    lanes[1][0]["capacity"] = lanes[0][0]["capacity"]
+    args, st = scan_lanes_batch(lanes)
+    _held_scan(_on(cuda, args), dict(st, k_steps=lanes[0][1]["k_steps"]),
+               batched=True)
+
+
+def test_scan_records_past_shared_memory_on_card(cuda):
+    """The all-live edge shape has more rows live at step 0 than the scan
+    kernels keep in shared memory, so its launches (held exactly above,
+    solo and as two lanes) also sweep records from device memory."""
+    args, st = scan_edge_case("16,384 rows all live", 31)
+    got = _held_scan(_on(cuda, args), st)
+    live = int(got[1][12][0])
+    assert live > kernels.scan_shared_slots()
+    assert live > kernels.scan_shared_slots(batched=True)
+
+
+def test_scan_mixed_lanes_on_card(cuda):
+    """Ten scan lanes of counts 16-61 with their own stanzas and
+    constraints, the last with no feasible row, over one table: each lane
+    stops at its own first invalid step; the launch equals the batched
+    plain version and each lane's solo kernel, exactly."""
+    args, st = scan_mixed_lanes(200, 41)
+    got = _held_scan(_on(cuda, args), st, batched=True)
+    assert bool((got[1][0][-1] == -1).all())
