@@ -85,40 +85,51 @@ Phases (each raises on failure, so the process exits non-zero):
   8. the node-sharded (mesh) path: the sharded scan and K-way kernels at
      the main path's shapes (10,000 nodes; the spread eval's scan request,
      count 200, and the batch eval's K-way request, count 10,000) with 8
-     shards, held exactly against their plain versions (every launch of
-     the K-way loop, continuing from the card's carry) and against the
-     solo kernel on the same padded request; then 2, 32 and the most
-     shards the card holds at once, each held exactly against the 8-shard
-     result and timed (CUDA-event medians of 7; us a step or K-way phase),
-     beside the solo kernel on the same padded request and the plain
-     version; then the sharded K-way kernel at the edge shapes of phase 2
-     and at mixed batched lanes (one with no feasible row, one that runs
-     dry) at 2, 8, 32 and the most shards, each call with an 8-phase
-     budget continued from the card's carry, every launch held bit for
-     bit against its plain version and the single-card kernel on the same
-     padded table. Then set_mesh(make_mesh(8)) and the three
-     main-path evals through the card's Harness: placements identical to
-     the single-card run's, both sharded kernels launched and no
-     single-card placement kernel; and E1-E4 of the steady state on a
-     fresh store over a fresh mesh: one upload of the mesh table, every
-     dispatch after E1 served by it, placements identical to the
-     single-card run's, and the mesh table equal to the host table row for
-     row;
+     shards (the scan's cluster kernel, a thread-block cluster a lane),
+     and the scan with 32 (its grid kernel, one cooperative launch), held
+     exactly against their plain versions (every launch of the K-way
+     loop, continuing from the card's carry) and against the solo kernel
+     on the same padded request; then 2, 32 (the scan: 2, 16, 32) and the
+     most shards the card holds at once, each held exactly against the
+     8-shard result and timed (CUDA-event medians of 7; us a step or K-way
+     phase, the scan's steps run, its route, the live slots a shard keeps
+     in shared memory and the clusters the card holds at once), beside
+     the solo kernel on the same padded request and the plain version;
+     then the sharded K-way kernel at the edge shapes of phase 2 and at
+     mixed batched lanes (one with no feasible row, one that runs dry) at
+     2, 8, 32 and the most shards, each call with an 8-phase budget
+     continued from the card's carry, and the sharded scan at SCAN_EDGES
+     and at mixed batched lanes (MIXED_LANES and a lane that runs dry, at
+     10,000 nodes) at 1, 2, 8, 16, 32 and the most shards (both routes;
+     at 1 shard the 16,384-row all-live case outgrows a shard's shared
+     memory, which fails unless it is so), every launch held bit for bit
+     against its plain version and the single-card kernel on the same
+     padded table. Then set_mesh(make_mesh(8)), and set_mesh(make_mesh(32)),
+     and the three main-path evals through the card's Harness: placements
+     identical to the single-card run's, the sharded kernels of the
+     mesh's route launched (the scan's cluster kernel at 8, its grid
+     kernel at 32) and no single-card placement kernel; and E1-E4 of the
+     steady state on a fresh store over a fresh mesh of 8: one upload of
+     the mesh table, every dispatch after E1 served by it, placements
+     identical to the single-card run's, and the mesh table equal to the
+     host table row for row;
   9. the mesh's gateways: the batched node-sharded kernels (chunked-,
      scan- and K-way-batched over B lanes of S shards, B * S blocks) at
-     10,000 nodes and the main shapes of phase 6, with 8 shards, then 2,
-     32 and the most the card holds (32 shards of 8 chunked lanes exceed
-     the card, so the lanes launch in groups): every launch held exactly
-     against its plain
-     version and against the single-card batched kernel on the same
-     padded lanes, and with an 8-phase budget every K-way lane continued
-     on the single-card solo kernel from the batched carry; CUDA-event
-     medians of the kernel (and us a step or phase of the longest lane),
-     the single-card batched kernel and the plain version, and the bound
-     as phase 6 counts it. Then phase 7's gateway
-     groups under set_mesh(make_mesh(8)) on a fresh store: placements
-     identical to the single-card groups', each batched sharded kernel
-     launched and no single-card batched kernel.
+     10,000 nodes and the main shapes of phase 6, with 8 shards (and the
+     scan's grid kernel at 32), then 2, 32 (the scan: 2, 16, 32) and the
+     most the card holds (32 shards of 8 chunked lanes exceed the card, so
+     the lanes of a cooperative kernel launch in groups; the scan's
+     cluster kernel takes every lane in one launch): every launch held
+     exactly against its plain version and against the single-card
+     batched kernel on the same padded lanes, and with an 8-phase budget
+     every K-way lane continued on the single-card solo kernel from the
+     batched carry; CUDA-event medians of the kernel (and us a step or
+     phase of the longest lane), the single-card batched kernel and the
+     plain version, and the bound as phase 6 counts it. Then phase 7's
+     gateway groups under set_mesh(make_mesh(8)) on a fresh store, and
+     its spread group under set_mesh(make_mesh(32)): placements identical
+     to the single-card groups', each batched sharded kernel of the
+     mesh's route launched and no single-card batched kernel.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -139,7 +150,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, float32 without tensor cores
 FP64_OPS_PER_S = 34e12        # H100 SXM data sheet, float64 without tensor cores
 # Operations per node per step of the scoring sweep, counted from the
-# kernel's expression (local_score / scan_eval in select_common.cuh).
+# kernel's expression (local_score, scan_local_of and scan_score in
+# select_common.cuh).
 # float32: port and device-slot tests 2, AllocsFit add + compare over 4
 # dims 8, capacity clamps 2, free_cpu/free_mem 4, sum of the powers 1, fit
 # clip 3, binpack 1, anti-affinity 1, fired count 10, final sum and
@@ -174,11 +186,13 @@ REPLACES = {
     "scatter_set": "nomad_tpu/ops/device_table.py:614",
     "overlay_add": "nomad_tpu/ops/device_table.py:623",
     "feas_scatter": "nomad_tpu/ops/device_table.py:631",
+    "scan_cluster": "nomad_tpu/parallel/sharded.py:73",
     "scan_sharded": "nomad_tpu/parallel/sharded.py:73",
     "kway_sharded": "nomad_tpu/ops/select.py:1870",
     # the batched programs SPMD over the mesh (select_many, select.py:1966)
     "chunked_batched_sharded": "nomad_tpu/ops/select.py:597",
     "kway_batched_sharded": "nomad_tpu/ops/select.py:785",
+    "scan_batched_cluster": "nomad_tpu/ops/select.py:395",
     "scan_batched_sharded": "nomad_tpu/ops/select.py:395",
 }
 SELECT_ARMS = ("chunked", "kway", "scan")
@@ -188,15 +202,24 @@ SOURCE = {arm: "nomad_tpu_torch/ops/csrc/select_kernels.cu"
           for arm in SELECT_ARMS + BATCHED}
 SOURCE.update({k: "nomad_tpu_torch/ops/csrc/table_kernels.cu"
                for k in TABLE_KERNELS})
-SHARDED = ("scan_sharded", "kway_sharded")
-BATCHED_SHARDED = ("chunked_batched_sharded", "scan_batched_sharded",
-                   "kway_batched_sharded")
+# the sharded scan's two kernels, the route the library fixes by S
+# (kernels.scan_sharded_info): a thread-block cluster a lane
+# ("scan_cluster", "scan_batched_cluster": scan_batched_cluster_kernel), the
+# cooperative grid past the shards a cluster takes ("scan_sharded",
+# "scan_batched_sharded": scan_batched_sharded_kernel)
+SHARDED = ("scan_cluster", "scan_sharded", "kway_sharded")
+BATCHED_SHARDED = ("chunked_batched_sharded", "scan_batched_cluster",
+                   "scan_batched_sharded", "kway_batched_sharded")
 SOURCE.update({k: "nomad_tpu_torch/ops/csrc/sharded_kernels.cu"
                for k in SHARDED + BATCHED_SHARDED})
-# the mesh of the main path, and the other shard counts timed beside it
-# (with the most the card holds at once)
+# the mesh of the main path, the mesh whose scans take the sharded scan's
+# grid path (its own main path), and the other shard counts timed beside
+# them (with the most the card holds at once; the scan at 16 too, the
+# cluster path's largest)
 MESH_SHARDS = 8
+MESH_GRID = 32
 MESH_SWEEP = (2, 32)
+SCAN_SWEEP = (2, 16, 32)
 # phase 6's main shapes: (kernel, lane counts, variant)
 BATCHED_MAIN = (("chunked_batched", [10] * 8, ""),
                 ("scan_batched", [200] * 4, "one_spread"),
@@ -593,11 +616,22 @@ def kway_edge_checks():
 
 
 def mesh_shard_counts(device, kernel):
-    """The shard counts the mesh phases run: MESH_SHARDS, MESH_SWEEP and
-    the most the card holds at once."""
+    """The shard counts the mesh phases run: MESH_SHARDS, MESH_SWEEP (the
+    scan's SCAN_SWEEP) and the most the card holds at once."""
     from nomad_tpu_torch.ops import kernels
-    return sorted(set((MESH_SHARDS,) + MESH_SWEEP
-                      + (kernels.max_shards(kernel, device),)))
+    sweep = SCAN_SWEEP if kernel.startswith("scan") else MESH_SWEEP
+    grid = "scan_sharded" if kernel.startswith("scan") else kernel
+    return sorted(set((MESH_SHARDS,) + sweep
+                      + (kernels.max_shards(grid, device),)))
+
+
+def scan_route(shards, per, batched=False):
+    """The LAUNCHES key of the sharded scan kernel that S shards of `per`
+    rows take, as the library routes them."""
+    from nomad_tpu_torch.ops import kernels
+    route = "cluster" if kernels.scan_sharded_info(
+        shards, per)["route"] == "cluster" else "sharded"
+    return f"scan_batched_{route}" if batched else f"scan_{route}"
 
 
 def kway_sharded_edge_checks(device):
@@ -1716,10 +1750,11 @@ def gateway_phase(nodes, mock, models):
 
 def sharded_kernel_phase(device):
     """The node-sharded kernels at the main path's shapes: at MESH_SHARDS
-    shards against their plain versions (every launch of the K-way loop)
-    and the solo kernel, exactly, and timed beside both; at every shard
-    count of MESH_SWEEP and the card's most, against the MESH_SHARDS
-    result on the real rows, exactly, and timed."""
+    shards (and the scan's grid path at MESH_GRID) against their plain
+    versions (every launch of the K-way loop) and the solo kernel,
+    exactly, and timed beside both; at every other shard count of
+    MESH_SWEEP (the scan's SCAN_SWEEP) and the card's most, against the
+    MESH_SHARDS result on the real rows, exactly, and timed."""
     import torch
     from nomad_tpu_torch.ops import kernels, select as S
     from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
@@ -1729,16 +1764,19 @@ def sharded_kernel_phase(device):
     rows = []
     for kind, count, seed in (("scan", 200, SEED + 4),
                               ("kway", 10_000, SEED + 5)):
-        name = kind + "_sharded"
         fields = request_arrays(seed, n, count, kind)
-        run = getattr(kernels, "select_" + name)
+        run = getattr(kernels, f"select_{kind}_sharded")
         plain = getattr(kernels, kind + "_sharded_plain")
         solo = getattr(kernels, "select_" + kind)
         ref = None
         for shards in [MESH_SHARDS] + [
-                x for x in mesh_shard_counts(device, name)
+                x for x in mesh_shard_counts(device, kind + "_sharded")
                 if x != MESH_SHARDS]:
             n_pad = pad_for_mesh(make_mesh(shards, device), n)
+            name = scan_route(shards, n_pad // shards) if kind == "scan" \
+                else "kway_sharded"
+            main = shards == MESH_SHARDS or (
+                name == "scan_sharded" and shards == MESH_GRID)
             req = select_request_from_arrays(fields)
             args, statics = S.pack_request(req, n_pad)
             if kind == "scan":
@@ -1754,21 +1792,24 @@ def sharded_kernel_phase(device):
             got = run(**targs, **skw)
             torch.cuda.synchronize()
             row = dict(kind=name, n=n, count=count, shards=shards,
-                       n_pad=n_pad, main=shards == MESH_SHARDS)
-            if ref is None:
+                       n_pad=n_pad, main=main)
+            err = 0.0
+            if main:
                 err, trail = held_launches(kind, label, run, plain, targs,
                                            skw, count, single=solo)
-                ref, ref_pad = got, n_pad
                 row.update(launches_held=len(trail),
                            plain_ms=cuda_ms(lambda: plain(**targs, **skw),
                                             reps=3))
+            if ref is None:
+                ref, ref_pad = got, n_pad
             else:
                 # the same request at another padding: the real rows and
                 # every per-step output equal the MESH_SHARDS result
                 def real(ts, pad):
                     return [t[:n] if t.dim() and t.shape[0] == pad else t
                             for t in ts]
-                err = max(compare(f"{label} carry vs {MESH_SHARDS} shards",
+                err = max(err,
+                          compare(f"{label} carry vs {MESH_SHARDS} shards",
                                   real(got[0], n_pad),
                                   real(ref[0], ref_pad), 0.0),
                           compare(f"{label} outputs vs {MESH_SHARDS} "
@@ -1776,8 +1817,17 @@ def sharded_kernel_phase(device):
             row["ms"] = cuda_ms(lambda: run(**targs, **skw))
             # the single-card kernel on the same padded request
             row["solo_ms"] = cuda_ms(lambda: solo(**targs, **kw))
+            extra = ""
             if kind == "scan":
                 steps = kw["k_steps"]
+                row["steps_run"] = scan_steps_run(got[1][0], steps)
+                row.update(kernels.scan_sharded_info(shards,
+                                                     n_pad // shards))
+                extra = (f"; {row['steps_run']} steps run, "
+                         f"{row['ms'] / row['steps_run'] * 1e3:.1f} us "
+                         f"each; {row['route']} path, {row['slots']} live "
+                         f"slots a shard in shared memory, the card holds "
+                         f"{row['max_clusters']} such clusters")
             else:
                 steps = int(got[1][0][0, -1])
             nbytes, f32, f64 = lane_bound(
@@ -1785,15 +1835,12 @@ def sharded_kernel_phase(device):
                 len(fields.get("spreads", ())),
                 len(fields.get("distinct_props", ())))
             nbytes += rows_bytes([targs["capacity"]], n, n_pad)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
+            b_ms, by = bound_of(nbytes, f32, f64)
             row.update(steps=steps, max_abs_err=err,
                        us_per_step=row["ms"] / max(steps, 1) * 1e3,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops
-                       else "operations")
+                       bound_ms=b_ms, bound_by=by)
             rows.append(row)
-            extra = f", plain {row['plain_ms']:.3f} ms" if row["main"] else ""
+            extra += f", plain {row['plain_ms']:.3f} ms" if main else ""
             print(f"kernel {label} (n_pad {n_pad}, {steps} steps): equal "
                   f"(max abs err {err:.3g}); {row['ms']:.3f} ms "
                   f"({row['us_per_step']:.1f} us a "
@@ -1801,42 +1848,160 @@ def sharded_kernel_phase(device):
                   f"kernel {row['solo_ms']:.3f} ms{extra}, bound "
                   f"{row['bound_ms']:.6f} ms", flush=True)
     kway_sharded_edge_checks(device)
+    scan_sharded_edge_checks(device)
     return rows
+
+
+def scan_shard_live(targs, st, shards):
+    """The most rows live at step 0 in one shard of each lane (feasible,
+    fitting and admitted: the slots a shard's sweep lists), from the plain
+    sweep on the card."""
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    batched = targs["used0"].dim() == 3
+    lanes = [kernels.lane_args(targs, i)
+             for i in range(targs["used0"].shape[0])] if batched \
+        else [targs]
+    most = 0
+    for a in lanes:
+        a = dict(a)
+        carry = (a["used0"], a["tg_coll0"], a["job_count0"],
+                 torch.zeros_like(a["tg_coll0"]), a["free_ports"],
+                 a["dev_slots0"], a["sp_counts0"], a["sp_present0"],
+                 a["dp_counts0"])
+        masked = kernels._scan_sweep(a, carry, spread_alg=st["spread_alg"],
+                                     s_live=st["s_live"],
+                                     p_live=st["p_live"])[0]
+        live = (masked > kernels.NEG_INF / 2).view(shards, -1).sum(dim=1)
+        most = max(most, int(live.max()))
+    return most
+
+
+def scan_sharded_edge_checks(device):
+    """The sharded scan at SCAN_EDGES (one lane, binpack) and at mixed
+    batched lanes at 10,000 nodes (MIXED_LANES and a lane that runs dry),
+    at S 1, 2, 8, 16, 32 and the most the card holds, each table padded
+    as a mesh of S shards pads it: every launch held bit for bit against
+    its plain version (scan_plain(shards=)) and against the single-card
+    kernel on the same padded request, on both paths (a cluster a lane up
+    to 16 shards, the grid past it). Prints for each S the path, the
+    clusters the card holds at once, and the most live rows of a shard
+    against the live slots it keeps in shared memory; fails unless some
+    shard's live rows outgrow them (so its device-memory tier ran)."""
+    import torch
+    from nomad_tpu_torch.mock import scan_edges as edges
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+
+    def held(label, targs, st, shards, batched):
+        name = scan_route(shards, targs["capacity"].shape[0] // shards,
+                          batched)
+        solo = "scan_batched" if batched else "scan"
+        before = kernels.LAUNCHES[name]
+        got = getattr(kernels, f"select_{solo}_sharded")(**targs, **st,
+                                                         shards=shards)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[name] == before:
+            fail(f"{label}: {name} was not launched")
+        want = getattr(kernels, f"{solo}_sharded_plain")(**targs, **st,
+                                                         shards=shards)
+        single = getattr(kernels, "select_" + solo)(**targs, **st)
+        for what, other in (("plain", want), ("single card", single)):
+            compare(f"{label} carry vs {what}", got[0], other[0], 0.0)
+            compare(f"{label} outputs vs {what}", got[1], other[1], 0.0)
+        return scan_steps_run(got[1][0], st["k_steps"])
+
+    shard_counts = sorted({1} | set(mesh_shard_counts(device,
+                                                      "scan_sharded")))
+    report, past = [], []
+    for shards in shard_counts:
+        mesh = make_mesh(shards, device)
+        runs, most_live = [], 0
+        for i, label in enumerate(edges.SCAN_EDGES):
+            args, st = edges.edge_case(label, SEED + 80 + i)
+            n = args["capacity"].shape[0]
+            targs = _card(edges.pad_rows(args, pad_for_mesh(mesh, n)))
+            steps = held(f"scan sharded edge {label} (shards {shards})",
+                         targs, st, shards, False)
+            live = scan_shard_live(targs, st, shards)
+            per = targs["capacity"].shape[0] // shards
+            slots = kernels.scan_sharded_info(shards, per)["slots"]
+            most_live = max(most_live, live)
+            if live > slots:
+                past.append((label, shards, live, slots))
+            runs.append((label, steps))
+        n_pad = pad_for_mesh(mesh, MAIN_NODES)
+        args, st = edges.mixed_lanes(MAIN_NODES, SEED + 95, dry=True,
+                                     n_pad=n_pad)
+        targs = _card(args)
+        steps = held(f"scan_batched sharded mixed lanes (shards {shards})",
+                     targs, st, shards, True)
+        info = kernels.scan_sharded_info(shards, n_pad // shards)
+        report.append(dict(shards=shards, path=info["route"],
+                           max_clusters=info["max_clusters"],
+                           slots_at_10000=info["slots"],
+                           most_live_a_shard_edges=most_live,
+                           mixed_lanes_steps=steps,
+                           mixed_lanes_most_live_a_shard=scan_shard_live(
+                               targs, st, shards),
+                           edges_steps=runs))
+    for r in report:
+        print(f"kernel scan sharded edge shapes and mixed lanes: every "
+              f"launch equal to the plain version and the single-card "
+              f"kernel bit for bit: {json.dumps(r)}", flush=True)
+    if not past:
+        fail("scan sharded edge shapes: no shard has more live rows than "
+             "its records in shared memory")
+    print(f"kernel scan sharded: shards past their shared-memory slots "
+          f"(label, shards, live, slots): {past}", flush=True)
 
 
 def mesh_phase(device, nodes, jobs, single_places, single_walls, steps,
                single_steady):
-    """The main path and E1-E4 of the steady state with the mesh set; fails
-    unless they place as the single card did, the main path launched both
-    sharded kernels and no single-card placement kernel, and the mesh
+    """The main path with the mesh set, at MESH_SHARDS shards (the sharded
+    scan's cluster path) and at MESH_GRID (its grid path), and E1-E4 of
+    the steady state at MESH_SHARDS; fails unless they place as the single
+    card did, each main path launched its sharded kernels (the scan's of
+    its route only) and no single-card placement kernel, and the mesh
     table served every dispatch after E1 from one upload. Returns the
-    main path's launches."""
+    launches of the two main paths."""
     from nomad_tpu_torch.ops import kernels
     from nomad_tpu_torch.ops.select import mesh_stats_snapshot, set_mesh
     from nomad_tpu_torch.parallel import make_mesh
+    paths = {MESH_SHARDS: ("scan_cluster", "kway_sharded"),
+             MESH_GRID: ("scan_sharded", "kway_sharded")}
+    out = {}
     try:
-        set_mesh(make_mesh(MESH_SHARDS, device))
-        kernels.reset_launches()
-        places, walls, launched = run_main_path(device, jobs, nodes)
-        launches = dict(kernels.LAUNCHES)
-        for name in SHARDED:
-            if launches[name] < 1:
-                fail(f"the mesh's main path never launched {name}")
-        solo = {k: launches[k] for k in SELECT_ARMS + BATCHED if launches[k]}
-        if solo:
-            fail(f"the mesh's main path launched single-card kernels {solo}")
-        for (kind, job, _arm), got, want, wall, single, ln in zip(
-                jobs, places, single_places, walls, single_walls, launched):
-            if got != want:
-                diff = [p for p in got if p not in want][:3]
-                fail(f"{job.id} on the mesh: placements differ from the "
-                     f"single card's, e.g. {diff}")
-            print(f"mesh main path {kind} {job.id} (count "
-                  f"{job.task_groups[0].count}, launches "
-                  f"{ {k: v for k, v in ln.items() if v} }): {wall:.3f} s "
-                  f"on the card over {MESH_SHARDS} shards, {single:.3f} s "
-                  f"on the single-card route; placements identical",
-                  flush=True)
+        for shards, names in paths.items():
+            set_mesh(make_mesh(shards, device))
+            kernels.reset_launches()
+            places, walls, launched = run_main_path(device, jobs, nodes)
+            launches = dict(kernels.LAUNCHES)
+            out[shards] = launches
+            for name in names:
+                if launches[name] < 1:
+                    fail(f"the main path on {shards} shards never launched "
+                         f"{name}")
+            other = {k: launches[k] for k in SHARDED
+                     if k not in names and launches[k]}
+            solo = {k: launches[k] for k in SELECT_ARMS + BATCHED
+                    if launches[k]}
+            if other or solo:
+                fail(f"the main path on {shards} shards launched "
+                     f"{other or solo}")
+            for (kind, job, _arm), got, want, wall, single, ln in zip(
+                    jobs, places, single_places, walls, single_walls,
+                    launched):
+                if got != want:
+                    diff = [p for p in got if p not in want][:3]
+                    fail(f"{job.id} on {shards} shards: placements differ "
+                         f"from the single card's, e.g. {diff}")
+                print(f"mesh main path {kind} {job.id} (count "
+                      f"{job.task_groups[0].count}, launches "
+                      f"{ {k: v for k, v in ln.items() if v} }): "
+                      f"{wall:.3f} s on the card over {shards} shards, "
+                      f"{single:.3f} s on the single-card route; "
+                      f"placements identical", flush=True)
         set_mesh(make_mesh(MESH_SHARDS, device))    # a fresh mesh table
         evals = run_steady_state(device, steps[:4], nodes, mesh=True)
         stats = mesh_stats_snapshot()
@@ -1860,15 +2025,15 @@ def mesh_phase(device, nodes, jobs, single_places, single_walls, steps,
               f"the single-card route; launches {g['launches']}", flush=True)
     print(f"mesh steady state: placements identical, one upload, mesh table "
           f"equal to the host table; {json.dumps(stats)}", flush=True)
-    return launches
+    return out[MESH_SHARDS], out[MESH_GRID]
 
 
 def batched_sharded_kernel_phase(device):
     """The batched node-sharded kernels at phase 6's main shapes, at
-    MESH_SHARDS and every count of MESH_SWEEP: each call held exactly
-    against its plain version and the single-card batched kernel on the
-    same padded lanes; timed beside both (the plain version at
-    MESH_SHARDS only)."""
+    MESH_SHARDS and every count of MESH_SWEEP (the scan's SCAN_SWEEP):
+    each call held exactly against its plain version and the single-card
+    batched kernel on the same padded lanes; timed beside both (the plain
+    version at MESH_SHARDS, and for the scan's grid path at MESH_GRID)."""
     import torch
     from nomad_tpu_torch.ops import kernels, select as S
     from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
@@ -1878,17 +2043,19 @@ def batched_sharded_kernel_phase(device):
     rows = []
     for case, (kind, counts, variant) in enumerate(BATCHED_MAIN):
         base = kind[:-len("_batched")]
-        name = kind + "_sharded"
         fields = lane_batch(base, counts, SEED + 500 + 100 * case, variant)
-        run = getattr(kernels, "select_" + name)
-        plain = getattr(kernels, name + "_plain")
+        run = getattr(kernels, f"select_{kind}_sharded")
+        plain = getattr(kernels, f"{kind}_sharded_plain")
         single = getattr(kernels, "select_" + kind)
-        most = kernels.max_shards(name, device)
+        most = kernels.max_shards(kind + "_sharded", device)
         for shards in [MESH_SHARDS] + [
-                x for x in mesh_shard_counts(device, name)
+                x for x in mesh_shard_counts(device, kind + "_sharded")
                 if x != MESH_SHARDS]:
-            main = shards == MESH_SHARDS
             n_pad = pad_for_mesh(make_mesh(shards, device), n)
+            name = scan_route(shards, n_pad // shards, True) \
+                if base == "scan" else kind + "_sharded"
+            main = shards == MESH_SHARDS or (
+                name == "scan_batched_sharded" and shards == MESH_GRID)
             packs, s_live, p_live = [], 0, 0
             for f in fields:
                 args, st = S.pack_request(select_request_from_arrays(f),
@@ -1919,7 +2086,8 @@ def batched_sharded_kernel_phase(device):
             got = run(**targs, **skw)
             torch.cuda.synchronize()
             launches = kernels.LAUNCHES[name] - before
-            groups = -(-len(counts) // (most // shards))
+            groups = 1 if name == "scan_batched_cluster" \
+                else -(-len(counts) // (most // shards))
             if launches != groups:
                 fail(f"{label}: {launches} launches, expected {groups}")
             want = plain(**targs, **skw)
@@ -1969,6 +2137,14 @@ def batched_sharded_kernel_phase(device):
                        else "operations")
             rows.append(row)
             extra = f", plain {row['plain_ms']:.3f} ms" if main else ""
+            if kind == "scan_batched":
+                row["steps_run"] = scan_steps_run(got[1][0], kw["k_steps"])
+                row["route"] = kernels.scan_sharded_info(
+                    shards, n_pad // shards)["route"]
+                extra += (f"; {row['route']} path, {row['steps_run']} steps "
+                          f"run in the longest lane, "
+                          f"{row['ms'] / row['steps_run'] * 1e3:.1f} us "
+                          f"each")
             print(f"kernel {label} (n_pad {n_pad}, {launches} launch"
                   f"{'es' if launches > 1 else ''}, the card holds {most} "
                   f"blocks): equal to its plain version and the single-card "
@@ -1984,43 +2160,57 @@ def batched_sharded_kernel_phase(device):
 
 
 def mesh_gateway_phase(nodes, mock, models, single_groups):
-    """Phase 7's gateway groups with the mesh set, on a fresh store; fails
-    unless they place as the single card's groups did, launch every batched
-    sharded kernel and no single-card batched kernel. Returns the launches
-    of the groups' run."""
+    """Phase 7's gateway groups with the mesh set at MESH_SHARDS shards, on
+    a fresh store, then its scan-batched group (group 2) at MESH_GRID
+    shards (the sharded scan's grid path); fails unless they place as the
+    single card's groups did, launch every batched sharded kernel of their
+    route and no single-card batched kernel. Returns the launches of the
+    two runs."""
     from nomad_tpu_torch.ops import kernels
     from nomad_tpu_torch.ops.select import mesh_stats_snapshot, set_mesh
     from nomad_tpu_torch.parallel import make_mesh
     groups = gateway_groups(mock, models)
-    try:
-        set_mesh(make_mesh(MESH_SHARDS, "cuda"))
-        kernels.reset_launches()
-        runs = run_gateways("cuda", groups, nodes)
-        launches = dict(kernels.LAUNCHES)
-        stats = mesh_stats_snapshot()
-    finally:
-        set_mesh(None)
-    for name in BATCHED_SHARDED:
-        if launches[name] < 1:
-            fail(f"the mesh's gateway groups never launched {name}")
-    single = {k: launches[k] for k in BATCHED if launches[k]}
-    if single:
-        fail(f"the mesh's gateway groups launched single-card batched "
-             f"kernels {single}")
-    for (label, _s, jobs, arm, kind), g, c in zip(groups, runs,
-                                                  single_groups):
-        if g["placements"] != c["placements"]:
-            fail(f"{label} on the mesh: placements differ from the single "
-                 f"card's")
-        gate = "BatchGateway" if kind == "batch" else "MicroBatchGateway"
-        print(f"mesh gateway {label} ({len(jobs)} lanes, {gate}, "
-              f"{arm}_sharded over {MESH_SHARDS} shards): {g['wall']:.3f} s "
-              f"on the card, {c['wall']:.3f} s on the single card; "
-              f"{g['stats']['dispatches']} dispatches; launches "
-              f"{g['launches']}; placements identical", flush=True)
-    print(f"mesh gateways: launches {launches}; mesh table "
-          f"{json.dumps(stats)}", flush=True)
-    return launches
+    runs = [(MESH_SHARDS, groups, single_groups,
+             [k for k in BATCHED_SHARDED if k != "scan_batched_sharded"]),
+            (MESH_GRID, groups[1:2], single_groups[1:2],
+             ["scan_batched_sharded"])]
+    out = {}
+    for shards, mine, singles, names in runs:
+        try:
+            set_mesh(make_mesh(shards, "cuda"))
+            kernels.reset_launches()
+            got = run_gateways("cuda", mine, nodes)
+            launches = dict(kernels.LAUNCHES)
+            stats = mesh_stats_snapshot()
+        finally:
+            set_mesh(None)
+        out[shards] = launches
+        for name in names:
+            if launches[name] < 1:
+                fail(f"the mesh's gateway groups on {shards} shards never "
+                     f"launched {name}")
+        other = {k: launches[k] for k in BATCHED_SHARDED
+                 if k not in names and launches[k]}
+        single = {k: launches[k] for k in BATCHED if launches[k]}
+        if other or single:
+            fail(f"the mesh's gateway groups on {shards} shards launched "
+                 f"{other or single}")
+        for (label, _s, jobs, arm, kind), g, c in zip(mine, got, singles):
+            if g["placements"] != c["placements"]:
+                fail(f"{label} on {shards} shards: placements differ from "
+                     f"the single card's")
+            gate = "BatchGateway" if kind == "batch" else "MicroBatchGateway"
+            name = next(k for k in names if k.startswith(arm)) \
+                if arm == "scan_batched" else arm + "_sharded"
+            print(f"mesh gateway {label} ({len(jobs)} lanes, {gate}, "
+                  f"{name} over {shards} shards): {g['wall']:.3f} s "
+                  f"on the card, {c['wall']:.3f} s on the single card; "
+                  f"{g['stats']['dispatches']} dispatches; launches "
+                  f"{g['launches']}; placements identical", flush=True)
+        print(f"mesh gateways on {shards} shards: launches "
+              f"{ {k: v for k, v in launches.items() if v} }; mesh table "
+              f"{json.dumps(stats)}", flush=True)
+    return out[MESH_SHARDS], out[MESH_GRID]
 
 
 def main():
@@ -2077,6 +2267,9 @@ def main():
                                steady_gpu)
     bs_rows = batched_sharded_kernel_phase("cuda")
     mesh_gw_launches = mesh_gateway_phase(nodes, mock, models, gateway_gpu)
+    # each sharded kernel's launches on its main path: the sharded scan's
+    # grid kernel on the MESH_GRID mesh's, every other on MESH_SHARDS'
+    grid = ("scan_sharded", "scan_batched_sharded")
 
     record = []
     for arm in SELECT_ARMS:
@@ -2130,30 +2323,34 @@ def main():
         top = next(r for r in mine if r["main"])
         record.append(dict(
             name=name, route="cuda", source=SOURCE[name],
-            replaces=REPLACES[name], launches=mesh_launches[name],
+            replaces=REPLACES[name],
+            launches=mesh_launches[name in grid][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-            library_ms=None, solo_ms=top["solo_ms"], shards=MESH_SHARDS,
+            library_ms=None, solo_ms=top["solo_ms"], shards=top["shards"],
             shapes=[{k: r[k] for k in (
-                "n", "count", "shards", "n_pad", "main", "steps", "ms",
-                "us_per_step", "solo_ms", "bound_ms", "bound_by",
-                "max_abs_err")} for r in mine]))
+                "n", "count", "shards", "n_pad", "main", "steps",
+                "steps_run", "route", "slots", "max_clusters", "ms",
+                "us_per_step", "solo_ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err") if k in r} for r in mine]))
     for name in BATCHED_SHARDED:
         mine = [r for r in bs_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])
         record.append(dict(
             name=name, route="cuda", source=SOURCE[name],
-            replaces=REPLACES[name], launches=mesh_gw_launches[name],
+            replaces=REPLACES[name],
+            launches=mesh_gw_launches[name in grid][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-            library_ms=None, solo_ms=top["solo_ms"], shards=MESH_SHARDS,
+            library_ms=None, solo_ms=top["solo_ms"], shards=top["shards"],
             max_blocks=top["max_blocks"],
             shapes=[{k: r[k] for k in (
                 "n", "n_pad", "lanes", "counts", "shards", "launches_held",
-                "main", "steps", "ms", "us_per_step", "solo_ms", "bound_ms",
-                "bound_by", "max_abs_err")} for r in mine]))
+                "main", "steps", "steps_run", "route", "ms", "us_per_step",
+                "solo_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err") if k in r} for r in mine]))
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

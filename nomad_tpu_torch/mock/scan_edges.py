@@ -184,6 +184,32 @@ def edge_case(label, seed, spread_alg=False):
     return args, statics
 
 
+# the arguments with a node axis: first (ROW_ARGS) or last (CODE_ARGS)
+ROW_ARGS = ("capacity", "used0", "feasible", "tg_coll0", "job_count0",
+            "penalty", "affinity_norm", "free_ports", "port_ok",
+            "dev_slots0", "dev_score", "pre_score")
+CODE_ARGS = ("sp_codes", "dp_codes")
+
+
+def pad_rows(args, n_pad):
+    """`args` (scan_edge_args' numpy arguments of one request) over n_pad
+    rows, as `select.pack_request` pads a table (a mesh pads its table so
+    each shard holds equal rows): the rows past the request's own zero,
+    so infeasible, with every code the missing one."""
+    out = dict(args)
+    for k in ROW_ARGS:
+        a = args[k]
+        pad = np.zeros((n_pad,) + a.shape[1:], a.dtype)
+        pad[:a.shape[0]] = a
+        out[k] = pad
+    for k in CODE_ARGS:
+        a = args[k]
+        pad = np.full(a.shape[:-1] + (n_pad,), C_MAX, a.dtype)
+        pad[..., :a.shape[-1]] = a
+        out[k] = pad
+    return out
+
+
 # Batched lanes of mixed counts (16-61) over one table, each with its own
 # stanzas and constraints, the last with no feasible row: (count, s_live,
 # p_live, feasible_rows) a lane.
@@ -214,13 +240,23 @@ def lanes_batch(lanes):
     return out, statics
 
 
-def mixed_lanes(n, seed, spread_alg=False):
+# a lane that runs dry: distinct_hosts over fewer feasible rows than its
+# count, (count, s_live, p_live, feasible_rows) as a MIXED_LANES entry
+DRY_LANE = (80, 1, 0, 50)
+
+
+def mixed_lanes(n, seed, spread_alg=False, dry=False, n_pad=None):
     """(batched arguments, statics with k_steps) of MIXED_LANES over n
-    rows, lane i from seed + i."""
+    rows, lane i from seed + i; with `dry`, DRY_LANE as one more lane;
+    with n_pad, each table padded to n_pad rows (pad_rows)."""
+    specs = MIXED_LANES + ((DRY_LANE,) if dry else ())
     lanes = [scan_edge_args(n, count, "random", seed + i, s_live=s,
                             p_live=p, feasible_rows=keep,
+                            distinct_hosts=(count, s, p, keep) == DRY_LANE,
                             spread_alg=spread_alg)
-             for i, (count, s, p, keep) in enumerate(MIXED_LANES)]
+             for i, (count, s, p, keep) in enumerate(specs)]
+    if n_pad is not None:
+        lanes = [(pad_rows(a, n_pad), st) for a, st in lanes]
     args, statics = lanes_batch(lanes)
-    statics["k_steps"] = _bucket_k(max(c for c, _, _, _ in MIXED_LANES))
+    statics["k_steps"] = _bucket_k(max(c for c, _, _, _ in specs))
     return args, statics

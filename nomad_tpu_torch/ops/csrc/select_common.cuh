@@ -734,14 +734,8 @@ struct ScanShared {
     uint8_t pres[S_MAX * C_AXIS];
     float des[S_MAX * C_AXIS];
     float dp[P_MAX * C_AXIS];
-    float mn[S_MAX], mx[S_MAX], w[S_MAX], dpl[P_MAX];
-    int any[S_MAX], hast[S_MAX], spv[S_MAX], dpv[P_MAX];
-};
-
-struct ScanEval {
-    bool feas, fit;
-    unsigned fit_bits;
-    float binpack, anti, pen, aff, spread, dev, final_;
+    float w[S_MAX], dpl[P_MAX];
+    int hast[S_MAX], spv[S_MAX], dpv[P_MAX];
 };
 
 // One row's node-local terms (select.py:202-253 and the fired count's
@@ -910,12 +904,6 @@ static __device__ __forceinline__ float spread_term_at(const ScanShared& sh,
     return sh.spv[s] ? contrib : 0.0f;
 }
 
-// spread_term_at with the bounds in sh.mn, sh.mx, sh.any.
-static __device__ __forceinline__ float spread_term(const ScanShared& sh,
-                                                    int s, int code) {
-    return spread_term_at(sh, s, code, sh.mn[s], sh.mx[s], sh.any[s]);
-}
-
 // Whether distinct_property p admits one more placement on a row of code
 // `code` (select.py:211-217); true for a constraint that is not valid.
 static __device__ __forceinline__ bool dp_admits(const ScanShared& sh, int p,
@@ -933,31 +921,6 @@ __device__ __forceinline__ float scan_score(float part, float st, float dev,
                                             float pre, float fired_base) {
     return (((part + st) + dev) + pre)
            / (fired_base + (st != 0.0f ? 1.0f : 0.0f));
-}
-
-// One node's feasibility and score components (select.py:202-304).
-static __device__ ScanEval scan_eval(const ScanArgs& a,
-                                     const ScanShared& sh,
-                                     const float* s_ask, int x) {
-    const ScanLocal l = scan_local(a, s_ask, x);
-    ScanEval e;
-    bool feas = l.feas;
-    for (int p = 0; p < a.p_live; ++p)
-        feas = feas && dp_admits(sh, p, a.dp_codes[p * a.n + x]);
-    float st = 0.0f;
-    for (int s = 0; s < a.s_live; ++s)
-        st = st + spread_term(sh, s, a.sp_codes[s * a.n + x]);
-    e.binpack = l.binpack;
-    e.anti = l.anti;
-    e.pen = l.pen;
-    e.aff = l.aff;
-    e.dev = l.dev;
-    e.spread = st;
-    e.final_ = scan_score(l.part, st, l.dev, l.pre, l.fired_base);
-    e.feas = feas;
-    e.fit = l.fit;
-    e.fit_bits = l.fit_bits;
-    return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -1006,13 +969,14 @@ __device__ __forceinline__ uint2* slot_codes(const ScanRecs& r, int i) {
     return i < r.ns ? r.scodes + i : r.lcodes + i;
 }
 
-// The step's per-code tables: sp[s][code] is spread_term(s, code) for s <
-// s_live and +0.0f past it; dp[p][code] is dp_admits(p, code) for p <
+// The step's per-code tables: sp[s][code] is spread_term_at(s, code) for
+// s < s_live and +0.0f past it; dp[p][code] is dp_admits(p, code) for p <
 // p_live and 1 past it (scan_tables_init). A row's spread total adds all
 // S_MAX terms from +0.0f: a sum that starts at +0.0f is never -0.0f (in
 // round-to-nearest x + y is -0.0f only where both are), so adding +0.0f
-// past s_live leaves its bits as scan_eval's; and admitting past p_live
-// changes nothing. So a row's terms take no branch on s_live or p_live.
+// past s_live leaves its bits as the reference's sum over the live
+// stanzas (select.py:256-296); and admitting past p_live changes nothing.
+// So a row's terms take no branch on s_live or p_live.
 struct ScanTables {
     float sp[S_MAX][C_AXIS];
     uint8_t dp[P_MAX][C_AXIS];
@@ -1030,6 +994,68 @@ __device__ __forceinline__ void scan_tables_init(ScanTables& t) {
         (&t.sp[0][0])[e] = 0.0f;
     for (int e = threadIdx.x; e < P_MAX * C_AXIS; e += NT)
         (&t.dp[0][0])[e] = 1;
+}
+
+// A scan body's start: the request's histograms, stanzas and constraints
+// into the block's shared memory (every block of a sharded lane keeps its
+// own copy, identical in all of them), the ask, and the tables' entries
+// past s_live and p_live. The caller synchronises before they are read.
+static __device__ __forceinline__ void scan_state_init(const ScanArgs& a,
+                                                       ScanShared& sh,
+                                                       ScanTables& tab,
+                                                       float* s_ask) {
+    const int tid = threadIdx.x;
+    for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
+        sh.cnt[e] = a.sp_counts0[e];
+        sh.pres[e] = a.sp_present0[e];
+        sh.des[e] = a.sp_desired[e];
+    }
+    for (int e = tid; e < P_MAX * C_AXIS; e += NT) sh.dp[e] = a.dp_counts0[e];
+    if (tid < S_MAX) {
+        sh.w[tid] = a.sp_weight[tid] / fmaxf(a.sum_spread_w, 1e-9f);
+        sh.hast[tid] = a.sp_has_targets[tid];
+        sh.spv[tid] = a.sp_valid[tid];
+    }
+    if (tid < P_MAX) {
+        sh.dpl[tid] = a.dp_limit[tid];
+        sh.dpv[tid] = a.dp_valid[tid];
+    }
+    if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
+    scan_tables_init(tab);
+}
+
+// A scan body's end, block-wide, after a barrier that orders the outputs
+// of step `stop` (the first invalid step, or k_steps): every later step
+// repeats that one, so its outputs are copied into the rows after it; and
+// the histograms out.
+static __device__ __forceinline__ void scan_finish(const ScanArgs& a,
+                                                   const ScanOut& o,
+                                                   const ScanShared& sh,
+                                                   int stop) {
+    const int tid = threadIdx.x;
+    for (int s = stop + 1 + tid; s < a.k_steps; s += NT) {
+        o.choice[s] = -1;
+        o.final_[s] = 0.0f;
+        o.binpack[s] = 0.0f;
+        o.anti[s] = 0.0f;
+        o.pen[s] = 0.0f;
+        o.aff[s] = 0.0f;
+        o.spread[s] = 0.0f;
+        o.dev[s] = 0.0f;
+        o.pre[s] = 0.0f;
+        for (int k = 0; k < TOP_K; ++k) {
+            o.ti[s * TOP_K + k] = o.ti[stop * TOP_K + k];
+            o.ts[s * TOP_K + k] = o.ts[stop * TOP_K + k];
+        }
+        for (int dd = 0; dd < a.d; ++dd)
+            o.exh[s * a.d + dd] = o.exh[stop * a.d + dd];
+        o.ok_count[s] = o.ok_count[stop];
+    }
+    for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
+        a.sp_counts[e] = sh.cnt[e];
+        a.sp_present[e] = sh.pres[e];
+    }
+    for (int e = tid; e < P_MAX * C_AXIS; e += NT) a.dp_counts[e] = sh.dp[e];
 }
 
 // A record from a row's node-local terms.
@@ -1069,8 +1095,8 @@ __device__ __forceinline__ unsigned scan_dp_ok(const ScanTables& t,
            & t.dp[2][(dp >> 16) & 255u] & t.dp[3][dp >> 24];
 }
 
-// A row's spread total from its spread codes: scan_eval's sum over the
-// stanzas, in stanza order, from +0.0f.
+// A row's spread total from its spread codes: the reference's sum over
+// the stanzas, in stanza order, from +0.0f (select.py:256-296).
 __device__ __forceinline__ float scan_spread(const ScanTables& t,
                                              unsigned sp) {
     float st = 0.0f;
@@ -1082,10 +1108,10 @@ __device__ __forceinline__ float scan_spread(const ScanTables& t,
 }
 
 // A row's masked score from its record and codes and the step's tables
-// (its score where it is feasible and fits, NEG_INF elsewhere): scan_eval's
-// float operations in its order, with no pow and no branch. feas is the
-// row's whole feasibility (node-local and distinct_property), st its
-// spread total.
+// (its score where it is feasible and fits, NEG_INF elsewhere): the
+// reference's float operations in its order (select.py:298-305), with no
+// pow and no branch. feas is the row's whole feasibility (node-local and
+// distinct_property), st its spread total.
 __device__ __forceinline__ float scan_compose(const float4& rec,
                                               const uint2& cd,
                                               const ScanTables& t,
@@ -1272,26 +1298,26 @@ __device__ __forceinline__ void sweep_count(ScanCounts& w, unsigned flags,
     if (feas && (flags & REC_FIT)) w.okc += 1;
 }
 
-// Step 0's sweep over every row, thread t taking rows t + m * NT, in two
-// passes. The first finds the live rows (feasible, fitting and admitted
-// by every distinct_property limit: those whose score is not NEG_INF) and
-// gives them slots in row order, a round of NT rows at a time (a ballot a
-// warp and the warps' counts in s_cnt, double-buffered, one barrier a
-// round); masked[x] holds row x's slot (or -1) until the second pass,
-// which writes every row's record (rec, codes; the two pow only for live
-// rows), its masked score and its counts, and the live rows' slot records,
-// with no barrier. The argmax is over slots. Returns the live rows' count
-// in *nlive, in every thread.
+// Step 0's sweep over the rows [lo, hi) (every row, or a shard's), thread
+// t taking rows lo + t + m * NT, in two passes. The first finds the live
+// rows (feasible, fitting and admitted by every distinct_property limit:
+// those whose score is not NEG_INF) and gives them slots in row order, a
+// round of NT rows at a time (a ballot a warp and the warps' counts in
+// s_cnt, double-buffered, one barrier a round); masked[x] holds row x's
+// slot (or -1) until the second pass, which writes every row's record
+// (rec, codes; the two pow only for live rows), its masked score and its
+// counts, and the live rows' slot records, with no barrier. The argmax is
+// over slots. Returns the live rows' count in *nlive, in every thread.
 static __device__ __forceinline__ ScanBest scan_sweep_build(
         const ScanArgs& a, const float* s_ask, const ScanRecs& r,
         const ScanTables& t, int (*s_cnt)[NWARPS], int* nlive,
-        ScanCounts& cs) {
+        ScanCounts& cs, int lo, int hi) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     int live = 0;
-    for (int x0 = 0, round = 0; x0 < a.n; x0 += NT, ++round) {
+    for (int x0 = lo, round = 0; x0 < hi; x0 += NT, ++round) {
         const int x = x0 + threadIdx.x;
         bool ok = false;
-        if (x < a.n) {
+        if (x < hi) {
             const ScanLocal l = scan_local_terms(a, s_ask, x);
             ok = l.feas && l.fit && scan_dp_ok(t, scan_codes(a, x).y);
         }
@@ -1301,14 +1327,14 @@ static __device__ __forceinline__ ScanBest scan_sweep_build(
         __syncthreads();
         const int i = live + warps_before(cnt)
                       + __popc(bal & ((1u << lane) - 1u));
-        if (x < a.n) a.masked[x] = __int_as_float(ok ? i : -1);
+        if (x < hi) a.masked[x] = __int_as_float(ok ? i : -1);
         live += warp_sum(cnt[lane]);
     }
     *nlive = live;
 
     ScanBest w = no_best();
     cs = no_counts();
-    for (int x = threadIdx.x; x < a.n; x += NT) {
+    for (int x = lo + threadIdx.x; x < hi; x += NT) {
         const int i = __float_as_int(a.masked[x]);
         const uint2 cd = scan_codes(a, x);
         const ScanLocal l = scan_local(a, s_ask, x, true, i >= 0);
@@ -1373,6 +1399,9 @@ __device__ __forceinline__ void sweep_slot(ScanBest& w, const float4& rec,
 // device memory, through L2, took 18-60% longer a launch at the main
 // shapes on an H100.)
 #define SWEEPERS (NT - 32)
+// the warp that runs a winner's update and rescoring: one that builds no
+// table and sweeps no slot
+#define WINNER_WARP (NWARPS - 1)
 template <int SL, int PL>
 static __device__ __forceinline__ ScanBest scan_sweep_live(
         const ScanRecs& r, const ScanTables& t, int nlive, int skip) {
@@ -1414,12 +1443,14 @@ static __device__ __forceinline__ ScanBest scan_sweep_live_for(
     }
 }
 
-// The first invalid step's sweep over every row's record: its masked
-// scores and counts (no argmax: the step places nothing).
+// The first invalid step's sweep over the records of the rows [lo, hi)
+// (every row, or a shard's), thread t taking rows lo + t + m * NT: their
+// masked scores and counts (no argmax: the step places nothing).
 static __device__ __forceinline__ ScanCounts scan_sweep_meta(
-        const ScanArgs& a, const ScanRecs& r, const ScanTables& t) {
+        const ScanArgs& a, const ScanRecs& r, const ScanTables& t, int lo,
+        int hi) {
     ScanCounts cs = no_counts();
-    for (int x = threadIdx.x; x < a.n; x += NT) {
+    for (int x = lo + threadIdx.x; x < hi; x += NT) {
         const float4 rec = __ldcg(r.rec + x);
         const uint2 cd = __ldcg(r.codes + x);
         bool feas;
@@ -1495,6 +1526,52 @@ static __device__ __forceinline__ float4 scan_winner(const ScanArgs& a,
         r.lcomp[i] = make_float4(l.binpack, l.anti, l.pen, l.aff);
     }
     return sr;
+}
+
+// Host side of the scan kernels' records (select_kernels.cu, and the
+// sharded scan in sharded_kernels.cu).
+// The live slots whose records and codes `smem` bytes of shared memory hold.
+static inline int scan_slots(int smem) {
+    return smem / (int)(sizeof(float4) + sizeof(uint2));
+}
+
+// The records of `lanes` lanes in one scratch buffer of 17 floats a row a
+// lane (kernels.py, _scan_records): the 16-byte arrays first, n a lane
+// each, then the 8-byte ones, then lrow; and the slots that the dynamic
+// shared memory of `smem` bytes holds.
+static inline ScanRecs scan_recs(void* buf, int lanes, int n, int smem) {
+    ScanRecs r;
+    const size_t m = (size_t)lanes * n;
+    r.rec = (float4*)buf;
+    r.lrec = r.rec + m;
+    r.lcomp = r.lrec + m;
+    r.codes = (uint2*)(r.lcomp + m);
+    r.lcodes = r.codes + m;
+    r.lrow = (int*)(r.lcodes + m);
+    r.srec = nullptr;
+    r.scodes = nullptr;
+    r.ns = scan_slots(smem);
+    return r;
+}
+
+// The dynamic shared memory a scan kernel launches with: all that a block
+// may have beside its static shared memory (set once a kernel; the same
+// value for every caller).
+static inline int scan_smem(const void* kernel) {
+    cudaFuncAttributes fa;
+    int dev = 0, optin = 0;
+    if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess
+            || cudaGetDevice(&dev) != cudaSuccess
+            || cudaDeviceGetAttribute(
+                   &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
+                   != cudaSuccess)
+        return -1;
+    const int bytes = optin - (int)fa.sharedSizeBytes;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess)
+        return -1;
+    return bytes;
 }
 
 // ---------------------------------------------------------------------------

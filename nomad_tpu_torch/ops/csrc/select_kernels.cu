@@ -311,7 +311,7 @@ __global__ void __launch_bounds__(NT) kway_batched_kernel(
 // limits, spread stanzas (select.py:180-374). The S spread histograms and
 // the P distinct-property counts live in shared memory.
 //
-// Design (redesigned after the first version's full scan_eval of every row,
+// Design (redesigned after the first version's full evaluation of every row,
 // two double-precision pow each, at every step):
 //   * a step changes the node-local state of one row, its winner's, so each
 //     row's node-local terms are cached in a record (ScanRecs,
@@ -327,7 +327,7 @@ __global__ void __launch_bounds__(NT) kway_batched_kernel(
 //     its codes, so they are per-code tables in shared memory (scan_tables:
 //     a placement changes one code's entries a stanza, or the whole column
 //     where the stanza's bounds move), and a row's score is composed from
-//     its record and the tables with scan_eval's float operations in its
+//     its record and the tables with the reference's float operations in its
 //     order (scan_compose): the sweep has no pow and no branch, and takes
 //     as many table lookups as the request has stanzas and constraints;
 //   * the last winner's outputs, update and rescoring (its two powers on
@@ -345,10 +345,6 @@ __global__ void __launch_bounds__(NT) kway_batched_kernel(
 // first version's.
 // ---------------------------------------------------------------------------
 
-// the warp that runs a winner's update and rescoring: one that builds no
-// table and sweeps no slot (scan_sweep_live's SWEEPERS are the others)
-#define WINNER_WARP (NWARPS - 1)
-
 __device__ __forceinline__ void scan_body(const ScanArgs& a,
                                           const ScanOut& o,
                                           ScanRecs r) {
@@ -363,23 +359,7 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a,
     __shared__ float s_ask[D_MAX];
     __shared__ int s_cnt[2][NWARPS];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
-        sh.cnt[e] = a.sp_counts0[e];
-        sh.pres[e] = a.sp_present0[e];
-        sh.des[e] = a.sp_desired[e];
-    }
-    for (int e = tid; e < P_MAX * C_AXIS; e += NT) sh.dp[e] = a.dp_counts0[e];
-    if (tid < S_MAX) {
-        sh.w[tid] = a.sp_weight[tid] / fmaxf(a.sum_spread_w, 1e-9f);
-        sh.hast[tid] = a.sp_has_targets[tid];
-        sh.spv[tid] = a.sp_valid[tid];
-    }
-    if (tid < P_MAX) {
-        sh.dpl[tid] = a.dp_limit[tid];
-        sh.dpv[tid] = a.dp_valid[tid];
-    }
-    if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
-    scan_tables_init(tab);
+    scan_state_init(a, sh, tab, s_ask);
     __syncthreads();
 
     int nlive = 0;
@@ -424,9 +404,10 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a,
             __syncthreads();
             if (last) break;
             if (step == 0) {
-                sw = scan_sweep_build(a, s_ask, r, tab, s_cnt, &nlive, cs);
+                sw = scan_sweep_build(a, s_ask, r, tab, s_cnt, &nlive, cs,
+                                      0, a.n);
             } else {
-                cs = scan_sweep_meta(a, r, tab);
+                cs = scan_sweep_meta(a, r, tab, 0, a.n);
                 sw = no_best();
             }
         }
@@ -438,7 +419,7 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a,
         if (!valid && !meta) {
             // no feasible row is left: this step's counts and top-5, from
             // every row's record
-            cs = scan_sweep_meta(a, r, tab);
+            cs = scan_sweep_meta(a, r, tab, 0, a.n);
             meta = true;
         }
 
@@ -484,75 +465,7 @@ __device__ __forceinline__ void scan_body(const ScanArgs& a,
     // the invalid step's outputs before the copies read them
     __syncthreads();
     const int stop = step;   // the first invalid step, or k_steps
-
-    // every step after the first invalid one repeats it
-    for (int s = stop + 1 + tid; s < a.k_steps; s += NT) {
-        o.choice[s] = -1;
-        o.final_[s] = 0.0f;
-        o.binpack[s] = 0.0f;
-        o.anti[s] = 0.0f;
-        o.pen[s] = 0.0f;
-        o.aff[s] = 0.0f;
-        o.spread[s] = 0.0f;
-        o.dev[s] = 0.0f;
-        o.pre[s] = 0.0f;
-        for (int k = 0; k < TOP_K; ++k) {
-            o.ti[s * TOP_K + k] = o.ti[stop * TOP_K + k];
-            o.ts[s * TOP_K + k] = o.ts[stop * TOP_K + k];
-        }
-        for (int dd = 0; dd < a.d; ++dd)
-            o.exh[s * a.d + dd] = o.exh[stop * a.d + dd];
-        o.ok_count[s] = o.ok_count[stop];
-    }
-    for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
-        a.sp_counts[e] = sh.cnt[e];
-        a.sp_present[e] = sh.pres[e];
-    }
-    for (int e = tid; e < P_MAX * C_AXIS; e += NT) a.dp_counts[e] = sh.dp[e];
-}
-
-// The live slots whose records and codes `smem` bytes of shared memory hold.
-static int scan_slots(int smem) {
-    return smem / (int)(sizeof(float4) + sizeof(uint2));
-}
-
-// The records of `lanes` lanes in one scratch buffer of 17 floats a row a
-// lane (kernels.py, _scan_records): the 16-byte arrays first, n a lane
-// each, then the 8-byte ones, then lrow; and the slots that the dynamic
-// shared memory of `smem` bytes holds.
-static ScanRecs scan_recs(void* buf, int lanes, int n, int smem) {
-    ScanRecs r;
-    const size_t m = (size_t)lanes * n;
-    r.rec = (float4*)buf;
-    r.lrec = r.rec + m;
-    r.lcomp = r.lrec + m;
-    r.codes = (uint2*)(r.lcomp + m);
-    r.lcodes = r.codes + m;
-    r.lrow = (int*)(r.lcodes + m);
-    r.srec = nullptr;
-    r.scodes = nullptr;
-    r.ns = scan_slots(smem);
-    return r;
-}
-
-// The dynamic shared memory a scan kernel launches with: all that a block
-// may have beside its static shared memory (set once a kernel; the same
-// value for every caller).
-static int scan_smem(const void* kernel) {
-    cudaFuncAttributes fa;
-    int dev = 0, optin = 0;
-    if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess
-            || cudaGetDevice(&dev) != cudaSuccess
-            || cudaDeviceGetAttribute(
-                   &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
-                   != cudaSuccess)
-        return -1;
-    const int bytes = optin - (int)fa.sharedSizeBytes;
-    if (cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes) != cudaSuccess)
-        return -1;
-    return bytes;
+    scan_finish(a, o, sh, stop);
 }
 
 __global__ void __launch_bounds__(NT) scan_kernel(ScanArgs a, ScanOut o,

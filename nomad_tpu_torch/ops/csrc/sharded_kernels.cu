@@ -4,10 +4,10 @@
 // replicates the lane axis of a batch, and inserts the cross-shard
 // collectives (nomad_tpu/parallel/sharded.py):
 //
-//   scan_batched_sharded_kernel    <- _select_scan over the mesh (one lane:
-//                                     parallel/sharded.py:73-98 on
-//                                     select.py:180) and _scan_batched_jit
-//                                     over it (select.py:2257 on :395)
+//   scan_batched_cluster_kernel    <- _select_scan over the mesh (one lane:
+//     (S <= 16)                       parallel/sharded.py:73-98 on
+//   scan_batched_sharded_kernel       select.py:180) and _scan_batched_jit
+//     (S > 16)                        over it (select.py:2257 on :395)
 //   kway_batched_sharded_kernel    <- _select_kway over the mesh (one lane:
 //                                     select.py:1870-1892, sharded.py:198
 //                                     on select.py:612) and
@@ -20,12 +20,15 @@
 // (requests over one shared capacity table) split into S shards each: block
 // lane * S + shard owns that lane's table rows [s*per, (s+1)*per) of the
 // table padded by pad_for_mesh (parallel/sharded_table.py; padded rows are
-// infeasible) and sweeps them on its own SM. The launch is cooperative
-// (cudaLaunchCooperativeKernel), so all B * S blocks are resident at once
-// and the step loop stays on the device: XLA's collectives become exchanges
-// through global memory between grid-wide syncs
-// (cooperative_groups::this_grid().sync()), each lane through its own slice
-// of the exchange buffers. Every block of a lane reduces that lane's S
+// infeasible) and sweeps them on its own SM. The step loop stays on the
+// device, and XLA's collectives become exchanges between the blocks of a
+// lane: for the chunked and K-way kernels, and the scan past 16 shards, the
+// launch is cooperative (cudaLaunchCooperativeKernel), so all B * S blocks
+// are resident at once, and the exchanges go through global memory between
+// grid-wide syncs (cooperative_groups::this_grid().sync()), each lane
+// through its own slice of the exchange buffers; the scan up to 16 shards
+// runs a lane as one thread-block cluster instead (see its section). Every
+// block of a lane reduces that lane's S
 // candidates itself, in the same order, so the lane's replicated state (the
 // winner, the spread and distinct_property histograms, `remaining`) is
 // identical in all its blocks without a broadcast. Lanes share only the
@@ -36,15 +39,8 @@
 // step; is any lane still placing) is taken from values every block reads
 // alike after a sync; a finished lane's blocks keep syncing and do no work.
 //
-// scan, each step (k_steps for every lane): every block sweeps its rows and
-// writes its local best (score, global row) to a buffer chosen by step
-// parity; one grid sync; every block of the lane takes the best of the S
-// candidates. On step 0 and on invalid steps each block also writes its
-// local top-5 and its counts (by parity), and the lane's block 0 merges
-// them after the NEXT step's sync (or the final one), so a step costs one
-// sync. The winner's owner recomputes its score components from the state
-// before the update (as scan_body does) and applies the per-node carry
-// updates; every block of the lane applies the same histogram updates.
+// scan: see its section below (scan_body's design shard by shard, one
+// exchange a step, a stop at the first invalid step).
 //
 // chunked, each step: every block of a running lane writes its shard's best
 // two (score, global row) (best five on step 0, with its counts); one grid
@@ -91,10 +87,10 @@
 // equal the single-card kernel's on the same padded lane, bit for bit.
 //
 // What bounds it on an H100: latency, as for the solo kernels, not bytes or
-// operations. A shard sweeps 1/S of the table, but every step adds a grid
-// sync (two a K-way phase) and block-wide reductions over the S candidates
-// (the K-way's over S * min(w + 1, per) of them: at S 132 the whole
-// table).
+// operations. A shard sweeps 1/S of the table, but every step adds an
+// exchange (a grid sync, two a K-way phase; the scan's cluster barrier
+// costs less) and block-wide reductions over the S candidates (the
+// K-way's over S * min(w + 1, per) of them: at S 132 the whole table).
 // One 1024-thread block per shard keeps the shared device functions as they
 // are; at large S most of a block's threads idle. B * S may not exceed the
 // blocks the card holds at once (nomad_sharded_max_blocks): a cooperative
@@ -240,179 +236,609 @@ static __device__ bool any_lane(const int* flag, int lanes, int off) {
 
 // ---------------------------------------------------------------------------
 // scan over S shards a lane (_select_scan_fn, select.py:180-374, node axis
-// split; batched as _scan_batched_jit, select.py:395). With l.k_valid null
-// the launch is one lane whose scalars are a's own.
+// split; batched as _scan_batched_jit, select.py:395): scan_body's design
+// (select_kernels.cu), shard by shard. Block s of a lane owns the rows
+// [s * per, (s + 1) * per) and keeps, like scan_body over the whole table,
+// their records (rec and codes by row, in the lane's scratch), its live
+// rows' slots (in dynamic shared memory sized to the shard, device memory
+// past it: slot i of shard s at scratch index s * per + i), and its own
+// copy of the lane's histograms and per-code tables (the replicated state:
+// every block of the lane counts every placement from the winner's codes,
+// so the copies stay identical). The lane runs in rounds, one exchange a
+// round:
+//   * step 0: each block writes its rows' records and lists its live rows
+//     (scan_sweep_build over [lo, hi)); a later step sweeps only its live
+//     slots, beside the last winner's update and rescoring on the owner
+//     block's WINNER_WARP and the tables on warps 0-15 (shard_step, the
+//     overlapped step of scan_body);
+//   * each block's best (score, position s * per + slot: positions order as
+//     rows do) with the slot's codes is published by WINNER_WARP, which
+//     takes it from the warps' bests; at a report step (step 0, or a step
+//     at or past k_valid) each block also writes its counts and top-5 over
+//     its rows; one exchange; every block takes the lane's winner from the
+//     S candidates under (score desc, position asc), so the decision to go
+//     on is the same in every block of the lane;
+//   * the owner block alone (the winner's position lies in its shard)
+//     writes the step's final and spread, and its update and rescoring at
+//     the next round; the lane's block 0 merges a report step's S top-5
+//     lists and sums its counts (in shard order: exact);
+//   * the first invalid step ends the lane: where it was found in a later
+//     step's sweep, one more round sweeps every shard's records for its
+//     top-5 and counts (scan_sweep_meta over [lo, hi)); block 0 then copies
+//     that step into the rest of the k_steps rows (scan_finish).
+// Two kernels run this body, the route fixed by S alone:
+//   scan_batched_cluster_kernel  S <= SCAN_CLUSTER_MAX: a lane is one
+//       thread-block cluster (cudaLaunchKernelEx with the cluster dimension
+//       S; past 8 blocks the non-portable size). Each block stores its
+//       candidate into every block's shared memory with st.async, counted
+//       on that block's transaction barrier (ClusterXchg). Clusters need
+//       no co-residency beyond their own, so every lane is in one launch
+//       and stops on its own. A block leaves only after a last
+//       cluster.sync(), so no block exits while another may still read its
+//       shared memory.
+//   scan_batched_sharded_kernel  S > SCAN_CLUSTER_MAX: the cooperative
+//       launch over lanes * S blocks, the entries in global memory, one
+//       grid.sync() a round (GridXchg); a lane that has stopped keeps
+//       syncing (each round every lane's block 0 publishes whether it still
+//       runs, and the loop ends once none does), so every block syncs
+//       equally often.
+// What bounds a step on an H100 (PERF.md §6): not bytes or
+// operations but latency: the per-code tables (≈ 2K cycles, as in
+// scan_body), the shard's best, the exchange, and ≈ 3-5K cycles after it
+// before the next step starts, which the sections profiled so far do not
+// explain (scripts/profile_scan.py --sharded).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) scan_batched_sharded_kernel(
-        ScanArgs a0, ScanOut o0, ScanLanes l, ShardXchg x0) {
-    cg::grid_group grid = cg::this_grid();
-    __shared__ Red red;
-    __shared__ ScanShared sh;
-    __shared__ float s_ask[D_MAX];
-    const int tid = threadIdx.x, S = x0.shards;
-    const int b = blockIdx.x / S, s = blockIdx.x - b * S;
-    const ScanArgs a = l.k_valid ? scan_lane(a0, l, b) : a0;
-    const ScanOut o = scan_out_lane(o0, b, a0);
-    const ShardXchg xg = xchg_lane(x0, b);
-    const int lo = s * xg.per, hi = lo + xg.per;
-    for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
-        sh.cnt[e] = a.sp_counts0[e];
-        sh.pres[e] = a.sp_present0[e];
-        sh.des[e] = a.sp_desired[e];
-    }
-    for (int e = tid; e < P_MAX * C_AXIS; e += NT) sh.dp[e] = a.dp_counts0[e];
-    if (tid < S_MAX) {
-        sh.w[tid] = a.sp_weight[tid] / fmaxf(a.sum_spread_w, 1e-9f);
-        sh.hast[tid] = a.sp_has_targets[tid];
-        sh.spv[tid] = a.sp_valid[tid];
-    }
-    if (tid < P_MAX) {
-        sh.dpl[tid] = a.dp_limit[tid];
-        sh.dpv[tid] = a.dp_valid[tid];
-    }
-    if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
-    __syncthreads();
+#define SCAN_CLUSTER_MAX 16
 
-    int pending = -1;   // a diagnostic step waiting for the next grid sync
-    for (int step = 0; step < a.k_steps; ++step) {
-        const int par = step & 1;
-        // even-spread bounds over the present codes (select.py:270-275),
-        // from this block's copy of the histograms: identical in the lane
-        if (tid < a.s_live) {
-            float mn = 1e30f, mx = -1e30f;
-            int any = 0;
-            for (int c = 0; c < C_AXIS; ++c) {
-                const bool p = sh.pres[tid * C_AXIS + c] != 0;
-                const float v = sh.cnt[tid * C_AXIS + c];
-                mn = fminf(mn, p ? v : 1e30f);
-                mx = fmaxf(mx, p ? v : -1e30f);
-                any |= p ? 1 : 0;
-            }
-            sh.mn[tid] = mn;
-            sh.mx[tid] = mx;
-            sh.any[tid] = any;
+// The sharded scan's route, fixed by the shard count alone; the wrappers
+// read it through nomad_scan_sharded_info.
+static inline bool scan_on_cluster(int shards) {
+    return shards <= SCAN_CLUSTER_MAX;
+}
+
+// A shard's candidate for a step: its best live slot's masked score, its
+// position, and the slot's spread and distinct_property codes (a byte
+// each), which every block needs to count the winner's placement.
+struct __align__(16) ScanCand {
+    float v;
+    int pos;
+    unsigned sp, dp;
+};
+
+// A report step's counts (first-failing dimensions, then the feasible
+// count) and top-5 (global rows) over a shard's rows.
+struct ScanMeta {
+    int cnt[CNT_W];
+    float tv[TOP_K];
+    int ti[TOP_K];
+};
+
+// What a block exchanges in a round.
+struct __align__(16) ScanEntry {
+    ScanCand c;
+    ScanMeta m;
+};
+static_assert(sizeof(ScanEntry) == 96,
+              "kernels.py (_scan_xchg) allocates 96 bytes an entry");
+
+__device__ __forceinline__ ScanCand no_cand() {
+    ScanCand c;
+    c.v = -INFINITY;
+    c.pos = INT_MAX;
+    c.sp = c.dp = 0u;
+    return c;
+}
+
+// The best (v, i) of a warp's, one a lane, under (v desc, i asc), in every
+// lane.
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+        if (better(ov, oi, v, i)) {
+            v = ov;
+            i = oi;
         }
-        __syncthreads();
+    }
+}
 
-        // the shard's sweep
+// The best of a warp's candidates (one a lane) under (score desc, position
+// asc), in every lane: positions are distinct, and the no_cand() entries
+// are alike, so every lane ends with the same one.
+__device__ __forceinline__ ScanCand warp_best_cand(ScanCand b) {
+    for (int off = 16; off > 0; off >>= 1) {
+        ScanCand o;
+        o.v = __shfl_xor_sync(0xffffffffu, b.v, off);
+        o.pos = __shfl_xor_sync(0xffffffffu, b.pos, off);
+        o.sp = __shfl_xor_sync(0xffffffffu, b.sp, off);
+        o.dp = __shfl_xor_sync(0xffffffffu, b.dp, off);
+        if (better(o.v, o.pos, b.v, b.pos)) b = o;
+    }
+    return b;
+}
+
+// Shared-memory addresses for the cluster path's asynchronous stores.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The same shared-memory location in block `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(out) : "r"(a), "r"(rank));
+    return out;
+}
+
+// The cluster path's exchange. Each round, the publishing warp stores the
+// block's candidate into slot s of cand[b] in every block of the cluster
+// with st.async, which counts its 16 bytes on that block's transaction
+// barrier mbar[b] (b: the exchange's parity), and arms its own mbar[b] to
+// expect S candidates; every thread of a block waits on its own mbar[b],
+// then reads the S candidates from its own shared memory. So a step pays
+// no cluster barrier, which compiles to a GPU-wide memory fence and an
+// invalidation of the SM's L1 (MEMBAR.ALL.GPU, CCTL.IVALL in the SASS): a
+// cluster.sync() a step took 4-6% longer a launch at S 2, 8 and 16 on an
+// H100 (scripts/profile_scan.py --compare --sharded). Two exchanges a
+// buffer apart cannot overlap: a block pushes into cand[b] again only
+// after it has every block's candidate of the exchange in between, which
+// each block sends after reading cand[b]. A report step's counts and
+// top-5 stay in
+// the reporting block's own entry (own, [2] by round parity), read by the
+// lane's block 0 through distributed shared memory after a cluster.sync()
+// (a report round, and a round without candidates, pay one).
+struct ClusterXchg {
+    ScanEntry* own;
+    ScanCand (*cand)[SCAN_CLUSTER_MAX];   // [2] by exchange parity
+    unsigned long long* mbar;             // [2] by exchange parity
+    int s, shards, per;
+    int ex;                               // exchanges so far
+    __device__ __forceinline__ ScanEntry* mine(int par) const {
+        return own + par;
+    }
+    __device__ __forceinline__ const ScanEntry* of(int j, int par) const {
+        return cg::this_cluster().map_shared_rank(own + par, j);
+    }
+    template <typename T>
+    __device__ __forceinline__ T load(const T* p) const { return *p; }
+    // the barriers initialised, and every block of the cluster started
+    // (its shared memory exists) before any block writes into it
+    __device__ __forceinline__ void start() {
+        if (threadIdx.x == 0) {
+            for (int b = 0; b < 2; ++b)
+                asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                             :: "r"(smem_addr(mbar + b)) : "memory");
+            asm volatile("fence.mbarrier_init.release.cluster;"
+                         ::: "memory");
+        }
+        cg::this_cluster().sync();
+    }
+    __device__ __forceinline__ void begin(int, bool) const {}
+    // one warp, every lane: the block's candidate c into every block, and
+    // its own barrier armed for the S candidates it receives
+    __device__ __forceinline__ void publish(int, const ScanCand& c) const {
+        const int lane = threadIdx.x & 31, b = ex & 1;
+        const unsigned bar = smem_addr(mbar + b);
+        if (lane == 0)
+            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], "
+                         "%1;" :: "r"(bar), "r"(shards * 16) : "memory");
+        if (lane < shards)
+            asm volatile("st.async.shared::cluster.mbarrier::complete_tx::"
+                         "bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+                         :: "r"(cluster_addr(smem_addr(&cand[b][s]), lane)),
+                            "r"(__float_as_uint(c.v)), "r"(c.pos),
+                            "r"(c.sp), "r"(c.dp),
+                            "r"(cluster_addr(bar, lane))
+                         : "memory");
+    }
+    // every thread: this exchange's S candidates have arrived
+    __device__ __forceinline__ void exchange(int) const {
+        const unsigned bar = smem_addr(mbar + (ex & 1));
+        const unsigned parity = (ex >> 1) & 1;
+        const long long t0 = clock64();
+        unsigned done = 0;
+        while (!done) {
+            asm volatile("{\n.reg .pred p;\n"
+                         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+                         "%2;\nselp.u32 %0, 1, 0, p;\n}"
+                         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+            // a block that never publishes (a fault) ends the launch with
+            // an error after ~2^34 cycles (seconds) instead of holding the
+            // card
+            if (!done && clock64() - t0 > (1ll << 34)) __trap();
+        }
+    }
+    // the reports written before it visible to the lane's block 0
+    __device__ __forceinline__ void reports() { cg::this_cluster().sync(); }
+    // a round without candidates
+    __device__ __forceinline__ void barrier(int) {
+        cg::this_cluster().sync();
+    }
+    // every thread, once an exchange: the lane's winner, each warp
+    // reducing the S candidates itself (no block barrier)
+    __device__ __forceinline__ ScanCand winner(int) {
+        const int lane = threadIdx.x & 31;
+        ScanCand c = no_cand();
+        if (lane < shards) c = cand[ex & 1][lane];
+        ++ex;
+        return warp_best_cand(c);
+    }
+    __device__ __forceinline__ bool more(bool running) const {
+        return running;
+    }
+    __device__ __forceinline__ void finish() { cg::this_cluster().sync(); }
+};
+
+// The grid path's exchange: every lane's entries in global memory, [2][S]
+// a lane by round parity, read through L2 (__ldcg) after the round's
+// grid.sync(); flags [lanes][2] say by round parity whether a lane still
+// runs. After the sync warp 0 takes the lane's winner into *win and every
+// block reads all lanes' flags (one block barrier for both).
+struct GridXchg {
+    ScanEntry* lane_x;   // this lane's entries
+    int* flags;
+    ScanCand* win;       // shared memory
+    int s, shards, per, lanes, b;
+    bool any;
+    __device__ __forceinline__ ScanEntry* mine(int par) const {
+        return lane_x + par * shards + s;
+    }
+    __device__ __forceinline__ const ScanEntry* of(int j, int par) const {
+        return lane_x + par * shards + j;
+    }
+    __device__ __forceinline__ float load(const float* p) const {
+        return __ldcg(p);
+    }
+    __device__ __forceinline__ int load(const int* p) const {
+        return __ldcg(p);
+    }
+    __device__ __forceinline__ void start() const {}
+    __device__ __forceinline__ void begin(int par, bool running) const {
+        if (s == 0 && threadIdx.x == 0) flags[b * 2 + par] = running ? 1 : 0;
+    }
+    // one warp, every lane: the block's candidate c into its entry
+    __device__ __forceinline__ void publish(int par, const ScanCand& c)
+            const {
+        if ((threadIdx.x & 31) == 0) mine(par)->c = c;
+    }
+    __device__ __forceinline__ void exchange(int par) { sync(par); }
+    __device__ __forceinline__ void reports() const {}
+    __device__ __forceinline__ void barrier(int par) { sync(par); }
+    __device__ __forceinline__ void sync(int par) {
+        cg::this_grid().sync();
+        const int tid = threadIdx.x;
+        if (tid < 32) {
+            ScanCand c = no_cand();
+            for (int j = tid; j < shards; j += 32) {
+                const int4 q =
+                    __ldcg(reinterpret_cast<const int4*>(of(j, par)));
+                const ScanCand e = {__int_as_float(q.x), q.y, (unsigned)q.z,
+                                    (unsigned)q.w};
+                if (better(e.v, e.pos, c.v, c.pos)) c = e;
+            }
+            c = warp_best_cand(c);
+            if (tid == 0) *win = c;
+        }
+        any = __syncthreads_or(tid < lanes
+                               && __ldcg(flags + tid * 2 + par) != 0);
+    }
+    __device__ __forceinline__ ScanCand winner(int) const { return *win; }
+    __device__ __forceinline__ bool more(bool) const { return any; }
+    __device__ __forceinline__ void finish() const {}
+};
+
+// Block-wide: a report step's counts and top-5 over the shard's rows [lo,
+// lo + per) of masked (per >= TOP_K: five real rows) into *m. The counts'
+// loop is unrolled, so that cs stays in registers (an index known only at
+// run time would put it in local memory).
+static __device__ __forceinline__ void shard_report(const ScanArgs& a,
+                                                    const ScanCounts& cs,
+                                                    int lo, int per,
+                                                    ScanMeta* m, Red& red) {
+#pragma unroll
+    for (int dd = 0; dd < D_MAX; ++dd) {
+        if (dd < a.d) {
+            const int tot = block_sum(cs.cnt[dd], red);
+            if (threadIdx.x == 0) m->cnt[dd] = tot;
+        }
+    }
+    const int okt = block_sum(cs.okc, red);
+    if (threadIdx.x == 0) m->cnt[D_MAX] = okt;
+    block_topk(a.masked + lo, per, TOP_K, m->tv, m->ti, red);
+    if (threadIdx.x == 0)
+        for (int k = 0; k < TOP_K; ++k) m->ti[k] += lo;
+}
+
+// Block-wide, in a lane's block 0: the S shards' reports of round parity
+// par into step `step`'s outputs. The top-5 of the S lists (each sorted,
+// of TOP_K distinct real rows) by TOP_K passes, each taking the best entry
+// strictly after the last under (score desc, row asc): top_k over every
+// row; the counts summed, in shard order.
+template <class X>
+static __device__ __forceinline__ void merge_report(const X& x, int par, const ScanArgs& a,
+                                    const ScanOut& o, int step, Red& red) {
+    const int t = threadIdx.x;
+    float v = -INFINITY;
+    int i = INT_MAX;
+    if (t < x.shards * TOP_K) {
+        const ScanMeta& m = x.of(t / TOP_K, par)->m;
+        v = x.load(m.tv + t % TOP_K);
+        i = x.load(m.ti + t % TOP_K);
+    }
+    float pv = INFINITY;
+    int pi = -1;
+    for (int j = 0; j < TOP_K; ++j) {
         float bv = -INFINITY;
         int bi = INT_MAX;
-        int cnt[D_MAX];
-        int okc = 0;
-#pragma unroll
-        for (int dd = 0; dd < D_MAX; ++dd) cnt[dd] = 0;
-        for (int x = lo + tid; x < hi; x += NT) {
-            ScanEval e = scan_eval(a, sh, s_ask, x);
-            bool earlier = true;
-#pragma unroll
-            for (int dd = 0; dd < D_MAX; ++dd) {
-                if (dd < a.d) {
-                    const bool f = (e.fit_bits >> dd) & 1u;
-                    if (e.feas && earlier && !f) cnt[dd] += 1;
-                    earlier = earlier && f;
+        if (better(pv, pi, v, i)) { bv = v; bi = i; }
+        block_best(bv, bi, red);
+        if (t == 0) {
+            o.ts[step * TOP_K + j] = bv;
+            o.ti[step * TOP_K + j] = bi;
+        }
+        pv = bv;
+        pi = bi;
+    }
+    if (t <= a.d) {
+        const int col = t < a.d ? t : D_MAX;
+        int tot = 0;
+        for (int j = 0; j < x.shards; ++j)
+            tot += x.load(x.of(j, par)->m.cnt + col);
+        if (t < a.d) o.exh[step * a.d + t] = tot;
+        else o.ok_count[step] = tot;
+    }
+}
+
+// One later step of a shard, scan_body's overlapped step: where this block
+// owns the last winner (slot won >= 0), its outputs, update and rescoring
+// on WINNER_WARP, which then composes its new score from the step's
+// tables; meanwhile the table warps count the placement (codes wc) in the
+// block's histograms and build the tables, and the sweepers sweep the
+// shard's other live slots. In another block WINNER_WARP only meets the
+// tables' hand-over. Returns the thread's best.
+static __device__ __forceinline__ ScanBest shard_step(
+        const ScanArgs& a, const ScanOut& o, const ScanRecs& r,
+        ScanShared& sh, ScanTables& tab, const float* s_ask, int won,
+        const uint2& wc, int nlive, int step) {
+    if ((threadIdx.x >> 5) == WINNER_WARP) {
+        float4 rec;
+        if (won >= 0) rec = scan_winner(a, o, r, s_ask, won, step - 1);
+        named_sync(BAR_TABLES, 32 * (TABLE_WARPS + 1));
+        ScanBest sw = no_best();
+        if (won >= 0 && (threadIdx.x & 31) == 0)
+            sweep_slot<S_MAX, P_MAX>(sw, rec, wc, tab, won);
+        return sw;
+    }
+    scan_tables(a, sh, tab, &wc, true);
+    if ((threadIdx.x >> 5) < TABLE_WARPS)
+        named_arrive(BAR_TABLES, 32 * (TABLE_WARPS + 1));
+    named_sync(BAR_SWEEP, SWEEPERS);
+    return scan_sweep_live_for(a, r, tab, nlive, won);
+}
+
+// a lane's state between rounds
+#define LANE_RUN 0    // placing, a step a round
+#define LANE_META 1   // its first invalid step was found in a live sweep:
+                      // this round reports that step's top-5 and counts
+#define LANE_DONE 2
+
+template <class X>
+__device__ __forceinline__ void scan_shard_body(const ScanArgs& a,
+                                                const ScanOut& o,
+                                                const ScanRecs& r, X& x) {
+    __shared__ Red red;
+    __shared__ ScanShared sh;
+    __shared__ ScanTables tab;
+    __shared__ float s_ask[D_MAX];
+    __shared__ int s_cnt[2][NWARPS];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int s = x.s, per = x.per, lo = s * per, hi = lo + per;
+    scan_state_init(a, sh, tab, s_ask);
+    __syncthreads();
+    x.start();
+
+    int nlive = 0, step = 0, state = LANE_RUN;
+    int won = -1;         // the last valid step's winner, its slot, where
+                          // this block owns it
+    bool placed = false;  // the last step placed: this one counts it
+    uint2 wc = make_uint2(0u, 0u);   // the last winner's codes
+    ScanBest sw = no_best();
+    for (int round = 0;; ++round) {
+        const int par = round & 1;
+        const bool running = state != LANE_DONE;
+        ScanEntry* me = x.mine(par);
+        bool report = false;   // this round reports the shard's top-5
+        bool last = false;     // and counts
+        x.begin(par, running);
+        if (state == LANE_RUN) {
+            last = step == a.k_steps;
+            ScanCounts cs;
+            if (placed && !last && step < a.k_valid) {
+                sw = shard_step(a, o, r, sh, tab, s_ask, won, wc, nlive,
+                                step);
+            } else {
+                // step 0, a step at or past k_valid, or the end: the last
+                // winner's update before the step's tables and sweep
+                if (won >= 0 && warp == WINNER_WARP)
+                    scan_winner(a, o, r, s_ask, won, step - 1);
+                scan_tables(a, sh, tab, placed ? &wc : nullptr, !last);
+                __syncthreads();
+                if (!last) {
+                    if (step == 0) {
+                        sw = scan_sweep_build(a, s_ask, r, tab, s_cnt,
+                                              &nlive, cs, lo, hi);
+                    } else {
+                        cs = scan_sweep_meta(a, r, tab, lo, hi);
+                        sw = no_best();
+                    }
+                    report = true;
                 }
             }
-            const bool ok = e.feas && e.fit;
-            if (ok) okc += 1;
-            const float m = ok ? e.final_ : NEG_INF;
-            a.masked[x] = m;
-            if (better(m, x, bv, bi)) { bv = m; bi = x; }
-        }
-        block_best(bv, bi, red);
-        if (tid == 0) {
-            xg.lv[at(xg, par, s, 1)] = bv;
-            xg.li[at(xg, par, s, 1)] = bi;
-        }
-        grid.sync();
-        if (s == 0 && pending >= 0)
-            merge_diag(xg, pending & 1, a.d, o.ts + pending * TOP_K,
-                       o.ti + pending * TOP_K, o.exh + pending * a.d,
-                       o.ok_count + pending, red);
-        pending = -1;
-
-        // cross-shard arg-max: every block reduces the lane's S bests
-        float gv = -INFINITY;
-        int gi = INT_MAX;
-        if (tid < S) {
-            gv = __ldcg(xg.lv + at(xg, par, tid, 1));
-            gi = __ldcg(xg.li + at(xg, par, tid, 1));
-        }
-        block_best(gv, gi, red);
-        const int c = gi;
-        const bool valid = gv > HALF_NEG_INF && step < a.k_valid;
-
-        if (step == 0 || !valid) {
-            // diagnostics: the shard's counts and top-5, merged by the
-            // lane's block 0 after the next grid sync
-            shard_counts(cnt, okc, a.d, xg.cnt + at(xg, par, s, CNT_W), red);
-            shard_topk(a.masked, lo, xg.per, TOP_K,
-                       xg.dv + at(xg, par, s, TOP_K),
-                       xg.di + at(xg, par, s, TOP_K), red);
-            pending = step;
-        } else if (s == 0 && tid == 0) {
-            for (int k = 0; k < TOP_K; ++k) {
-                o.ti[step * TOP_K + k] = -1;
-                o.ts[step * TOP_K + k] = NEG_INF;
+            if (!last) {
+                if (report) shard_report(a, cs, lo, per, &me->m, red);
+                // the shard's best: each warp's, then WINNER_WARP's over
+                // the warps, which publishes it (the block's other warps
+                // do not need it)
+                float bv = sw.bv;
+                int bi = sw.bi;
+                warp_best(bv, bi);
+                if (lane == 0) {
+                    red.v[warp] = bv;
+                    red.i[warp] = bi;
+                }
+                __syncthreads();
+                if (warp == WINNER_WARP) {
+                    bv = red.v[lane];
+                    bi = red.i[lane];
+                    warp_best(bv, bi);
+                    ScanCand c = no_cand();
+                    if (bi != INT_MAX) {
+                        const uint2 cd = *slot_codes(r, bi);
+                        c.v = bv;
+                        c.pos = lo + bi;
+                        c.sp = cd.x;
+                        c.dp = cd.y;
+                    }
+                    x.publish(par, c);
+                }
             }
-            for (int dd = 0; dd < a.d; ++dd) o.exh[step * a.d + dd] = -1;
-            o.ok_count[step] = -1;
+        } else if (state == LANE_META) {
+            // every shard's records with the invalid step's tables
+            const ScanCounts cs = scan_sweep_meta(a, r, tab, lo, hi);
+            shard_report(a, cs, lo, per, &me->m, red);
+            report = true;
+        }
+        if (state == LANE_RUN && !last) {
+            x.exchange(par);
+            if (report) x.reports();
+        } else {
+            x.barrier(par);
         }
 
-        if (tid == 0) {
-            if (c >= lo && c < hi) {
-                // the owner: the chosen node's components, recomputed from
-                // the same pre-update state with the same function, then
-                // the per-node carries (only this block touches row c)
-                const ScanEval e = scan_eval(a, sh, s_ask, c);
-                o.choice[step] = valid ? c : -1;
-                o.final_[step] = valid ? gv : 0.0f;
-                o.binpack[step] = valid ? e.binpack : 0.0f;
-                o.anti[step] = valid ? e.anti : 0.0f;
-                o.pen[step] = valid ? e.pen : 0.0f;
-                o.aff[step] = valid ? e.aff : 0.0f;
-                o.spread[step] = valid ? e.spread : 0.0f;
-                o.dev[step] = valid ? e.dev : 0.0f;
-                o.pre[step] = valid ? a.pre_score[c] : 0.0f;
-                if (valid) {
-                    for (int dd = 0; dd < a.d; ++dd)
-                        a.used[c * a.d + dd] = a.used[c * a.d + dd]
-                                               + s_ask[dd];
-                    a.tg_coll[c] += 1;
-                    a.job_cnt[c] += 1;
-                    a.scan_placed[c] += 1;
-                    a.free_p[c] = a.free_p[c] + (-1.0f * a.port_need);
-                    a.dev_slots[c] = a.dev_slots[c] + (-1.0f);
+        if (state == LANE_RUN && !last) {
+            const ScanCand g = x.winner(par);
+            const bool valid = g.v > HALF_NEG_INF && step < a.k_valid;
+            if (s == 0) {
+                if (report) {
+                    merge_report(x, par, a, o, step, red);
+                } else if (valid && warp == 1) {
+                    if (lane < TOP_K) {
+                        o.ti[step * TOP_K + lane] = -1;
+                        o.ts[step * TOP_K + lane] = NEG_INF;
+                    }
+                    if (lane < a.d) o.exh[step * a.d + lane] = -1;
+                    if (lane == 0) o.ok_count[step] = -1;
                 }
             }
             if (valid) {
-                // replicated: every block of the lane counts the placement
-                // in its own histograms, every stanza row, live or padding
-                for (int sp = 0; sp < S_MAX; ++sp) {
-                    const int code = a.sp_codes[sp * a.n + c];
-                    sh.cnt[sp * C_AXIS + code] += 1.0f;
-                    sh.pres[sp * C_AXIS + code] = 1;
+                won = g.pos >= lo && g.pos < hi ? g.pos - lo : -1;
+                // the winner's slot is its sweeper's own best
+                if (won >= 0 && sw.bi == won) {
+                    o.final_[step] = g.v;
+                    o.spread[step] = sw.bst;
                 }
-                for (int p = 0; p < P_MAX; ++p) {
-                    const int code = a.dp_codes[p * a.n + c];
-                    sh.dp[p * C_AXIS + code] += 1.0f;
-                }
+                wc = make_uint2(g.sp, g.dp);
+                placed = true;
+                ++step;
+            } else {
+                won = -1;
+                placed = false;
+                state = report ? LANE_DONE : LANE_META;
             }
+        } else if (state == LANE_RUN) {
+            state = LANE_DONE;   // every step placed
+        } else if (state == LANE_META) {
+            if (s == 0) merge_report(x, par, a, o, step, red);
+            state = LANE_DONE;
         }
-        __syncthreads();
-    }
-    grid.sync();
-    if (s == 0) {
-        if (pending >= 0)
-            merge_diag(xg, pending & 1, a.d, o.ts + pending * TOP_K,
-                       o.ti + pending * TOP_K, o.exh + pending * a.d,
-                       o.ok_count + pending, red);
-        for (int e = tid; e < S_MAX * C_AXIS; e += NT) {
-            a.sp_counts[e] = sh.cnt[e];
-            a.sp_present[e] = sh.pres[e];
+        if (state == LANE_DONE && step < a.k_steps && s == 0 && tid == 0
+                && running) {
+            // the first invalid step places nothing
+            o.choice[step] = -1;
+            o.final_[step] = 0.0f;
+            o.binpack[step] = 0.0f;
+            o.anti[step] = 0.0f;
+            o.pen[step] = 0.0f;
+            o.aff[step] = 0.0f;
+            o.spread[step] = 0.0f;
+            o.dev[step] = 0.0f;
+            o.pre[step] = 0.0f;
         }
-        for (int e = tid; e < P_MAX * C_AXIS; e += NT)
-            a.dp_counts[e] = sh.dp[e];
+        if (!x.more(state != LANE_DONE)) break;
     }
+    // no block leaves while another may read its entries (the cluster
+    // path), and the invalid step's outputs before the copies read them
+    x.finish();
+    __syncthreads();
+    if (s == 0) scan_finish(a, o, sh, step);
+}
+
+// A lane's shard s of per rows: its slots at scratch index s * per
+// onwards, the first of them in dynamic shared memory (scan_shard_smem).
+__device__ __forceinline__ ScanRecs scan_recs_shard(ScanRecs r, int s,
+                                                    int per) {
+    extern __shared__ float4 s_dyn[];
+    const int lo = s * per;
+    r.lrec += lo;
+    r.lcodes += lo;
+    r.lcomp += lo;
+    r.lrow += lo;
+    r.srec = s_dyn;
+    r.scodes = (uint2*)(s_dyn + r.ns);
+    return r;
+}
+
+// Lane b's arguments, outputs and shard s's records, written into shared
+// memory by one thread, then the shard body. Held by each thread, the
+// lane's pointers (about 50) do not fit beside the body's state in the 64
+// registers a thread of a 1024-thread block has: ptxas kept them on the
+// stack (224 bytes in the cluster kernel, 352 in the grid kernel, against
+// 112 and 128 from shared memory) and reloaded them (LDL) in the step
+// loop (scripts/profile_scan.py --sharded prints the SASS's reloads by
+// source line).
+template <class X>
+__device__ __forceinline__ void scan_shard_lane(const ScanArgs& a0,
+                                                const ScanOut& o0,
+                                                const ScanLanes& l,
+                                                const ScanRecs& r0, int b,
+                                                X& x) {
+    __shared__ ScanArgs s_a;
+    __shared__ ScanOut s_o;
+    __shared__ ScanRecs s_r;
+    if (threadIdx.x == 0) {
+        s_a = l.k_valid ? scan_lane(a0, l, b) : a0;
+        s_o = scan_out_lane(o0, b, a0);
+        s_r = scan_recs_shard(scan_recs_lane(r0, b, a0), x.s, x.per);
+    }
+    __syncthreads();
+    scan_shard_body(s_a, s_o, s_r, x);
+}
+
+// S <= SCAN_CLUSTER_MAX: a lane a cluster of S blocks. With l.k_valid null
+// the launch is one lane whose scalars are a's own. (A second copy of the
+// body for that case, reading the launch's arguments as passed, took 2-9%
+// longer in five of six cases at S 2-16 on an H100, 3% shorter in one:
+// scripts/profile_scan.py --compare --sharded.)
+__global__ void __launch_bounds__(NT) scan_batched_cluster_kernel(
+        ScanArgs a0, ScanOut o0, ScanLanes l, ScanRecs r0, int per) {
+    __shared__ ScanEntry s_x[2];
+    __shared__ ScanCand s_cand[2][SCAN_CLUSTER_MAX];
+    __shared__ unsigned long long s_mbar[2];
+    const cg::cluster_group cl = cg::this_cluster();
+    const int S = (int)cl.num_blocks(), s = (int)cl.block_rank();
+    ClusterXchg x = {s_x, s_cand, s_mbar, s, S, per, 0};
+    scan_shard_lane(a0, o0, l, r0, blockIdx.x / S, x);
+}
+
+// S > SCAN_CLUSTER_MAX: one cooperative launch of lanes * S blocks.
+__global__ void __launch_bounds__(NT) scan_batched_sharded_kernel(
+        ScanArgs a0, ScanOut o0, ScanLanes l, ScanRecs r0, ScanEntry* xe,
+        int* flags, int shards, int per, int lanes) {
+    __shared__ ScanCand s_win;
+    const int S = shards, b = blockIdx.x / S, s = blockIdx.x - b * S;
+    GridXchg x = {xe + (size_t)b * 2 * S, flags, &s_win, s, S, per, lanes,
+                  b, false};
+    scan_shard_lane(a0, o0, l, r0, b, x);
 }
 
 // ---------------------------------------------------------------------------
@@ -750,11 +1176,11 @@ __global__ void __launch_bounds__(NT) kway_batched_sharded_kernel(
 // take the scalars by value.
 // ---------------------------------------------------------------------------
 template <typename... A>
-static int launch_cooperative(void (*kernel)(A...), int blocks, void* stream,
-                              A... args) {
+static int launch_cooperative(void (*kernel)(A...), int blocks, int smem,
+                              void* stream, A... args) {
     void* ptrs[] = {(void*)&args...};
     cudaError_t e = cudaLaunchCooperativeKernel(
-        (const void*)kernel, dim3(blocks), dim3(NT), ptrs, 0,
+        (const void*)kernel, dim3(blocks), dim3(NT), ptrs, smem,
         (cudaStream_t)stream);
     if (e != cudaSuccess) {
         cudaGetLastError();
@@ -763,13 +1189,63 @@ static int launch_cooperative(void (*kernel)(A...), int blocks, void* stream,
     return (int)cudaGetLastError();
 }
 
-// The most blocks of one sharded kernel (0 scan, 1 K-way, 2 chunked) the
-// current card holds at once: its blocks per SM times its SMs; 0 when the
-// card has no cooperative launch.
+// The sharded scan kernels' dynamic shared memory: the most a block may
+// have (set once a kernel, with, for the cluster kernel, cluster sizes past
+// 8), or -1.
+static int scan_grid_smem() {
+    static const int bytes =
+        scan_smem((const void*)scan_batched_sharded_kernel);
+    return bytes;
+}
+
+static int scan_cluster_smem() {
+    static const int bytes = [] {
+        const void* fn = (const void*)scan_batched_cluster_kernel;
+        const int b = scan_smem(fn);
+        if (b < 0 || cudaFuncSetAttribute(
+                         fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                         1) != cudaSuccess)
+            return -1;
+        return b;
+    }();
+    return bytes;
+}
+
+// A sharded scan launch's dynamic shared memory: a shard's per live slots
+// at most, as far as `most` bytes hold them.
+static int scan_shard_smem(int most, int per) {
+    const int slots = scan_slots(most);
+    return (per < slots ? per : slots) * (int)(sizeof(float4) + sizeof(uint2));
+}
+
+// The cluster kernel's launch over `lanes` clusters of `shards` blocks.
+static cudaLaunchConfig_t cluster_config(int lanes, int shards, int smem,
+                                         void* stream,
+                                         cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t c = {};
+    c.gridDim = dim3(lanes * shards);
+    c.blockDim = dim3(NT);
+    c.dynamicSmemBytes = smem;
+    c.stream = (cudaStream_t)stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = shards;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    c.attrs = attr;
+    c.numAttrs = 1;
+    return c;
+}
+
+// The most blocks of one sharded kernel (0 the scan's grid path, 1 K-way,
+// 2 chunked) the current card holds at once: its blocks per SM (with its
+// largest dynamic shared memory) times its SMs; 0 when the card has no
+// cooperative launch.
 extern "C" int nomad_sharded_max_blocks(int kernel, int* out) {
     const void* fn = kernel == 0 ? (const void*)scan_batched_sharded_kernel
                    : kernel == 1 ? (const void*)kway_batched_sharded_kernel
                                  : (const void*)chunked_batched_sharded_kernel;
+    const int smem = kernel == 0 ? scan_grid_smem() : 0;
+    if (smem < 0) return (int)cudaErrorInvalidConfiguration;
     int dev = 0, coop = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -777,9 +1253,32 @@ extern "C" int nomad_sharded_max_blocks(int kernel, int* out) {
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT, 0);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT,
+                                                          smem);
     *out = coop ? per_sm * sms : 0;
     return (int)e;
+}
+
+// The sharded scan's route and its shard's shared memory for `shards`
+// shards of `per` rows: out[0] 1 on the cluster path (scan_on_cluster),
+// else 0; out[1] the live slots a block keeps in shared memory; out[2] on
+// the cluster path the most clusters of that size the card holds at once
+// (cudaOccupancyMaxActiveClusters), else 0.
+extern "C" int nomad_scan_sharded_info(int shards, int per, int* out) {
+    const bool cluster = scan_on_cluster(shards);
+    const int most = cluster ? scan_cluster_smem() : scan_grid_smem();
+    if (shards < 1 || per < TOP_K || most < 0)
+        return (int)cudaErrorInvalidValue;
+    const int smem = scan_shard_smem(most, per);
+    out[0] = cluster ? 1 : 0;
+    out[1] = scan_slots(smem);
+    out[2] = 0;
+    if (!cluster) return (int)cudaSuccess;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t c = cluster_config(1, shards, smem, nullptr,
+                                                attr);
+    return (int)cudaOccupancyMaxActiveClusters(
+        out + 2, (const void*)scan_batched_cluster_kernel, &c);
 }
 
 static bool layout_ok(int lanes, int shards, int per, long long n) {
@@ -793,15 +1292,41 @@ static ShardXchg xchg(float* lv, int* li, float* dv, int* di, int* cnt,
     return x;
 }
 
+// The sharded scan over `lanes` lanes of `shards` shards, by the route S
+// fixes: clusters up to SCAN_CLUSTER_MAX shards, the cooperative grid past
+// that (xe, flags: its exchange, ScanEntry [lanes, 2, S] and int [lanes,
+// 2]). A launch that fails returns its error; nothing retries it.
 static int launch_scan(const ScanArgs& a, const ScanOut& o,
-                       const ScanLanes& l, const ShardXchg& x, int lanes,
-                       void* stream) {
+                       const ScanLanes& l, void* recs, int lanes, int shards,
+                       int per, void* xe, int* flags, void* stream) {
     if (a.n < TOP_K || a.d < 2 || a.d > D_MAX || a.s_live < 0
             || a.s_live > S_MAX || a.p_live < 0 || a.p_live > P_MAX
-            || !layout_ok(lanes, x.shards, x.per, a.n))
+            || !layout_ok(lanes, shards, per, a.n))
         return (int)cudaErrorInvalidValue;
-    return launch_cooperative(scan_batched_sharded_kernel, lanes * x.shards,
-                              stream, a, o, l, x);
+    if (scan_on_cluster(shards)) {
+        const int most = scan_cluster_smem();
+        if (most < 0) return (int)cudaErrorInvalidConfiguration;
+        const int smem = scan_shard_smem(most, per);
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t c = cluster_config(lanes, shards, smem,
+                                                    stream, attr);
+        const cudaError_t e = cudaLaunchKernelEx(
+            &c, scan_batched_cluster_kernel, a, o, l,
+            scan_recs(recs, lanes, a.n, smem), per);
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
+        return (int)cudaGetLastError();
+    }
+    if (!xe || !flags) return (int)cudaErrorInvalidValue;
+    const int most = scan_grid_smem();
+    if (most < 0) return (int)cudaErrorInvalidConfiguration;
+    const int smem = scan_shard_smem(most, per);
+    return launch_cooperative(scan_batched_sharded_kernel, lanes * shards,
+                              smem, stream, a, o, l,
+                              scan_recs(recs, lanes, a.n, smem),
+                              (ScanEntry*)xe, flags, shards, per, lanes);
 }
 
 static int launch_kway(const LocalArgs& a, const KwayOut& o,
@@ -811,7 +1336,7 @@ static int launch_kway(const LocalArgs& a, const KwayOut& o,
             || !layout_ok(lanes, x.shards, x.per, a.n))
         return (int)cudaErrorInvalidValue;
     return launch_cooperative(kway_batched_sharded_kernel, lanes * x.shards,
-                              stream, a, o, l, x, lanes);
+                              0, stream, a, o, l, x, lanes);
 }
 
 #define SCAN_PARAMS                                                         \
@@ -843,12 +1368,17 @@ static int launch_kway(const LocalArgs& a, const KwayOut& o,
         float* x_lv, int* x_li, float* x_dv, int* x_di, int* x_cnt,         \
         float* x_chunk, int* x_flag, int shards, int per
 
+// The scan's exchange on the grid path (unused on the cluster path, where
+// they may be null): ScanEntry [lanes, 2, shards] and int [lanes, 2].
+#define SCAN_XCHG_PARAMS                                                    \
+        void* x_entries, int* x_flags, int shards, int per
+
 extern "C" int nomad_select_scan_sharded(
-        SCAN_PARAMS, int n, int d, int k_valid, int k_steps,
+        SCAN_PARAMS, void* recs, int n, int d, int k_valid, int k_steps,
         int spread_alg, int s_live, int p_live,
         float distinct_hosts, float scan_exclusive, float desired,
         float port_need, float dev_fires, float sum_spread_w,
-        SCAN_OUT_PARAMS, XCHG_PARAMS, void* stream) {
+        SCAN_OUT_PARAMS, SCAN_XCHG_PARAMS, void* stream) {
     ScanArgs a = {capacity, used, feasible, ask, tg_coll, job_cnt,
                   scan_placed, penalty, affinity, free_p, port_ok, dev_slots,
                   dev_score, pre_score, sp_codes, sp_counts0, sp_present0,
@@ -862,18 +1392,18 @@ extern "C" int nomad_select_scan_sharded(
                  out_exh, out_ok};
     ScanLanes l = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                    nullptr};
-    return launch_scan(a, o, l, xchg(x_lv, x_li, x_dv, x_di, x_cnt, x_chunk,
-                                     x_flag, shards, per, 1), 1, stream);
+    return launch_scan(a, o, l, recs, 1, shards, per, x_entries, x_flags,
+                       stream);
 }
 
 extern "C" int nomad_select_scan_batched_sharded(
-        SCAN_PARAMS, int lanes, int n, int d, int k_steps,
+        SCAN_PARAMS, void* recs, int lanes, int n, int d, int k_steps,
         int spread_alg, int s_live, int p_live,
         const int* k_valid, const float* distinct_hosts,
         const float* scan_exclusive, const float* desired,
         const float* port_need, const float* dev_fires,
         const float* sum_spread_w,
-        SCAN_OUT_PARAMS, XCHG_PARAMS, void* stream) {
+        SCAN_OUT_PARAMS, SCAN_XCHG_PARAMS, void* stream) {
     ScanArgs a = {capacity, used, feasible, ask, tg_coll, job_cnt,
                   scan_placed, penalty, affinity, free_p, port_ok, dev_slots,
                   dev_score, pre_score, sp_codes, sp_counts0, sp_present0,
@@ -887,8 +1417,8 @@ extern "C" int nomad_select_scan_batched_sharded(
     ScanLanes l = {k_valid, distinct_hosts, scan_exclusive, desired,
                    port_need, dev_fires, sum_spread_w};
     if (!k_valid) return (int)cudaErrorInvalidValue;
-    return launch_scan(a, o, l, xchg(x_lv, x_li, x_dv, x_di, x_cnt, x_chunk,
-                                     x_flag, shards, per, 1), lanes, stream);
+    return launch_scan(a, o, l, recs, lanes, shards, per, x_entries, x_flags,
+                       stream);
 }
 
 extern "C" int nomad_select_kway_sharded(
@@ -938,7 +1468,7 @@ extern "C" int nomad_select_chunked_batched_sharded(
                     rem_steps};
     LocalLanes l = {k_valid, desired, port_need, dev_fires};
     return launch_cooperative(
-        chunked_batched_sharded_kernel, lanes * shards, stream, a, o, l,
+        chunked_batched_sharded_kernel, lanes * shards, 0, stream, a, o, l,
         xchg(x_lv, x_li, x_dv, x_di, x_cnt, x_chunk, x_flag, shards, per,
              TOP_K), lanes);
 }

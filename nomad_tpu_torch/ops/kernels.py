@@ -23,13 +23,17 @@ written by hand in CUDA C++ for Hopper:
   select_scan_sharded <- _select_scan    over a `nodes` mesh (parallel/
   select_kway_sharded <- _select_kway      sharded.py; the node axis split
                                            into S shards, one block a
-                                           shard, one cooperative launch)
+                                           shard, one launch)
   select_chunked_batched_sharded <- _chunked_batched_jit  over the mesh
   select_kway_batched_sharded    <- _select_kway_batched  (select_many on
   select_scan_batched_sharded    <- _scan_batched_jit     a mesh: B lanes
                                            of S shards, B * S blocks)
-      in csrc/sharded_kernels.cu. The __device__ pieces the placement
-      kernels share are in csrc/select_common.cuh.
+      in csrc/sharded_kernels.cu: the scan as scan_batched_cluster_kernel
+      (a lane one thread-block cluster) up to a shard count the library
+      fixes (scan_sharded_info), past it as scan_batched_sharded_kernel
+      (one cooperative launch), the others cooperative at every S.
+      The __device__ pieces the placement kernels share are in
+      csrc/select_common.cuh.
 
 A wrapper takes the same arguments as its plain PyTorch version. On CPU
 tensors it runs the plain version (the tests' path); on CUDA tensors it
@@ -77,7 +81,8 @@ LAUNCHES: Dict[str, int] = {"chunked": 0, "kway": 0, "scan": 0,
                             "scan_sharded": 0, "kway_sharded": 0,
                             "chunked_batched_sharded": 0,
                             "kway_batched_sharded": 0,
-                            "scan_batched_sharded": 0}
+                            "scan_batched_sharded": 0, "scan_cluster": 0,
+                            "scan_batched_cluster": 0}
 
 # argument names, in order, of the node-local kernels (chunked, K-way) and
 # of the scan; _LOCAL_INPUTS are _local_inputs' arguments, in its order
@@ -776,6 +781,9 @@ BUILD_INFO: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # a sharded kernel's exchange buffers (_xchg), shards, rows a shard, stream
 _XCHG = [_P] * 7 + [_I] * 2 + [_P]
+# the sharded scan's: its grid path's entries and flags, shards, rows a
+# shard, stream
+_SCAN_XCHG = [_P] * 2 + [_I] * 2 + [_P]
 _ARGTYPES = {
     "nomad_select_chunked": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P] * 8,
     "nomad_select_kway": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P, _P, _P],
@@ -789,17 +797,18 @@ _ARGTYPES = {
     "nomad_scatter_set": [_P] * 9 + [_I] * 3 + [_P],
     "nomad_overlay_add": [_P] * 5 + [_I] * 3 + [_P],
     "nomad_feas_scatter": [_P] * 5 + [_I] * 2 + [_P],
-    "nomad_select_scan_sharded": [_P] * 29 + [_I] * 7 + [_F] * 6 + [_P] * 13
-    + _XCHG,
+    "nomad_select_scan_sharded": [_P] * 30 + [_I] * 7 + [_F] * 6 + [_P] * 13
+    + _SCAN_XCHG,
     "nomad_select_kway_sharded": [_P] * 13 + [_I] * 5 + [_F] * 3
     + [_I, _P, _P] + _XCHG,
     "nomad_select_chunked_batched_sharded": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_P] * 7 + _XCHG,
     "nomad_select_kway_batched_sharded": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_I, _P, _P] + _XCHG,
-    "nomad_select_scan_batched_sharded": [_P] * 29 + [_I] * 7 + [_P] * 7
-    + [_P] * 13 + _XCHG,
+    "nomad_select_scan_batched_sharded": [_P] * 30 + [_I] * 7 + [_P] * 7
+    + [_P] * 13 + _SCAN_XCHG,
     "nomad_sharded_max_blocks": [_I, ctypes.POINTER(ctypes.c_int)],
+    "nomad_scan_sharded_info": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "nomad_scan_shared_slots": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 
@@ -1531,17 +1540,21 @@ def feas_scatter(mask, idx, vals):
 
 
 # -- node-sharded (mesh) wrappers ------------------------------------------
-# A sharded launch is cooperative: all its blocks (shards, or lanes times
-# shards) must be resident on the card at once. The solo wrappers raise
-# above that; the batched ones launch the lanes in consecutive groups of as
-# many lanes as fit, each group a launch of its own (lanes share only the
-# read-only capacity, so the grouping does not change a result).
+# A cooperative sharded launch needs all its blocks (shards, or lanes times
+# shards) resident on the card at once. The solo wrappers raise above that;
+# the batched ones launch the lanes in consecutive groups of as many lanes
+# as fit, each group a launch of its own (lanes share only the read-only
+# capacity, so the grouping does not change a result). The sharded scan on
+# its cluster route (scan_sharded_info) is no cooperative launch: a lane is
+# one thread-block cluster, and every lane goes in one launch.
 
-# the most blocks each sharded kernel can launch with on a card, by
-# (kernel, device index)
+# the most blocks each cooperative sharded kernel can launch with on a
+# card, by (kernel, device index)
 _MAX_SHARDS: Dict[tuple, int] = {}
+# scan_sharded_info by (shards, per, device index)
+_SCAN_INFO: Dict[tuple, Dict[str, object]] = {}
 # nomad_sharded_max_blocks' kernel ids: the solo launchers run the batched
-# kernels with one lane
+# kernels with one lane (the scan's: its grid path)
 _SHARDED_IDS = {"scan_sharded": 0, "scan_batched_sharded": 0,
                 "kway_sharded": 1, "kway_batched_sharded": 1,
                 "chunked_batched_sharded": 2}
@@ -1565,8 +1578,9 @@ def _shard_layout(shards: int, n: int, tensors) -> int:
 
 def max_shards(kernel: str, device) -> int:
     """The most blocks the sharded `kernel` (a key of LAUNCHES ending in
-    "_sharded") launches with on `device`: blocks it holds at once a SM
-    times its SMs. A cooperative launch over more blocks is refused."""
+    "_sharded"; for the scan, its cooperative grid path) launches with on
+    `device`: blocks it holds at once a SM times its SMs. A cooperative
+    launch over more blocks is refused."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     key = (kernel, idx)
@@ -1590,6 +1604,26 @@ def scan_shared_slots(batched: bool = False) -> int:
                                                      ctypes.byref(out)),
               "scan shared-memory query")
     return out.value
+
+
+def scan_sharded_info(shards: int, per: int) -> Dict[str, object]:
+    """How the sharded scan runs `shards` shards of `per` rows on the
+    current card, as the library decides it: its route ("cluster", a
+    thread-block cluster a lane, up to a shard count fixed in
+    csrc/sharded_kernels.cu; else "grid"), the live rows whose records a
+    shard keeps in shared memory (its later live rows' come from device
+    memory), and on the cluster path the most clusters of that size the
+    card holds at once (cudaOccupancyMaxActiveClusters; 0 on the grid
+    path)."""
+    key = (int(shards), int(per), torch.cuda.current_device())
+    if key not in _SCAN_INFO:
+        out = (ctypes.c_int * 3)()
+        _raise_on(load_library().nomad_scan_sharded_info(key[0], key[1],
+                                                         out),
+                  "sharded scan query")
+        _SCAN_INFO[key] = dict(route="cluster" if out[0] else "grid",
+                               slots=out[1], max_clusters=out[2])
+    return dict(_SCAN_INFO[key])
 
 
 def _check_coresident(kernel: str, shards: int, device) -> int:
@@ -1625,6 +1659,15 @@ def _xchg(lanes: int, shards: int, kl: int, device):
             torch.empty((lanes, 2, 2), **i32))
 
 
+def _scan_xchg(lanes: int, shards: int, device):
+    """The sharded scan's exchange on its grid path: each lane's entries by
+    round parity (ScanEntry [lanes, 2, shards], 96 bytes each, in
+    csrc/sharded_kernels.cu) and the lanes' flags [lanes, 2]."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.empty((lanes, 2, shards, 24), **i32),
+            torch.empty((lanes, 2), **i32))
+
+
 def select_scan_sharded(capacity, used0, feasible, ask, k_valid, tg_coll0,
                         job_count0, distinct_hosts_flag, scan_exclusive,
                         penalty, affinity_norm, desired_count, port_need,
@@ -1635,8 +1678,10 @@ def select_scan_sharded(capacity, used0, feasible, ask, k_valid, tg_coll0,
                         dp_limit, dp_valid, *, k_steps: int,
                         spread_alg: bool, s_live: int, p_live: int,
                         shards: int):
-    """The scan with the node axis split into `shards` blocks, one
-    cooperative launch; arguments and results as scan_sharded_plain."""
+    """The scan with the node axis split into `shards` blocks, one launch
+    (a thread-block cluster, or past the shards a cluster takes one
+    cooperative launch: scan_sharded_info); arguments and results as
+    scan_sharded_plain."""
     args = (capacity, used0, feasible, ask, k_valid, tg_coll0, job_count0,
             distinct_hosts_flag, scan_exclusive, penalty, affinity_norm,
             desired_count, port_need, free_ports, port_ok, dev_slots0,
@@ -1650,21 +1695,28 @@ def select_scan_sharded(capacity, used0, feasible, ask, k_valid, tg_coll0,
         return scan_sharded_plain(*args, shards=shards, **statics)
     dev = capacity.device
     _check_live(s_live, p_live)
-    _check_coresident("scan_sharded", shards, dev)
+    with torch.cuda.device(dev):
+        route = scan_sharded_info(shards, per)["route"]
+    xchg = (None, None)
+    if route == "grid":
+        _check_coresident("scan_sharded", shards, dev)
+        xchg = _scan_xchg(1, shards, dev)
     inputs, carry, n, d = _scan_inputs(dict(zip(SCAN_NAMES, args)))
     k = int(k_steps)
     outs = _scan_outputs((), k, d, dev)
-    xchg = _xchg(1, shards, 1, dev)
+    recs = _scan_records(1, n, dev)
     lib = load_library()
     rc = lib.nomad_select_scan_sharded(
-        *[t.data_ptr() for t in inputs], n, d, int(k_valid), k,
-        int(bool(spread_alg)), int(s_live), int(p_live),
+        *[t.data_ptr() for t in inputs], recs.data_ptr(), n, d, int(k_valid),
+        k, int(bool(spread_alg)), int(s_live), int(p_live),
         float(distinct_hosts_flag), float(scan_exclusive),
         float(desired_count), float(port_need), float(dev_fires),
         float(sum_spread_w), *[t.data_ptr() for t in outs],
-        *[t.data_ptr() for t in xchg], int(shards), per, _stream(dev))
-    _raise_on(rc, "scan_sharded")
-    LAUNCHES["scan_sharded"] += 1
+        *[0 if t is None else t.data_ptr() for t in xchg], int(shards), per,
+        _stream(dev))
+    name = "scan_cluster" if route == "cluster" else "scan_sharded"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return carry, outs
 
 
@@ -1774,7 +1826,9 @@ def select_kway_batched_sharded(*, max_steps: int, spread_alg: bool, w: int,
 def select_scan_batched_sharded(*, k_steps: int, spread_alg: bool,
                                 s_live: int, p_live: int, shards: int, **a):
     """B scans over one capacity table, each lane's node axis split into
-    `shards` blocks (select_many's scan arm on a mesh); arguments and
+    `shards` blocks (select_many's scan arm on a mesh): every lane in one
+    launch of thread-block clusters, or past the shards a cluster takes
+    the lanes in cooperative groups (scan_sharded_info); arguments and
     results as scan_batched_sharded_plain."""
     a = _named(SCAN_NAMES, a)
     statics = dict(k_steps=k_steps, spread_alg=spread_alg, s_live=s_live,
@@ -1785,6 +1839,13 @@ def select_scan_batched_sharded(*, k_steps: int, spread_alg: bool,
     dev = a["capacity"].device
     _check_live(s_live, p_live)
     b = _lanes(a["used0"])
+    with torch.cuda.device(dev):
+        route = scan_sharded_info(shards, per)["route"]
+    if route == "grid":
+        groups = _lane_groups("scan_batched_sharded", b, shards, dev)
+        xchg = _scan_xchg(groups[0][1], shards, dev)
+    else:
+        groups, xchg = [(0, b)], (None, None)
     inputs, carry, n, d = _scan_inputs(a, lead=(b,))
     lane = _lane_scalars(
         b, dev, k_valid=a["k_valid"],
@@ -1794,15 +1855,19 @@ def select_scan_batched_sharded(*, k_steps: int, spread_alg: bool,
         sum_spread_w=a["sum_spread_w"])
     k = int(k_steps)
     outs = _scan_outputs((b,), k, d, dev)
-    groups = _lane_groups("scan_batched_sharded", b, shards, dev)
-    xchg = _xchg(groups[0][1], shards, 1, dev)
+    # one group's records at a time: the groups launch in order on one
+    # stream
+    recs = _scan_records(groups[0][1] - groups[0][0], n, dev)
+    name = "scan_batched_cluster" if route == "cluster" \
+        else "scan_batched_sharded"
     lib = load_library()
     for g0, g1 in groups:
         rc = lib.nomad_select_scan_batched_sharded(
-            inputs[0].data_ptr(), *_at(inputs[1:], g0), g1 - g0, n, d, k,
-            int(bool(spread_alg)), int(s_live), int(p_live),
-            *_at(lane, g0), *_at(outs, g0), *_at(xchg), int(shards), per,
-            _stream(dev))
-        _raise_on(rc, "scan_batched_sharded")
-        LAUNCHES["scan_batched_sharded"] += 1
+            inputs[0].data_ptr(), *_at(inputs[1:], g0), recs.data_ptr(),
+            g1 - g0, n, d, k, int(bool(spread_alg)), int(s_live),
+            int(p_live), *_at(lane, g0), *_at(outs, g0),
+            *[0 if t is None else t.data_ptr() for t in xchg], int(shards),
+            per, _stream(dev))
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
     return carry, outs

@@ -5,8 +5,10 @@ library built from a copy of the sources and made current.
 Imported by scripts/profile_scan.py and scripts/profile_sharded_kway.py
 (run from the repository's root as `python3 scripts/<name>.py`)."""
 
+import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 # read and reset the probes' sums (g_prof, `slots` 64-bit words) from the
@@ -48,6 +50,7 @@ def load(kernels, src: Path, build: Path):
     made current for the wrappers of `kernels`."""
     kernels._LIB = None
     kernels._MAX_SHARDS.clear()
+    getattr(kernels, "_SCAN_INFO", {}).clear()
     kernels.SOURCES = tuple(src / p.name for p in kernels.SOURCES)
     kernels.HEADERS = tuple(src / p.name for p in kernels.HEADERS)
     kernels.BUILD_DIR = build
@@ -66,3 +69,43 @@ def ptxas_report(kernels, source: str, kernel: str) -> str:
     at = next(i for i, ln in enumerate(out)
               if "Compiling entry function" in ln and mangled in ln)
     return " ".join(ln.split(":", 1)[-1].strip() for ln in out[at + 2:at + 4])
+
+
+def local_memory(kernels, source: str, kernel: str) -> dict:
+    """The local-memory loads and stores (LDL, STL) in the SASS of the
+    entry function `kernel` of `source` (a cubin built with the kernels'
+    flags and -lineinfo, read by nvdisasm), and the loads counted by the
+    source line they were compiled from ("file:line", the innermost
+    line)."""
+    cuda = Path(kernels._nvcc()).parent
+    with tempfile.TemporaryDirectory() as d:
+        cubin = Path(d) / "k.cubin"
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-lineinfo",
+                        "-cubin", "-o", str(cubin),
+                        str(kernels._CSRC / source)], check=True)
+        sass = subprocess.run([str(cuda / "nvdisasm"), "--print-line-info",
+                               str(cubin)], capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+    mangled = f"_Z{len(kernel)}{kernel}"
+    ours, where = False, ""
+    out = dict(kernel=kernel, instructions=0, ldl=0, stl=0, loads={})
+    for ln in sass:
+        if ".text." in ln and ln.lstrip().startswith(".section"):
+            ours = f".text.{mangled}" in ln
+            continue
+        if not ours:
+            continue
+        if "//## File" in ln:
+            at = re.search(r'"([^"]+)", line (\d+)', ln)
+            where = f"{Path(at[1]).name}:{at[2]}" if at else ""
+            continue
+        code = ln.split("*/", 1)[-1].strip() if "/*" in ln else ""
+        if not code or not code.endswith(";"):
+            continue
+        out["instructions"] += 1
+        if re.search(r"\bSTL\b|\bSTL\.", code):
+            out["stl"] += 1
+        if re.search(r"\bLDL\b|\bLDL\.", code):
+            out["ldl"] += 1
+            out["loads"][where] = out["loads"].get(where, 0) + 1
+    return out

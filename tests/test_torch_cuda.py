@@ -359,6 +359,21 @@ def _assert_equal(got, want):
         assert torch.equal(g.to(w.dtype), w)
 
 
+def _launched(before):
+    """The LAUNCHES keys counted since the snapshot `before`, with the
+    launches each counted."""
+    return {k: kernels.LAUNCHES[k] - before[k] for k in before
+            if kernels.LAUNCHES[k] != before[k]}
+
+
+def _scan_key(solo, shards, per):
+    """The LAUNCHES key of the sharded scan kernel (`solo` "scan" or
+    "scan_batched") that S shards of `per` rows take, as the library routes
+    them."""
+    route = kernels.scan_sharded_info(shards, per)["route"]
+    return f"{solo}_{'cluster' if route == 'cluster' else 'sharded'}"
+
+
 @pytest.mark.parametrize("kind", ["kway", "scan"])
 @pytest.mark.parametrize("n", [48, 100])
 @pytest.mark.parametrize("shards", [1, 2, 8])
@@ -381,10 +396,12 @@ def test_sharded_kernel_matches_plain_and_solo_on_card(cuda, kind, n,
         kw = dict(max_steps=tsel._kway_steps(w),
                   spread_alg=st["spread_alg"], w=w)
     run = getattr(kernels, f"select_{kind}_sharded")
-    before = kernels.LAUNCHES[f"{kind}_sharded"]
+    name = "kway_sharded" if kind == "kway" \
+        else _scan_key("scan", shards, n_pad // shards)
+    before = dict(kernels.LAUNCHES)
     got = run(**targs, **kw, shards=shards)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[f"{kind}_sharded"] == before + 1
+    assert _launched(before) == {name: 1}
     want = getattr(kernels, f"{kind}_sharded_plain")(**targs, **kw,
                                                      shards=shards)
     _assert_equal(got[0], want[0])
@@ -452,10 +469,15 @@ def _held_batched_sharded(kind, targs, kw, shards):
     the single-card batched kernel on the same padded lanes; returns the
     launches it made."""
     name = f"{kind}_batched_sharded"
-    before = kernels.LAUNCHES[name]
+    counted = _scan_key("scan_batched", shards,
+                        targs["capacity"].shape[0] // shards) \
+        if kind == "scan" else name
+    before = dict(kernels.LAUNCHES)
     got = getattr(kernels, f"select_{name}")(**targs, **kw, shards=shards)
     torch.cuda.synchronize()
-    launches = kernels.LAUNCHES[name] - before
+    launched = _launched(before)
+    assert set(launched) == {counted}, launched
+    launches = launched[counted]
     want = getattr(kernels, f"{name}_plain")(**targs, **kw, shards=shards)
     _assert_equal(got[0], want[0])
     _assert_equal(got[1], want[1])
@@ -651,3 +673,79 @@ def test_scan_mixed_lanes_on_card(cuda):
     args, st = scan_mixed_lanes(200, 41)
     got = _held_scan(_on(cuda, args), st, batched=True)
     assert bool((got[1][0][-1] == -1).all())
+
+
+def _scan_shards(cuda, shards):
+    return kernels.max_shards("scan_sharded", cuda) if shards == "max" \
+        else shards
+
+
+def _held_scan_sharded(targs, kw, shards, batched=False):
+    """One sharded scan launch (solo or batched) held exactly against its
+    plain version and the single-card kernel on the same padded request;
+    the kernel of the route the library gives for S (a cluster a lane, or
+    the cooperative grid) launched, and no other."""
+    solo = "scan_batched" if batched else "scan"
+    name = _scan_key(solo, shards, targs["capacity"].shape[0] // shards)
+    before = dict(kernels.LAUNCHES)
+    got = getattr(kernels, f"select_{solo}_sharded")(**targs, **kw,
+                                                     shards=shards)
+    torch.cuda.synchronize()
+    launched = _launched(before)
+    assert set(launched) == {name}, launched
+    want = getattr(kernels, f"{solo}_sharded_plain")(**targs, **kw,
+                                                     shards=shards)
+    _assert_equal(got[0], want[0])
+    _assert_equal(got[1], want[1])
+    single = getattr(kernels, f"select_{solo}")(**targs, **kw)
+    _assert_equal(got[0], single[0])
+    _assert_equal(got[1], single[1])
+    return got
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, 16, 32, "max"])
+@pytest.mark.parametrize("label", sorted(SCAN_EDGES))
+def test_scan_sharded_edge_shapes_on_card(cuda, label, shards):
+    """The sharded scan (the scan body shard by shard: a thread-block cluster
+    a lane up to 16 shards, the cooperative grid past that) at the edge
+    shapes, each table padded as a mesh of S shards pads it: equal to
+    scan_sharded_plain and to the single-card scan kernel, exactly."""
+    from nomad_tpu_torch.mock.scan_edges import pad_rows as scan_pad_rows
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shards = _scan_shards(cuda, shards)
+    args, st = scan_edge_case(label, 31)
+    n = args["capacity"].shape[0]
+    targs = _on(cuda, scan_pad_rows(
+        args, pad_for_mesh(make_mesh(shards, cuda), n)))
+    _held_scan_sharded(targs, st, shards)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, 16, 32, "max"])
+def test_scan_batched_sharded_mixed_lanes_on_card(cuda, shards):
+    """Eleven scan lanes over one table (counts 16-61 with their own
+    stanzas and constraints, one with no feasible row, one that runs dry),
+    padded as a mesh of S shards pads it: each lane stops at its own first
+    invalid step, and the launch equals the batched plain version and the
+    single-card batched kernel, exactly."""
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shards = _scan_shards(cuda, shards)
+    args, st = scan_mixed_lanes(200, 41, dry=True, n_pad=pad_for_mesh(
+        make_mesh(shards, cuda), 200))
+    got = _held_scan_sharded(_on(cuda, args), st, shards, batched=True)
+    assert bool((got[1][0][-2] == -1).all())
+
+
+def test_scan_sharded_routes_on_card(cuda):
+    """The route is fixed by S alone: clusters up to 16 shards (the card
+    holds at least one cluster of each size), the grid past that; a
+    shard's live slots in shared memory are its rows, as far as the
+    shared memory holds them."""
+    for shards in (1, 2, 8, 16, 17, 32):
+        per = 10_016 // shards
+        info = kernels.scan_sharded_info(shards, per)
+        assert info["route"] == ("cluster" if shards <= 16 else "grid")
+        assert (info["max_clusters"] >= 1) == (shards <= 16)
+        if per <= 9_000:
+            assert info["slots"] == per
+        else:
+            assert 9_000 < info["slots"] < per

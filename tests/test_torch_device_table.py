@@ -40,6 +40,7 @@ from nomad_tpu_torch.ops import device_table as tdt
 from nomad_tpu_torch.ops import kernels
 from nomad_tpu_torch.ops.tables import NodeTable
 from nomad_tpu_torch.state import StateStore
+import test_torch_select  # noqa: F401  (torch's thread cap)
 
 N, N_PAD, D = 1000, 1024, 4
 CPU = torch.device("cpu")

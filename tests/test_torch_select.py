@@ -24,6 +24,11 @@ from nomad_tpu_torch.ops import select as tsel
 from nomad_tpu_torch.state.carry import select_request_from_arrays
 from scalar_reference import scalar_select
 
+# one intra-op thread: the port's small tensors gain nothing from more,
+# and the reference's timing tests run beside these under xdist; the
+# port's other test modules that run torch in-process import this one
+torch.set_num_threads(1)
+
 SEEDS = list(range(20))
 N_NODES = 48           # one node-axis bucket (64) for every seed
 RTOL = ATOL = 1e-6
@@ -257,7 +262,8 @@ def test_kernel_wrappers_count_no_cpu_launches():
                                 "scan_sharded": 0, "kway_sharded": 0,
                                 "chunked_batched_sharded": 0,
                                 "kway_batched_sharded": 0,
-                                "scan_batched_sharded": 0}
+                                "scan_batched_sharded": 0, "scan_cluster": 0,
+                                "scan_batched_cluster": 0}
 
 
 def test_wrapper_rejects_unsupported_device():
