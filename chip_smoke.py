@@ -13,9 +13,17 @@ Phases (each raises on failure, so the process exits non-zero):
      phase) and of the plain version (median of 7 after a warm-up), and
      the bound of each from the real node count and the work this run's
      outputs need (greedy_ops: one sweep a launch, the rows placed on
-     rescored, the instances placed); then the K-way kernel at its edge shapes (KWAY_EDGES: n =
-     w + 1, 50 feasible rows of 10,000, exactly w + 1, all-alike nodes at
-     10,000 and 1,000 rows, an invalid first phase, a lane that runs dry),
+     rescored, the instances placed); the chunked kernel bit for bit (max
+     abs error 0), then at its edge shapes (CHUNKED_EDGES of
+     nomad_tpu_torch.mock.chunked_edges: all-alike rows at count 512, whose
+     spread winners drop out of the kept list, timed; a first step with no
+     feasible row; a request that runs dry; two feasible rows; fewer than 5
+     rows; a chunk of CHUNK_J; a tie with the runner-up won and lost),
+     binpack and spread, every launch and a continuation from the card's
+     carry bit for bit; then the K-way kernel at its edge shapes
+     (KWAY_EDGES: n = w + 1, 50 feasible rows of 10,000, exactly w + 1,
+     all-alike nodes at 10,000 and 1,000 rows, an invalid first phase, a
+     lane that runs dry),
      binpack and spread, each with an 8-phase budget so that its launches
      continue from the card's carry, every launch bit for bit; the scan
      held bit for bit at its main shape, its bound counted from the work
@@ -47,9 +55,10 @@ Phases (each raises on failure, so the process exits non-zero):
      alignment with rows out of order), scatter_set at its own (the same
      and rows out of order, repeated rows), and the three wrappers once
      under torch.cuda.set_sync_debug_mode("error");
-  4. the main path: the port's Harness on the card with 10,000 mock nodes
-     runs a service job (chunked kernel), a count-10,000 batch job (K-way
-     kernel) and a spread + affinity job (scan kernel); every alloc placed,
+  4. the main path: the port's Harness(device=None), which is the card,
+     with 10,000 mock nodes runs a service job (chunked kernel), a
+     count-10,000 batch job (K-way kernel) and a spread + affinity job
+     (scan kernel); every alloc placed,
      each kernel launched, placements identical to Harness(device="cpu");
   5. the steady state over the resident node table: a second Harness on
      the card over the same nodes runs E1-E8 (a service job; a spread +
@@ -72,7 +81,8 @@ Phases (each raises on failure, so the process exits non-zero):
      longest lane), of B solo launches one after another and of the plain
      version, and the bound summed over the lanes; K-way lanes of mixed
      counts (10 / 2,500 / 10,000 / a lane with no feasible row) among
-     them;
+     them, and eight chunked lanes of counts 1-512 (CHUNKED_LANES: one that
+     runs dry, one with no feasible row), binpack and spread;
   7. the eval gateways: on one snapshot of the 10,000 nodes, three groups
      of concurrent lane evals through a BatchGateway (8 service jobs of
      count 10, chunked-batched; 4 spread jobs of count 200, scan-batched;
@@ -196,6 +206,13 @@ REPLACES = {
     "scan_batched_sharded": "nomad_tpu/ops/select.py:395",
 }
 SELECT_ARMS = ("chunked", "kway", "scan")
+# the CUDA kernels a wrapper launches where it launches more than one, in
+# order: the chunked wrappers' step-0 sweep across the SMs, then the body
+# (its launches and time are the pair's)
+CUDA_KERNELS = {
+    "chunked": ["chunked_sweep_kernel", "chunked_kernel"],
+    "chunked_batched": ["chunked_sweep_kernel", "chunked_batched_kernel"],
+}
 TABLE_KERNELS = ("scatter_set", "overlay_add", "feas_scatter")
 BATCHED = ("chunked_batched", "kway_batched", "scan_batched")
 SOURCE = {arm: "nomad_tpu_torch/ops/csrc/select_kernels.cu"
@@ -447,7 +464,7 @@ def kernel_phase(device):
             run, plain = kernels.select_chunked, kernels.chunked_plain
         label = f"{kind} n={n} count={count}"
         err, trail = held_launches(kind, label, run, plain, targs, kw, count)
-        if kind == "scan" and err != 0.0:
+        if kind in ("scan", "chunked") and err != 0.0:
             fail(f"{label}: max abs err {err} against the plain version")
         # the timed call is the first launch, from the request's own inputs
         steps = trail[0][0]
@@ -479,6 +496,7 @@ def kernel_phase(device):
               f"{'phase' if kind == 'kway' else 'step'}), plain "
               f"{plain_ms:.3f} ms, bound {row['bound_ms']:.6f} ms{extra}",
               flush=True)
+    rows += chunked_edge_checks()
     kway_edge_checks()
     scan_edge_checks()
     return rows
@@ -589,6 +607,59 @@ def _card(a):
             if isinstance(v, np.ndarray)
             else v.item() if isinstance(v, np.generic) else v
             for k, v in a.items()}
+
+
+def chunked_edge_checks():
+    """The chunked kernel at CHUNKED_EDGES (nomad_tpu_torch.mock.
+    chunked_edges) at their card rows, binpack and spread, with
+    SelectKernel's step budget and continuation launches from the card's
+    own carry, every launch held bit for bit against the plain version;
+    the all-alike table at count 512 (a winner that drops out of the kept
+    list every step under spread: a new list every 255 steps) is
+    also timed. Returns the timed rows."""
+    from nomad_tpu_torch.mock.chunked_edges import (CHUNKED_EDGES,
+                                                    chunked_edge_args)
+    from nomad_tpu_torch.ops import kernels
+    held, rows = [], []
+    for i, label in enumerate(CHUNKED_EDGES):
+        _n_cpu, n, count, _kind, _keep = CHUNKED_EDGES[label]
+        for spread_alg in (False, True):
+            targs = _card(chunked_edge_args(label, SEED + 60 + i, card=True))
+            kw = dict(max_steps=64 if count <= 64 else 512,
+                      spread_alg=spread_alg)
+            tag = f"chunked edge {label} (n {n}, spread_alg {spread_alg})"
+            err, trail = held_launches(
+                "chunked", tag, kernels.select_chunked,
+                kernels.chunked_plain, targs, kw, count)
+            if err != 0.0:
+                fail(f"{tag}: max abs err {err}")
+            held.append((label, spread_alg, trail))
+            if label != "all alike, count 512":
+                continue
+            run, plain = kernels.select_chunked, kernels.chunked_plain
+            ms = cuda_ms(lambda: run(**targs, **kw))
+            plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=3)
+            got = run(**targs, **kw)
+            steps = trail[0][0]
+            n_pad = targs["capacity"].shape[0]
+            io_bytes, f32, f64 = lane_bound("chunked", targs, got[0],
+                                            got[1], n, n_pad, steps, kw,
+                                            0, 0)
+            io_bytes += rows_bytes([targs["capacity"]], n, n_pad)
+            b_ms, by = bound_of(io_bytes, f32, f64)
+            rows.append(dict(kind="chunked", n=n, count=count, main=False,
+                             edge=label, spread_alg=spread_alg,
+                             steps=steps, launches_held=len(trail),
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             us_per_step=ms / steps * 1e3, bound_ms=b_ms,
+                             bound_by=by))
+            print(f"kernel {tag}: first launch {ms:.3f} ms ({steps} steps, "
+                  f"{ms / steps * 1e3:.2f} us a step), plain "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms", flush=True)
+    print("kernel chunked edge shapes: every launch equal to the plain "
+          "version bit for bit (label, spread_alg, (steps, left) a "
+          f"launch): {held}", flush=True)
+    return rows
 
 
 def kway_edge_checks():
@@ -1554,7 +1625,50 @@ def batched_kernel_phase(device):
               f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms{extra}", flush=True)
         if kind == "kway_batched" and main:
             kway_continuations(targs, kw, run, plain, label)
+    rows.append(chunked_mixed_lanes())
     return rows
+
+
+def chunked_mixed_lanes():
+    """The batched chunked kernel on CHUNKED_LANES (eight lanes of counts
+    1-512 over one table of 10,000 rows, one that runs dry and one with
+    no feasible row), binpack and spread: equal to the batched plain
+    version and to each lane's solo kernel, exactly; the binpack launch
+    timed. Returns its row."""
+    import torch
+    from nomad_tpu_torch.mock.chunked_edges import (CHUNKED_LANES,
+                                                    chunked_lanes)
+    from nomad_tpu_torch.ops import kernels
+    n = MAIN_NODES
+    targs = _card(chunked_lanes(n, CHUNKED_LANES, SEED + 70))
+    label = f"chunked_batched n={n} mixed lanes {len(CHUNKED_LANES)}"
+    row = None
+    for spread_alg in (True, False):
+        kw = dict(max_steps=512, spread_alg=spread_alg)
+        got = kernels.select_chunked_batched(**targs, **kw)
+        torch.cuda.synchronize()
+        want = kernels.chunked_batched_plain(**targs, **kw)
+        err = max(compare(f"{label} carry vs plain", got[0], want[0], 0.0),
+                  compare(f"{label} outputs vs plain", got[1], want[1],
+                          0.0))
+        for i in range(len(CHUNKED_LANES)):
+            s_carry, s_outs = kernels.select_chunked(
+                **kernels.lane_args(targs, i), **kw)
+            err = max(err, compare(f"{label} lane {i} vs solo",
+                                   [t[i] for t in got[0] + got[1]],
+                                   list(s_carry) + list(s_outs), 0.0))
+        if int(got[1][6][2]) <= 0:
+            fail(f"{label}: lane 2 did not run dry")
+        steps = [int(s) for s in got[1][7]]
+        ms = cuda_ms(lambda: kernels.select_chunked_batched(**targs, **kw))
+        row = dict(kind="chunked_batched", n=n, lanes=len(CHUNKED_LANES),
+                   counts=[1, 512], main=False, variant="mixed",
+                   spread_alg=spread_alg, max_abs_err=err, ms=ms,
+                   steps=max(steps), us_per_step=ms / max(steps) * 1e3)
+        print(f"kernel {label} (spread_alg {spread_alg}): every lane equals "
+              f"the plain version and the solo kernel; steps a lane "
+              f"{steps}; {ms:.3f} ms", flush=True)
+    return row
 
 
 def kway_continuations(targs, kw, run, plain, label, shards=None):
@@ -2238,7 +2352,8 @@ def main():
     nodes = build_cluster(mock, seeded_mock_ids)
     jobs = main_path_jobs(mock, models)
     kernels.reset_launches()
-    gpu_places, gpu_walls, gpu_launched = run_main_path("cuda", jobs, nodes)
+    # Harness(device=None): the entry point's own default is the card
+    gpu_places, gpu_walls, gpu_launched = run_main_path(None, jobs, nodes)
     main_launches = dict(kernels.LAUNCHES)
     for (_kind, job, arm), got in zip(jobs, gpu_launched):
         if got[arm] < 1:
@@ -2283,10 +2398,13 @@ def main():
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=None,
-            shapes=[{k: r[k] for k in ("n", "count", "main", "steps",
-                                       "steps_run", "launches_held", "ms",
-                                       "us_per_step", "plain_ms", "bound_ms",
-                                       "bound_by", "max_abs_err") if k in r}
+            **({"cuda_kernels": CUDA_KERNELS[arm]} if arm in CUDA_KERNELS
+               else {}),
+            shapes=[{k: r[k] for k in ("n", "count", "main", "edge",
+                                       "spread_alg", "steps", "steps_run",
+                                       "launches_held", "ms", "us_per_step",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "max_abs_err") if k in r}
                     for r in mine]))
     for name in TABLE_KERNELS:
         mine = [r for r in table_rows if r["kind"] == name]
@@ -2314,10 +2432,13 @@ def main():
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=None, solo_ms=top["solo_ms"],
+            **({"cuda_kernels": CUDA_KERNELS[name]} if name in CUDA_KERNELS
+               else {}),
             shapes=[{k: r[k] for k in (
-                "n", "lanes", "counts", "main", "steps", "steps_run", "ms",
-                "us_per_step", "solo_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err") if k in r} for r in mine]))
+                "n", "lanes", "counts", "main", "variant", "spread_alg",
+                "steps", "steps_run", "ms", "us_per_step", "solo_ms",
+                "plain_ms", "bound_ms", "bound_by", "max_abs_err") if k in r}
+                for r in mine]))
     for name in SHARDED:
         mine = [r for r in sharded_rows if r["kind"] == name]
         top = next(r for r in mine if r["main"])

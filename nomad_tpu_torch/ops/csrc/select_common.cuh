@@ -331,14 +331,17 @@ static __device__ void block_topk_radix(const float* vals, const int* rows,
     __syncthreads();
 }
 
-// _local_final_score (select.py:411-443), term for term.
-__device__ __forceinline__ float local_score(
-        float after0, float after1, float cap_cpu, float cap_mem, float coll,
-        bool pen, float aff, float desired, int spread_alg, float dev_score,
-        float dev_fires, float pre) {
-    float free_cpu = 1.0f - after0 / cap_cpu;
-    float free_mem = 1.0f - after1 / cap_mem;
-    float total = pow10_exact(free_cpu) + pow10_exact(free_mem);
+// A fit dimension's power: 10**(1 - after / cap), cap clamped by the
+// caller (select.py:419-421).
+__device__ __forceinline__ float free_pow(float after, float cap) {
+    return pow10_exact(1.0f - after / cap);
+}
+
+// _local_final_score (select.py:411-443), term for term, from the sum of
+// the two powers (cpu + mem).
+__device__ __forceinline__ float local_score_of(
+        float total, float coll, bool pen, float aff, float desired,
+        int spread_alg, float dev_score, float dev_fires, float pre) {
     float fit = spread_alg ? fminf(fmaxf(total - 2.0f, 0.0f), 18.0f)
                            : fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
     float binpack = fit / 18.0f;
@@ -352,6 +355,15 @@ __device__ __forceinline__ float local_score(
                   + (aff_f ? 1.0f : 0.0f) + (dev_fires > 0.0f ? 1.0f : 0.0f)
                   + (pre_f ? 1.0f : 0.0f);
     return (binpack + anti + penv + aff + dev + pre) / fired;
+}
+
+__device__ __forceinline__ float local_score(
+        float after0, float after1, float cap_cpu, float cap_mem, float coll,
+        bool pen, float aff, float desired, int spread_alg, float dev_score,
+        float dev_fires, float pre) {
+    return local_score_of(
+        free_pow(after0, cap_cpu) + free_pow(after1, cap_mem), coll, pen,
+        aff, desired, spread_alg, dev_score, dev_fires, pre);
 }
 
 // Index of the first losing sub-placement in one CHUNK_J-long score
@@ -388,22 +400,37 @@ struct Sweep {
     int cnt[D_MAX];
 };
 
+// A row's feasibility before its fit (select.py:478-479), and one fit
+// dimension (:480-482): used + ask within the capacity.
+__device__ __forceinline__ bool row_feasible(bool feasible, float free_p,
+                                             float port_need, bool port_ok,
+                                             float dev_slots) {
+    return feasible && (free_p >= port_need) && port_ok
+           && (dev_slots >= 1.0f);
+}
+
+__device__ __forceinline__ bool dim_fits(float after, float cap) {
+    return after <= cap + 1e-6f;
+}
+
 // Row x's masked score (its score where it is feasible and fits, NEG_INF
 // elsewhere), counting its first failing dimension and its ok into r. The
 // sweeps and the K-way kernel's winner-only rescoring both evaluate a row
-// through this one function, so the two give the same bits.
+// through this one function, and the chunked step warp through its pieces
+// (row_feasible, dim_fits, free_pow, local_score_of), so all give the same
+// bits.
 __device__ __forceinline__ float local_row(const LocalArgs& a,
                                            const float* s_ask, int x,
                                            Sweep& r) {
-    bool feas = a.feasible[x] && (a.free_p[x] >= a.port_need)
-                && a.port_ok[x] && (a.dev_slots[x] >= 1.0f);
+    bool feas = row_feasible(a.feasible[x], a.free_p[x], a.port_need,
+                             a.port_ok[x], a.dev_slots[x]);
     bool fit = true, earlier = true;
     float after0 = 0.0f, after1 = 0.0f;
 #pragma unroll
     for (int dd = 0; dd < D_MAX; ++dd) {
         if (dd < a.d) {
             float af = a.used[x * a.d + dd] + s_ask[dd];
-            bool f = af <= a.capacity[x * a.d + dd] + 1e-6f;
+            bool f = dim_fits(af, a.capacity[x * a.d + dd]);
             if (feas && earlier && !f) r.cnt[dd] += 1;
             earlier = earlier && f;
             fit = fit && f;
@@ -411,15 +438,15 @@ __device__ __forceinline__ float local_row(const LocalArgs& a,
             if (dd == 1) after1 = af;
         }
     }
+    // a row that is not feasible or does not fit spends no power
+    if (!(feas && fit)) return NEG_INF;
+    r.okc += 1;
     float cap_cpu = fmaxf(a.capacity[x * a.d + 0], 1e-9f);
     float cap_mem = fmaxf(a.capacity[x * a.d + 1], 1e-9f);
-    float sc = local_score(after0, after1, cap_cpu, cap_mem,
-                           (float)a.coll[x], a.penalty[x] != 0,
-                           a.affinity[x], a.desired, a.spread_alg,
-                           a.dev_score[x], a.dev_fires, a.pre_score[x]);
-    bool ok = feas && fit;
-    if (ok) r.okc += 1;
-    return ok ? sc : NEG_INF;
+    return local_score(after0, after1, cap_cpu, cap_mem, (float)a.coll[x],
+                       a.penalty[x] != 0, a.affinity[x], a.desired,
+                       a.spread_alg, a.dev_score[x], a.dev_fires,
+                       a.pre_score[x]);
 }
 
 // One sweep over the table rows [lo, hi): writes masked[x] for this
@@ -442,12 +469,17 @@ __device__ __forceinline__ Sweep local_sweep(const LocalArgs& a,
     return local_sweep_rows(a, s_ask, 0, a.n);
 }
 
+// A fit dimension's usage after sub-placement jf (select.py:538).
+__device__ __forceinline__ float sub_after(float used, float jf, float ask) {
+    return used + (jf + 1.0f) * ask;
+}
+
 // Score of the s-th sub-placement on node c (select.py:538-544).
 __device__ __forceinline__ float sub_score(const LocalArgs& a,
                                            const float* s_ask, int c, int j) {
     float jf = (float)j;
-    float after0 = a.used[c * a.d + 0] + (jf + 1.0f) * s_ask[0];
-    float after1 = a.used[c * a.d + 1] + (jf + 1.0f) * s_ask[1];
+    float after0 = sub_after(a.used[c * a.d + 0], jf, s_ask[0]);
+    float after1 = sub_after(a.used[c * a.d + 1], jf, s_ask[1]);
     float coll_j = (float)a.coll[c] + jf;
     return local_score(after0, after1, fmaxf(a.capacity[c * a.d + 0], 1e-9f),
                        fmaxf(a.capacity[c * a.d + 1], 1e-9f), coll_j,
@@ -457,30 +489,52 @@ __device__ __forceinline__ float sub_score(const LocalArgs& a,
 }
 
 // Instances that physically fit on node c (select.py:526-533), before the
-// remaining-count cap.
+// remaining-count cap: one dimension's (fit_dim), then the least of them
+// with the ports' and the device slots' (fit_rest).
+__device__ __forceinline__ float fit_dim(float cap, float used, float ask) {
+    return ask > 0.0f ? floorf(((cap - used) + 1e-6f) / ask) : 1e9f;
+}
+
+__device__ __forceinline__ float fit_rest(float m_fit, float free_p,
+                                          float port_need, float dev_slots) {
+    float m_port = port_need > 0.0f ? floorf(free_p / port_need) : 1e9f;
+    return fminf(fminf(m_fit, m_port), dev_slots);
+}
+
 __device__ __forceinline__ float fit_cap(const LocalArgs& a,
                                          const float* s_ask, int c) {
     float m_fit = INFINITY;
-    for (int dd = 0; dd < a.d; ++dd) {
-        float pd = s_ask[dd] > 0.0f
-            ? floorf(((a.capacity[c * a.d + dd] - a.used[c * a.d + dd]) + 1e-6f)
-                     / s_ask[dd])
-            : 1e9f;
-        m_fit = fminf(m_fit, pd);
-    }
-    float m_port = a.port_need > 0.0f ? floorf(a.free_p[c] / a.port_need)
-                                      : 1e9f;
-    return fminf(fminf(m_fit, m_port), a.dev_slots[c]);
+    for (int dd = 0; dd < a.d; ++dd)
+        m_fit = fminf(m_fit, fit_dim(a.capacity[c * a.d + dd],
+                                     a.used[c * a.d + dd], s_ask[dd]));
+    return fit_rest(m_fit, a.free_p[c], a.port_need, a.dev_slots[c]);
+}
+
+// A row's used, free ports and device slots after `chunk` instances
+// (select.py:557-560).
+__device__ __forceinline__ float placed_used(float used, float chunk,
+                                             float ask) {
+    return used + chunk * ask;
+}
+
+__device__ __forceinline__ float placed_ports(float free_p, float chunk,
+                                              float port_need) {
+    return free_p + (-chunk) * port_need;
+}
+
+__device__ __forceinline__ float placed_slots(float dev_slots, float chunk) {
+    return dev_slots + (-chunk);
 }
 
 // Scatter `chunk` instances onto node c (select.py:557-560).
 __device__ __forceinline__ void place(const LocalArgs& a, const float* s_ask,
                                       int c, float chunk) {
     for (int dd = 0; dd < a.d; ++dd)
-        a.used[c * a.d + dd] = a.used[c * a.d + dd] + chunk * s_ask[dd];
+        a.used[c * a.d + dd] = placed_used(a.used[c * a.d + dd], chunk,
+                                           s_ask[dd]);
     a.coll[c] = a.coll[c] + (int)chunk;
-    a.free_p[c] = a.free_p[c] + (-chunk) * a.port_need;
-    a.dev_slots[c] = a.dev_slots[c] + (-chunk);
+    a.free_p[c] = placed_ports(a.free_p[c], chunk, a.port_need);
+    a.dev_slots[c] = placed_slots(a.dev_slots[c], chunk);
 }
 
 // The K-way streams' shared state, per owned winner (slot p of the

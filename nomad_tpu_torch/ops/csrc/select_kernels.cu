@@ -30,9 +30,10 @@
 // card's memory rate; the design accepts that to stay exact and simple.
 // A batched launch fills B SMs with B such sweeps; B lanes' used columns
 // (256 KB a lane at 16,384 rows) stay in the 50 MB L2. A grid-wide or
-// cluster version is later work. The K-way and scan bodies have since been
-// redesigned (see their sections): each evaluates every row's node-local
-// terms once a launch and then only the rows its steps placed on.
+// cluster version is later work. The chunked, K-way and scan bodies have
+// since been redesigned (see their sections): each evaluates every row's
+// node-local terms once a launch and then only the rows its steps placed
+// on.
 //
 // The __device__ pieces these kernels share with the node-sharded kernels
 // (sharded_kernels.cu) live in select_common.cuh.
@@ -55,18 +56,250 @@
 // ---------------------------------------------------------------------------
 // chunked: greedy while-loop; each step places a chunk on the argmax node
 // that keeps beating the runner-up (select.py:446-588).
+//
+// Design (redesigned after the first version's full sweep, two argmax
+// passes and all CHUNK_J sub-placement scores at every step):
+//   * scores are node-local, so a step changes masked at its winner's row
+//     only. masked is swept in full at each launch's step 0 (a
+//     continuation launch too: the scratch is fresh) and at a step whose
+//     top is invalid (for the counts it reports; the loop ends there);
+//     every other step rescores its winner's row with local_row's own
+//     pieces (row_feasible, dim_fits, free_pow, local_score_of), so the
+//     two give the same bits;
+//   * step 0's sweep runs across the card's SMs: chunked_sweep_kernel, one
+//     row a thread, launched just before the body on the same stream,
+//     writes masked and each of its blocks' counts; the body adds the
+//     counts up (integer sums: exact in any order);
+//   * the winner and the runner-up are the first two entries of a kept
+//     list: the top-CHUNK_M of masked in (score desc, row asc) order, made
+//     by block_topk_radix (NEG_INF ties in row order; step 0's top-5 are
+//     its first five). A step takes its winner out and puts it back at its
+//     new score when that still ranks above the list's last entry, and
+//     drops it otherwise: every row outside the list ranks below the last
+//     entry, so the list stays the exact top of masked, one shorter. A
+//     list that holds every row never drops one. Below two entries the
+//     list is made again from masked, which is current;
+//   * after step 0 a step is one stream, fit_cap, place, one rescored row
+//     and one list update: warp 0 runs step after step (chunked_steps,
+//     the winner's row in its registers, __syncwarp only) while the other
+//     warps wait at one barrier, and they join when the warp asks for a
+//     sweep (an invalid step) or a new list, through a word every thread
+//     reads after that barrier;
+//   * a chunk is min(max(first loser, 1), a_max), so the winner's stream
+//     against the runner-up is walked CHUNK_ROUND sub-placements a round,
+//     a lane pair's two powers each (warp ballots, no atomics), until its
+//     first loser or once past a_max.
+// Every output and carry is bit for bit the first version's. What bounds
+// it: a later step is one warp's latency (the winner's row from L2, one
+// round of powers for the stream and one for the rescoring); step 0 is the
+// radix list. The list's length and the pre-pass were chosen by A/B
+// (scripts/profile_chunked.py --compare; PERF.md §6).
 // ---------------------------------------------------------------------------
+#define CHUNK_M 256    // the kept list's most entries (at most TOPK_CAND)
+#define PRE_NT 256     // chunked_sweep_kernel's threads, one row each
+
+// What chunked_body's block does next, as the step warp hands it over.
+#define CHUNK_END 0
+#define CHUNK_SWEEP 1     // sweep masked for a step's counts, then a list
+#define CHUNK_REBUILD 2   // the list again from masked
+
+// The step warp's state: the list's first entry and length (its entries
+// at lv[h], ..., lv[h + len - 1]), the next step, the count left, and
+// whether the last step was valid.
+struct ChunkState {
+    int h, len, step, remaining;
+    bool alive;
+};
+
+// The kept list after its first entry, row c, was rescored to sv (one
+// warp, every lane): c put back where (sv, c) ranks, the entries ranked
+// above it moved one place up, or dropped when it ranks below the last
+// entry (unless the list holds every row, `whole`).
+__device__ __forceinline__ void chunk_list_update(float* lv, int* li,
+                                                  ChunkState& s, float sv,
+                                                  int c, bool whole) {
+    const int lane = threadIdx.x & 31;
+    const int last = s.h + s.len - 1;
+    if (!whole && !better(sv, c, lv[last], li[last])) {
+        s.h += 1;
+        s.len -= 1;
+        return;
+    }
+    // r: the entries after the first that rank above (sv, c), a prefix
+    int r = 0;
+    for (int k0 = 1; k0 < s.len; k0 += 32) {
+        const int k = k0 + lane;
+        const unsigned above = __ballot_sync(
+            0xffffffffu, k < s.len && better(lv[s.h + k], li[s.h + k], sv, c));
+        r += __popc(above);
+        if (above != 0xffffffffu) break;
+    }
+    for (int k0 = 0; k0 < r; k0 += 32) {
+        const int k = k0 + lane;
+        float v = 0.0f;
+        int i = 0;
+        if (k < r) {
+            v = lv[s.h + 1 + k];
+            i = li[s.h + 1 + k];
+        }
+        __syncwarp();
+        if (k < r) {
+            lv[s.h + k] = v;
+            li[s.h + k] = i;
+        }
+    }
+    __syncwarp();
+    if (lane == 0) {
+        lv[s.h + r] = sv;
+        li[s.h + r] = c;
+    }
+}
+
+// Row c as the step warp holds it: lane dd < d its dimension dd's used
+// and capacity (0 past d), every lane the row's other columns.
+struct ChunkRow {
+    float used, cap, free_p, dev_slots, aff, dev_score, pre;
+    int coll;
+    bool feasible, port_ok, pen;
+};
+
+__device__ __forceinline__ ChunkRow chunk_row(const LocalArgs& a, int c) {
+    const int lane = threadIdx.x & 31;
+    ChunkRow r;
+    r.used = lane < a.d ? a.used[c * a.d + lane] : 0.0f;
+    r.cap = lane < a.d ? a.capacity[c * a.d + lane] : 0.0f;
+    r.free_p = a.free_p[c];
+    r.dev_slots = a.dev_slots[c];
+    r.aff = a.affinity[c];
+    r.dev_score = a.dev_score[c];
+    r.pre = a.pre_score[c];
+    r.coll = a.coll[c];
+    r.feasible = a.feasible[c] != 0;
+    r.port_ok = a.port_ok[c] != 0;
+    r.pen = a.penalty[c] != 0;
+    return r;
+}
+
+// Warp 0 of chunked_body, every lane: steps from s.step on, each from the
+// list's first two entries, until the loop ends, the list is short or a
+// step is invalid without its counts (`meta`: the block swept at this
+// step, and wrote its counts and top-5). A step loads the winner's row
+// once into the warp (chunk_row) and computes from it, with the shared
+// pieces of fit_cap, sub_score, place and local_row in their operation
+// order: a_max by one dimension a lane; the stream CHUNK_ROUND
+// sub-placements a round, the two powers of one on a lane pair; the
+// placed row's new masked score as local_row gives it, its two powers on
+// lanes 0 and 1. Returns what the block does next.
+#define CHUNK_ROUND 16
+__device__ __forceinline__ int chunked_steps(const LocalArgs& a,
+                                             const ChunkedOut& o,
+                                             const float* s_ask, float* lv,
+                                             int* li, ChunkState& s,
+                                             bool whole, bool meta) {
+    const int lane = threadIdx.x & 31, half = lane & 1;
+    const bool dim = lane < a.d;
+    const float ask = s_ask[dim ? lane : 0];
+    for (;; meta = false) {
+        if (!(s.remaining > 0 && s.alive && s.step < a.max_steps))
+            return CHUNK_END;
+        if (s.len < 2) return CHUNK_REBUILD;
+        const float tv = lv[s.h], rv = lv[s.h + 1];
+        const int c = li[s.h], ri = li[s.h + 1];
+        if (!(tv > HALF_NEG_INF)) {
+            if (!meta) return CHUNK_SWEEP;
+            // no feasible row: chunk 0, choice -1 as initialised
+            s.step += 1;
+            s.alive = false;
+            continue;
+        }
+        if (!meta) {
+            if (dim) o.exh[s.step * a.d + lane] = -1;
+            if (lane == 0) o.feas[s.step] = -1;
+        }
+        const ChunkRow r = chunk_row(a, c);
+        float m_fit = dim ? fit_dim(r.cap, r.used, ask) : INFINITY;
+        for (int off = 16; off > 0; off >>= 1)
+            m_fit = fminf(m_fit, __shfl_xor_sync(0xffffffffu, m_fit, off));
+        const float a_max = fminf(fit_rest(m_fit, r.free_p, a.port_need,
+                                           r.dev_slots),
+                                  (float)s.remaining);
+        // the chunk: the winner's stream against the runner-up, walked up
+        // to its first loser or past a_max (every chunk is capped there);
+        // lanes 2k and 2k + 1 hold sub-placement j0 + k's cpu and mem
+        const float u_h = __shfl_sync(0xffffffffu, r.used, half);
+        const float cap_h = fmaxf(__shfl_sync(0xffffffffu, r.cap, half),
+                                  1e-9f);
+        const float ask_h = s_ask[half];
+        int f = CHUNK_J;
+        for (int j0 = 0; j0 < CHUNK_J; j0 += CHUNK_ROUND) {
+            if (!((float)j0 < a_max)) {
+                f = j0;
+                break;
+            }
+            const float jf = (float)(j0 + (lane >> 1));
+            const float p = free_pow(sub_after(u_h, jf, ask_h), cap_h);
+            const float q = __shfl_xor_sync(0xffffffffu, p, 1);
+            const float fj = local_score_of(
+                half ? q + p : p + q, (float)r.coll + jf, r.pen, r.aff,
+                a.desired, a.spread_alg, r.dev_score, a.dev_fires, r.pre);
+            const unsigned lose = __ballot_sync(
+                0xffffffffu, !(fj > rv || (fj == rv && c < ri)))
+                & 0x55555555u;
+            if (lose) {
+                f = j0 + ((__ffs(lose) - 1) >> 1);
+                break;
+            }
+        }
+        const float chunk = fminf(fmaxf((float)f, 1.0f), a_max);
+        const int chunk_i = (int)chunk;
+        // place, then the row's masked score as local_row gives it
+        const float used = placed_used(r.used, chunk, ask);
+        const float free_p = placed_ports(r.free_p, chunk, a.port_need);
+        const float dev_slots = placed_slots(r.dev_slots, chunk);
+        const int coll = r.coll + chunk_i;
+        if (dim) a.used[c * a.d + lane] = used;
+        const float after = used + ask;
+        const unsigned fits = __ballot_sync(0xffffffffu,
+                                            dim && dim_fits(after, r.cap));
+        float sv = NEG_INF;
+        if (row_feasible(r.feasible, free_p, a.port_need, r.port_ok,
+                         dev_slots) && fits == (1u << a.d) - 1u) {
+            const float p = free_pow(after, fmaxf(r.cap, 1e-9f));
+            sv = local_score_of(
+                __shfl_sync(0xffffffffu, p, 0)
+                    + __shfl_sync(0xffffffffu, p, 1),
+                (float)coll, r.pen, r.aff, a.desired, a.spread_alg,
+                r.dev_score, a.dev_fires, r.pre);
+        }
+        if (lane == 0) {
+            a.coll[c] = coll;
+            a.free_p[c] = free_p;
+            a.dev_slots[c] = dev_slots;
+            a.masked[c] = sv;
+            o.choice[s.step] = c;
+            o.chunk[s.step] = chunk_i;
+        }
+        chunk_list_update(lv, li, s, sv, c, whole);
+        // the list, the row's carries and masked before the next step
+        __syncwarp();
+        s.remaining -= chunk_i;
+        s.step += 1;
+    }
+}
+
 // The body of one request: the solo kernel runs it once, the batched kernel
-// once per block, each block on its own lane.
+// once per block, each block on its own lane. `part` holds the pre-pass's
+// counts of this lane's `parts` blocks: step 0's counts.
 __device__ __forceinline__ void chunked_body(const LocalArgs& a,
-                                             const ChunkedOut& o) {
+                                             const ChunkedOut& o,
+                                             const int* part, int parts) {
     __shared__ Red red;
+    __shared__ TopkShared tk;
     __shared__ float s_ask[D_MAX];
-    __shared__ float s_tv[2];
-    __shared__ int s_ti[2];
-    __shared__ unsigned s_lose[CHUNK_J / 32];
+    __shared__ float s_lv[CHUNK_M];
+    __shared__ int s_li[CHUNK_M];
     __shared__ int s_ctl[2];
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, warp = tid >> 5;
     for (int s = tid; s < a.max_steps; s += NT) {
         o.choice[s] = -1;
         o.chunk[s] = 0;
@@ -80,72 +313,105 @@ __device__ __forceinline__ void chunked_body(const LocalArgs& a,
     if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
     __syncthreads();
 
-    int remaining = a.k_valid, step = 0;
-    bool alive = true;
-    while (remaining > 0 && alive && step < a.max_steps) {
-        const Sweep sw = local_sweep(a, s_ask);
-        // winner and runner-up: the first two of top_k(masked). When the
-        // winner is valid this is the JAX program's runner-up (argmax with
-        // the winner set to NEG_INF); when it is not, the chunk is 0.
-        block_topk(a.masked, a.n, 2, s_tv, s_ti, red);
-        __syncthreads();
-        const int c = s_ti[0];
-        const bool valid = s_tv[0] > HALF_NEG_INF;
-        const float rv = s_tv[1];
-        const int ri = s_ti[1];
-
-        if (step == 0 || !valid) {
-            for (int dd = 0; dd < a.d; ++dd) {
-                int tot = block_sum(sw.cnt[dd], red);
-                if (tid == 0) o.exh[step * a.d + dd] = tot;
+    // the list's length: a step drops at most one entry and a launch runs
+    // at most min(max_steps, k_valid) steps, so that many plus one never
+    // needs a new list; at least TOP_K (step 0's top-5), at most CHUNK_M
+    const int m = min(a.n, max(TOP_K, min(CHUNK_M,
+                                          min(a.max_steps, a.k_valid) + 1)));
+    ChunkState s = {0, 0, 0, a.k_valid, true};
+    int todo = a.k_valid > 0 && a.max_steps > 0 ? CHUNK_SWEEP : CHUNK_END;
+    int at = 0;   // the step a sweep reports
+    while (todo != CHUNK_END) {
+        if (todo == CHUNK_SWEEP) {
+            Sweep sw{};
+            if (at == 0) {
+                // the pre-pass's counts, 0 past d; sw.cnt indexed by
+                // constants only, so that it stays in registers
+                for (int g = tid; g < parts; g += NT) {
+                    const int* p = part + (size_t)g * (D_MAX + 1);
+#pragma unroll
+                    for (int dd = 0; dd < D_MAX; ++dd) sw.cnt[dd] += p[dd];
+                    sw.okc += p[D_MAX];
+                }
+            } else {
+                sw = local_sweep(a, s_ask);
+            }
+            // masked swept before the list reads it (the sums' barriers)
+#pragma unroll
+            for (int dd = 0; dd < D_MAX; ++dd) {
+                if (dd < a.d) {   // uniform over the block
+                    int tot = block_sum(sw.cnt[dd], red);
+                    if (tid == 0) o.exh[at * a.d + dd] = tot;
+                }
             }
             int okt = block_sum(sw.okc, red);
-            if (tid == 0) o.feas[step] = okt;
-            block_topk(a.masked, a.n, TOP_K, o.ts + step * TOP_K,
-                       o.ti + step * TOP_K, red);
-        } else if (tid == 0) {
-            for (int k = 0; k < TOP_K; ++k) {
-                o.ti[step * TOP_K + k] = -1;
-                o.ts[step * TOP_K + k] = NEG_INF;
+            if (tid == 0) o.feas[at] = okt;
+        }
+        block_topk_radix<false>(a.masked, nullptr, a.n, m, s_lv, s_li, tk);
+        if (warp == 0) {
+            // a sweep's top-5: the list's first five (m >= TOP_K)
+            if (todo == CHUNK_SWEEP && tid < TOP_K) {
+                o.ti[at * TOP_K + tid] = s_li[tid];
+                o.ts[at * TOP_K + tid] = s_lv[tid];
             }
-            for (int dd = 0; dd < a.d; ++dd) o.exh[step * a.d + dd] = -1;
-            o.feas[step] = -1;
-        }
-
-        // chunk: leading run of sub-placements that still beat the
-        // runner-up; each of the first CHUNK_J / 32 warps ballots its losers
-        if (tid < CHUNK_J) {
-            float fj = sub_score(a, s_ask, c, tid);
-            bool wins = fj > rv || (fj == rv && c < ri);
-            unsigned lose = __ballot_sync(0xffffffffu, !wins);
-            if ((tid & 31) == 0) s_lose[tid >> 5] = lose;
+            __syncwarp();
+            s.h = 0;
+            s.len = m;
+            const int next = chunked_steps(a, o, s_ask, s_lv, s_li, s,
+                                           m == a.n, todo == CHUNK_SWEEP);
+            if (tid == 0) {
+                s_ctl[0] = next;
+                s_ctl[1] = s.step;
+            }
         }
         __syncthreads();
-        if (tid == 0) {
-            float a_max = fminf(fit_cap(a, s_ask, c), (float)remaining);
-            float chunk = fminf(fmaxf((float)first_loser(s_lose), 1.0f),
-                                a_max);
-            if (!valid) chunk = 0.0f;
-            int chunk_i = (int)chunk;
-            place(a, s_ask, c, chunk);
-            o.choice[step] = valid ? c : -1;
-            o.chunk[step] = chunk_i;
-            s_ctl[0] = remaining - chunk_i;
-            s_ctl[1] = valid ? 1 : 0;
-        }
-        __syncthreads();
-        remaining = s_ctl[0];
-        alive = s_ctl[1] != 0;
-        step += 1;
+        todo = s_ctl[0];
+        at = s_ctl[1];
     }
     if (tid == 0) {
-        o.rem_steps[0] = remaining;
-        o.rem_steps[1] = step;
+        o.rem_steps[0] = s.remaining;
+        o.rem_steps[1] = s.step;
     }
 }
 
-__global__ void __launch_bounds__(NT) chunked_kernel(LocalArgs a, ChunkedOut o) {
-    chunked_body(a, o);
+// Step 0's sweep across the card's SMs: block (g, b) writes masked for
+// rows [g * PRE_NT, (g + 1) * PRE_NT) of lane b (`lanes`: the batched
+// kernel's LocalLanes; null for one request) and its counts of first
+// failing dimensions and ok rows into part[(b * gridDim.x + g) *
+// (D_MAX + 1) + k] (k < D_MAX a dimension, D_MAX the ok rows).
+__global__ void __launch_bounds__(PRE_NT) chunked_sweep_kernel(
+        LocalArgs a0, LocalLanes l, bool lanes, int* part) {
+    __shared__ float s_ask[D_MAX];
+    __shared__ int s_sum[PRE_NT / 32][D_MAX + 1];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int b = blockIdx.y;
+    const LocalArgs a = lanes ? local_lane(a0, l, b) : a0;
+    if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
+    __syncthreads();
+    Sweep r{};
+    const int x = blockIdx.x * PRE_NT + tid;
+    if (x < a.n) a.masked[x] = local_row(a, s_ask, x, r);
+#pragma unroll
+    for (int k = 0; k <= D_MAX; ++k) {
+        const int v = warp_sum(k < D_MAX ? r.cnt[k] : r.okc);
+        if (lane == 0) s_sum[warp][k] = v;
+    }
+    __syncthreads();
+    if (tid <= D_MAX) {
+        int t = 0;
+        for (int w = 0; w < PRE_NT / 32; ++w) t += s_sum[w][tid];
+        part[((size_t)b * gridDim.x + blockIdx.x) * (D_MAX + 1) + tid] = t;
+    }
+}
+
+// The pre-pass's blocks a lane, and the ints of its counts over `lanes`
+// lanes (the wrappers' scratch, kernels.py _chunked_part).
+static inline int chunked_parts(int n) { return (n + PRE_NT - 1) / PRE_NT; }
+
+__global__ void __launch_bounds__(NT) chunked_kernel(LocalArgs a, ChunkedOut o,
+                                                     const int* part,
+                                                     int parts) {
+    chunked_body(a, o, part, parts);
 }
 
 // _chunked_batched_jit (select.py:597): one block per lane. A lane whose
@@ -153,9 +419,11 @@ __global__ void __launch_bounds__(NT) chunked_kernel(LocalArgs a, ChunkedOut o) 
 // their initial values, as a vmapped while_loop keeps a finished lane's
 // state.
 __global__ void __launch_bounds__(NT) chunked_batched_kernel(
-        LocalArgs a, ChunkedOut o, LocalLanes l) {
+        LocalArgs a, ChunkedOut o, LocalLanes l, const int* part,
+        int parts) {
     const int b = blockIdx.x;
-    chunked_body(local_lane(a, l, b), chunked_out_lane(o, b, a));
+    chunked_body(local_lane(a, l, b), chunked_out_lane(o, b, a),
+                 part + (size_t)b * parts * (D_MAX + 1), parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -496,8 +764,10 @@ extern "C" int nomad_select_chunked(
         float* masked, int n, int d, int k_valid, int max_steps,
         int spread_alg, float desired, float port_need, float dev_fires,
         int* out_choice, int* out_chunk, int* out_ti, float* out_ts,
-        int* out_exh, int* out_feas, int* rem_steps, void* stream) {
-    if (n < TOP_K || d < 2 || d > D_MAX)
+        int* out_exh, int* out_feas, int* rem_steps, int* part,
+        int part_ints, void* stream) {
+    const int parts = chunked_parts(n);
+    if (n < TOP_K || d < 2 || d > D_MAX || part_ints < parts * (D_MAX + 1))
         return (int)cudaErrorInvalidValue;
     LocalArgs a = {capacity, used, feasible, ask, coll, penalty, affinity,
                    free_p, port_ok, dev_slots, dev_score, pre_score, masked,
@@ -505,7 +775,12 @@ extern "C" int nomad_select_chunked(
                    desired, port_need, dev_fires};
     ChunkedOut o = {out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
                     rem_steps};
-    chunked_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(a, o);
+    chunked_sweep_kernel<<<dim3(parts, 1), PRE_NT, 0,
+                           (cudaStream_t)stream>>>(a, LocalLanes{}, false,
+                                                   part);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    chunked_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(a, o, part, parts);
     return (int)cudaGetLastError();
 }
 
@@ -593,8 +868,11 @@ extern "C" int nomad_select_chunked_batched(
         int spread_alg, const int* k_valid, const float* desired,
         const float* port_need, const float* dev_fires,
         int* out_choice, int* out_chunk, int* out_ti, float* out_ts,
-        int* out_exh, int* out_feas, int* rem_steps, void* stream) {
-    if (lanes < 1 || n < TOP_K || d < 2 || d > D_MAX)
+        int* out_exh, int* out_feas, int* rem_steps, int* part,
+        int part_ints, void* stream) {
+    const int parts = chunked_parts(n);
+    if (lanes < 1 || n < TOP_K || d < 2 || d > D_MAX
+            || part_ints < lanes * parts * (D_MAX + 1))
         return (int)cudaErrorInvalidValue;
     LocalArgs a = {capacity, used, feasible, ask, coll, penalty, affinity,
                    free_p, port_ok, dev_slots, dev_score, pre_score, masked,
@@ -602,7 +880,12 @@ extern "C" int nomad_select_chunked_batched(
     ChunkedOut o = {out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
                     rem_steps};
     LocalLanes l = {k_valid, desired, port_need, dev_fires};
-    chunked_batched_kernel<<<lanes, NT, 0, (cudaStream_t)stream>>>(a, o, l);
+    chunked_sweep_kernel<<<dim3(parts, lanes), PRE_NT, 0,
+                           (cudaStream_t)stream>>>(a, l, true, part);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    chunked_batched_kernel<<<lanes, NT, 0, (cudaStream_t)stream>>>(
+        a, o, l, part, parts);
     return (int)cudaGetLastError();
 }
 

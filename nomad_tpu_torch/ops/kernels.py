@@ -73,6 +73,8 @@ TOP_K = 5       # ScoreMetaData entries kept (reference kheap topK)
 CHUNK_J = 256   # max instances placed on one node per chunked step
 W_MAX = 128     # widest K-way phase the kernel takes
 D_MAX = 8       # widest resource vector the kernels take
+CHUNK_PRE_ROWS = 256   # rows a block of the chunked kernels' step-0 sweep
+                       # (select_kernels.cu PRE_NT)
 
 LAUNCHES: Dict[str, int] = {"chunked": 0, "kway": 0, "scan": 0,
                             "chunked_batched": 0, "kway_batched": 0,
@@ -785,11 +787,12 @@ _XCHG = [_P] * 7 + [_I] * 2 + [_P]
 # shard, stream
 _SCAN_XCHG = [_P] * 2 + [_I] * 2 + [_P]
 _ARGTYPES = {
-    "nomad_select_chunked": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P] * 8,
+    "nomad_select_chunked": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P] * 8
+    + [_I, _P],
     "nomad_select_kway": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P, _P, _P],
     "nomad_select_scan": [_P] * 30 + [_I] * 7 + [_F] * 6 + [_P] * 14,
     "nomad_select_chunked_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
-    + [_P] * 8,
+    + [_P] * 8 + [_I, _P],
     "nomad_select_kway_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_I, _P, _P, _P],
     "nomad_select_scan_batched": [_P] * 30 + [_I] * 7 + [_P] * 7
@@ -974,6 +977,15 @@ def _stream(device) -> int:
         torch.cuda.current_device() if index is None else index)
 
 
+def _chunked_part(lanes: int, n: int, device) -> torch.Tensor:
+    """The chunked kernels' scratch for their step-0 sweep's counts: a
+    block's D_MAX first-failing-dimension counts and its ok rows, for
+    each block of CHUNK_PRE_ROWS rows of each lane."""
+    blocks = -(-n // CHUNK_PRE_ROWS)
+    return torch.empty(lanes * blocks * (D_MAX + 1), dtype=torch.int32,
+                       device=device)
+
+
 def select_chunked(capacity, used0, feasible, ask, k_valid, tg_coll0,
                    penalty, affinity_norm, desired_count, port_need,
                    free_ports, port_ok, dev_slots0, dev_score, dev_fires,
@@ -998,14 +1010,15 @@ def select_chunked(capacity, used0, feasible, ask, k_valid, tg_coll0,
     out_exh = torch.empty((max_steps, d), **i32)
     out_feas = torch.empty(max_steps, **i32)
     rem_steps = torch.empty(2, **i32)
+    part = _chunked_part(1, n, dev)
     lib = load_library()
     rc = lib.nomad_select_chunked(
         *[t.data_ptr() for t in ptrs], n, d, int(k_valid), int(max_steps),
         int(bool(spread_alg)), float(desired_count), float(port_need),
         float(dev_fires),
         *[t.data_ptr() for t in (out_choice, out_chunk, out_ti, out_ts,
-                                 out_exh, out_feas, rem_steps)],
-        _stream(dev))
+                                 out_exh, out_feas, rem_steps, part)],
+        part.numel(), _stream(dev))
     _raise_on(rc, "chunked")
     LAUNCHES["chunked"] += 1
     return carry, (out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
@@ -1251,13 +1264,14 @@ def select_chunked_batched(*, max_steps: int, spread_alg: bool, **a):
     out_exh = torch.empty((b, max_steps, d), **i32)
     out_feas = torch.empty((b, max_steps), **i32)
     rem_steps = torch.empty((b, 2), **i32)
+    part = _chunked_part(b, n, dev)
     lib = load_library()
     rc = lib.nomad_select_chunked_batched(
         *[t.data_ptr() for t in ptrs], b, n, d, int(max_steps),
         int(bool(spread_alg)), *_at(lane),
         *[t.data_ptr() for t in (out_choice, out_chunk, out_ti, out_ts,
-                                 out_exh, out_feas, rem_steps)],
-        _stream(dev))
+                                 out_exh, out_feas, rem_steps, part)],
+        part.numel(), _stream(dev))
     _raise_on(rc, "chunked_batched")
     LAUNCHES["chunked_batched"] += 1
     return carry, (out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,

@@ -1,10 +1,15 @@
 """What the kernel profile scripts share: a copy of the kernels' sources
-with `clock64()` probes inserted at exact-text anchors, and the kernels'
-library built from a copy of the sources and made current.
+with `clock64()` probes inserted at exact-text anchors, the kernels'
+library built from a copy of the sources and made current, one
+instrumented call's probe sums, and the A/B of builds of several copies
+of the sources.
 
-Imported by scripts/profile_scan.py and scripts/profile_sharded_kway.py
-(run from the repository's root as `python3 scripts/<name>.py`)."""
+Imported by scripts/profile_scan.py, scripts/profile_chunked.py and
+scripts/profile_sharded_kway.py (run from the repository's root as
+`python3 scripts/<name>.py`)."""
 
+import ctypes
+import json
 import re
 import shutil
 import subprocess
@@ -55,6 +60,80 @@ def load(kernels, src: Path, build: Path):
     kernels.HEADERS = tuple(src / p.name for p in kernels.HEADERS)
     kernels.BUILD_DIR = build
     return kernels.load_library()
+
+
+def flat(got) -> list:
+    """A wrapper's result, (carry, outputs), as one list of tensors."""
+    return list(got[0]) + list(got[1])
+
+
+def same(want, got) -> bool:
+    """Two lists of tensors equal bit for bit."""
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+def probe_sums(kernels, lib, run, want, slots: int, label: str):
+    """The probes' sums (g_prof, `slots` words) of one call of `run` with
+    the instrumented library `lib` made current, after a first call whose
+    outputs must equal `want` (the plain build's, flat) bit for bit."""
+    import torch
+    kernels._LIB = lib
+    got = flat(run())
+    torch.cuda.synchronize()
+    if not same(want, got):
+        raise SystemExit(f"profile: {label}: the instrumented kernel's "
+                         f"outputs differ")
+    lib.nomad_prof_reset()
+    run()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * slots)()
+    lib.nomad_prof_read(buf)
+    return buf
+
+
+def compare_builds(cs, kernels, srcs, build: Path, todo, rounds: int,
+                   info, graph: bool = False) -> None:
+    """The A/B of the kernels built from each directory of sources in
+    `srcs` (into `build`/i): at each case (label, wrapper, arguments,
+    keyword arguments) of `todo`, every build's outputs held bit for bit
+    against the first's, then the builds timed `rounds` rounds in turn,
+    in reverse order every other round. One line `COMPARE {json}` a case:
+    `info(first build's flat outputs, keyword arguments)` (the steps it
+    ran), and each build's median, least and most time, by CUDA events
+    around a call (`ms`, each a median of 7) and, with `graph`, as device
+    time from calls replayed from a CUDA graph (`graph_ms`)."""
+    import statistics
+    import torch
+    names = [s.name for s in srcs]
+    libs = [load(kernels, s, build / str(i)) for i, s in enumerate(srcs)]
+    clocks = dict(ms=cs.cuda_ms)
+    if graph:
+        clocks["graph_ms"] = lambda fn: cs.graph_ms(fn, launches=10)
+    for label, run, targs, kw in todo:
+        call = lambda: run(**targs, **kw)   # noqa: E731
+        outs = []
+        for lib in libs:
+            kernels._LIB = lib
+            outs.append(flat(call()))
+            torch.cuda.synchronize()
+        for name, got in zip(names[1:], outs[1:]):
+            if not same(outs[0], got):
+                raise SystemExit(f"compare: {label}: {name}'s outputs "
+                                 f"differ from {names[0]}'s")
+        spent = {c: [[] for _ in libs] for c in clocks}
+        for r in range(rounds):
+            order = list(range(len(libs)))
+            for i in order if r % 2 == 0 else order[::-1]:
+                kernels._LIB = libs[i]
+                for c, clock in clocks.items():
+                    spent[c][i].append(clock(call))
+        row = dict(case=label, **info(outs[0], kw), rounds=rounds)
+        for c in clocks:
+            row[c] = {n: dict(median=statistics.median(t), least=min(t),
+                              most=max(t))
+                      for n, t in zip(names, spent[c])}
+        print("COMPARE " + json.dumps(row), flush=True)
 
 
 def ptxas_report(kernels, source: str, kernel: str) -> str:

@@ -90,8 +90,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-from profile_common import PROBE_ACCESS, copy_sources, insert, load, \
-    local_memory, ptxas_report
+from profile_common import PROBE_ACCESS, compare_builds, copy_sources, \
+    flat, insert, load, local_memory, probe_sums, ptxas_report
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -268,12 +268,7 @@ def cases(cs, kernels, S):
                        dict(kw, shards=8), False)
 
 
-def flat(got):
-    return list(got[0]) + list(got[1])
-
-
 def profile(cs, kernels, S, root: Path) -> None:
-    import torch
     print(f"root {root}; ptxas, scan_kernel: "
           f"{ptxas_report(kernels, 'select_kernels.cu', 'scan_kernel')}",
           flush=True)
@@ -291,18 +286,8 @@ def profile(cs, kernels, S, root: Path) -> None:
         row = dict(case=label, k_steps=k, steps_run=ran, ms=ms,
                    us_a_step=ms / k * 1e3, us_a_step_run=ms / ran * 1e3)
         if profiled:
-            kernels._LIB = prof_lib
-            probed = run(**targs, **kw)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b)
-                       for a, b in zip(flat(got), flat(probed))):
-                raise SystemExit(f"profile: {label}: the instrumented "
-                                 f"kernel's outputs differ")
-            prof_lib.nomad_prof_reset()
-            run(**targs, **kw)
-            torch.cuda.synchronize()
-            buf = (ctypes.c_ulonglong * SLOTS)()
-            prof_lib.nomad_prof_read(buf)
+            buf = probe_sums(kernels, prof_lib, lambda: run(**targs, **kw),
+                             flat(got), SLOTS, label)
             per = max(int(buf[STEPS_AT]), 1)
             over = max(int(buf[OVERLAP_AT]), 1)
             cycles = {name: buf[i] / per for i, name in enumerate(SECTIONS)}
@@ -317,10 +302,6 @@ def profile(cs, kernels, S, root: Path) -> None:
 
 
 def compare(cs, kernels, S, srcs, rounds: int, sharded: bool) -> None:
-    import torch
-    build = REPO / "nomad_tpu_torch" / "_build" / "compare"
-    names = [s.name for s in srcs]
-    libs = [load(kernels, s, build / str(i)) for i, s in enumerate(srcs)]
     if sharded:
         todo = [(f"row {row}: {label}, S {shards}", run, targs, kw)
                 for label, row, shards, run, targs, kw
@@ -330,29 +311,11 @@ def compare(cs, kernels, S, srcs, rounds: int, sharded: bool) -> None:
         todo = [(label, run, targs, kw)
                 for label, run, targs, kw, in_body in cases(cs, kernels, S)
                 if in_body]
-    for label, run, targs, kw in todo:
-        outs = []
-        for lib in libs:
-            kernels._LIB = lib
-            outs.append(flat(run(**targs, **kw)))
-            torch.cuda.synchronize()
-        for name, got in zip(names[1:], outs[1:]):
-            if not all(torch.equal(a, b) for a, b in zip(outs[0], got)):
-                raise SystemExit(f"compare: {label}: {name}'s outputs "
-                                 f"differ from {names[0]}'s")
-        times = [[] for _ in libs]
-        for r in range(rounds):
-            order = list(range(len(libs)))
-            for i in order if r % 2 == 0 else order[::-1]:
-                kernels._LIB = libs[i]
-                times[i].append(cs.cuda_ms(lambda: run(**targs, **kw)))
-        # the choices: the first of the 13 outputs after the carry
-        ran = cs.scan_steps_run(outs[0][-13], kw["k_steps"])
-        print("COMPARE " + json.dumps(dict(
-            case=label, steps_run=ran, rounds=rounds,
-            ms={n: dict(median=statistics.median(t), least=min(t),
-                        most=max(t)) for n, t in zip(names, times)})),
-            flush=True)
+    # the choices: the first of the 13 outputs after the carry
+    compare_builds(cs, kernels, srcs,
+                   REPO / "nomad_tpu_torch" / "_build" / "compare", todo,
+                   rounds, lambda out, kw: dict(steps_run=cs.scan_steps_run(
+                       out[-13], kw["k_steps"])))
 
 
 # -- the node-sharded scan ----------------------------------------------------
@@ -663,17 +626,8 @@ def sharded(cs, kernels, S, root: Path, times_only: bool) -> None:
             continue
         kernels._LIB = plain_lib
         want = flat(run(**targs, **kw))
-        kernels._LIB = prof_lib
-        got = flat(run(**targs, **kw))
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(want, got)):
-            raise SystemExit(f"profile: 10a S {shards}: the instrumented "
-                             f"kernel's outputs differ")
-        prof_lib.nomad_prof_reset()
-        run(**targs, **kw)
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * SLOTS)()
-        prof_lib.nomad_prof_read(buf)
+        buf = probe_sums(kernels, prof_lib, lambda: run(**targs, **kw),
+                         want, SLOTS, f"10a S {shards}")
         rounds = max(int(buf[STEPS_AT]), 1)
         out = dict(row=row, shards=shards, rounds=int(buf[STEPS_AT]),
                    cycles_a_round={nm: buf[i] / rounds

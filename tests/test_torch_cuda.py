@@ -13,6 +13,8 @@ from test_torch_device_table import EDGE_CASES, edge_inputs, set_case
 from test_torch_kway import EDGE_CASES as KWAY_EDGE_CASES
 from test_torch_kway import kway_edge_args
 from nomad_tpu_torch.mock.kway_edges import pad_rows
+from nomad_tpu_torch.mock.chunked_edges import (
+    CHUNKED_EDGES, CHUNKED_LANES, chunked_edge_args, chunked_lanes)
 from nomad_tpu_torch.mock.scan_edges import (
     SCAN_EDGES, edge_case as scan_edge_case, lanes_batch as scan_lanes_batch,
     mixed_lanes as scan_mixed_lanes)
@@ -310,6 +312,119 @@ def test_kway_batched_mixed_lanes_on_card(cuda):
                                               **kw)
         _assert_equal([t[i] for t in got[0]], s_carry)
         _assert_equal([t[i] for t in got[1]], s_outs)
+
+
+def _chunked_launches(targs, kw, count, launches=4):
+    """The chunked kernel as SelectKernel's loop runs it: each launch after
+    the first continues from the carry the last one left on the card, and
+    a first launch that drains the count is followed by one continuation
+    (half the count, from its carry) all the same; every launch equal to
+    chunked_plain bit for bit. Returns the (steps, remaining) a launch."""
+    args, trail = dict(targs), []
+    for launch in range(launches):
+        got = kernels.select_chunked(**args, **kw)
+        torch.cuda.synchronize()
+        want = kernels.chunked_plain(**args, **kw)
+        _assert_equal(got[0], want[0])
+        _assert_equal(got[1], want[1])
+        rem, steps = int(got[1][6]), int(got[1][7])
+        trail.append((steps, rem))
+        if rem <= 0 or steps == 0 or int(got[1][1][steps - 1]) == 0:
+            if launch > 0:
+                break
+            rem = max(count // 2, 1)
+        used, coll, freep, devs = got[0]
+        args.update(used0=used, tg_coll0=coll, free_ports=freep,
+                    dev_slots0=devs, k_valid=rem)
+    return trail
+
+
+@pytest.mark.parametrize("spread_alg", [False, True])
+@pytest.mark.parametrize("label", sorted(CHUNKED_EDGES))
+def test_chunked_edge_shapes_on_card(cuda, label, spread_alg):
+    """The chunked kernel (kept list, one step warp, streams that stop at
+    their first loser, step 0 across the SMs) at the edge shapes of
+    CHUNKED_EDGES at their card rows, with SelectKernel's step budget and
+    continuation launches from the card's own carry: every launch equal to
+    chunked_plain bit for bit."""
+    count = CHUNKED_EDGES[label][2]
+    targs = _on(cuda, chunked_edge_args(label, seed=2, card=True))
+    kw = dict(max_steps=64 if count <= 64 else 512, spread_alg=spread_alg)
+    trail = _chunked_launches(targs, kw, count)
+    assert len(trail) >= 2
+
+
+@pytest.mark.parametrize("spread_alg", [False, True])
+def test_chunked_short_budget_continues_on_card(cuda, spread_alg):
+    """A budget of 8 steps a launch on the all-alike table: many launches,
+    each from the card's own carry, every one bit for bit."""
+    targs = _on(cuda, chunked_edge_args("all alike, count 512", seed=3,
+                                        card=True))
+    trail = _chunked_launches(targs, dict(max_steps=8, spread_alg=spread_alg),
+                              512, launches=6)
+    assert len(trail) == 6 and all(s == 8 for s, _ in trail)
+
+
+@pytest.mark.parametrize("spread_alg", [False, True])
+def test_chunked_batched_mixed_lanes_on_card(cuda, spread_alg):
+    """Eight chunked lanes over one table at 400 rows, one that runs dry
+    and one with no feasible row: the batched launch equals the batched
+    plain version and each lane's solo kernel, exactly."""
+    targs = _on(cuda, chunked_lanes(400, CHUNKED_LANES, seed=4))
+    kw = dict(max_steps=512, spread_alg=spread_alg)
+    got = kernels.select_chunked_batched(**targs, **kw)
+    torch.cuda.synchronize()
+    want = kernels.chunked_batched_plain(**targs, **kw)
+    _assert_equal(got[0], want[0])
+    _assert_equal(got[1], want[1])
+    for i in range(len(CHUNKED_LANES)):
+        s_carry, s_outs = kernels.select_chunked(
+            **kernels.lane_args(targs, i), **kw)
+        _assert_equal([t[i] for t in got[0]], s_carry)
+        _assert_equal([t[i] for t in got[1]], s_outs)
+    assert int(got[1][6][2]) > 0
+
+
+def test_chunked_wrappers_make_no_synchronising_call(cuda):
+    """The chunked wrappers (two launches each) never synchronise."""
+    solo = _on(cuda, chunked_edge_args("runs dry", seed=5, card=True))
+    lanes = _on(cuda, chunked_lanes(400, CHUNKED_LANES, seed=5))
+    kw = dict(max_steps=512, spread_alg=False)
+    kernels.select_chunked(**solo, **kw)
+    kernels.select_chunked_batched(**lanes, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.select_chunked(**solo, **kw)
+        kernels.select_chunked_batched(**lanes, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_harness_without_device_places_on_card(cuda):
+    """The port's Harness() with no device names the card: a service job
+    over 48 nodes goes through the chunked kernel there."""
+    from nomad_tpu_torch import mock, models
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.utils.ids import generate_uuid
+    h = Harness()
+    for i in range(48):
+        node = mock.node()
+        node.name = f"node-{i}"
+        h.store.upsert_node(h.next_index(), node)
+    job = mock.job()
+    h.store.upsert_job(h.next_index(), job)
+    ev = models.Evaluation(
+        id=generate_uuid(), namespace=job.namespace, priority=job.priority,
+        triggered_by=models.TRIGGER_JOB_REGISTER, job_id=job.id,
+        status=models.EVAL_STATUS_PENDING, type=job.type)
+    before = kernels.LAUNCHES["chunked"]
+    h.process("service", ev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chunked"] > before
+    allocs = h.store.allocs_by_job(job.namespace, job.id)
+    assert len(allocs) == job.task_groups[0].count
 
 
 @pytest.mark.parametrize("kind", ["chunked", "kway", "scan"])
