@@ -126,20 +126,28 @@ Phases (each raises on failure, so the process exits non-zero):
   9. the mesh's gateways: the batched node-sharded kernels (chunked-,
      scan- and K-way-batched over B lanes of S shards, B * S blocks) at
      10,000 nodes and the main shapes of phase 6, with 8 shards (and the
-     scan's grid kernel at 32), then 2, 32 (the scan: 2, 16, 32) and the
-     most the card holds (32 shards of 8 chunked lanes exceed the card, so
-     the lanes of a cooperative kernel launch in groups; the scan's
-     cluster kernel takes every lane in one launch): every launch held
-     exactly against its plain version and against the single-card
-     batched kernel on the same padded lanes, and with an 8-phase budget
-     every K-way lane continued on the single-card solo kernel from the
-     batched carry; CUDA-event medians of the kernel (and us a step or
-     phase of the longest lane), the single-card batched kernel and the
-     plain version, and the bound as phase 6 counts it. Then phase 7's
-     gateway groups under set_mesh(make_mesh(8)) on a fresh store, and
-     its spread group under set_mesh(make_mesh(32)): placements identical
-     to the single-card groups', each batched sharded kernel of the
-     mesh's route launched and no single-card batched kernel.
+     chunked and scan grid kernels at 32), then 2, 32 (the scan and the
+     chunked kernels: 2, 16, 32) and the most the card holds (32 shards
+     of 8 lanes exceed the card, so the lanes of a cooperative kernel
+     launch in groups; the cluster kernels take every lane in one launch):
+     every launch held exactly against its plain version and against the
+     single-card batched kernel on the same padded lanes, and with an
+     8-phase budget every K-way lane continued on the single-card solo
+     kernel from the batched carry; CUDA-event medians of the kernel (and
+     us a step or phase of the longest lane), the single-card batched
+     kernel and the plain version, and the bound as phase 6 counts it; for
+     the chunked kernels also the device time of a CUDA-graph replay
+     beside the single card's and the handoffs a lane, B 8 lanes of count
+     512 and the all-alike table (one lane of count 512, binpack and
+     spread) at 8 shards, and CHUNKED_EDGES (one lane each, binpack and
+     spread) and CHUNKED_LANES (an 8-step budget) at 2, 8, 16, 32 and the
+     most shards, every launch and a continuation from the card's carry
+     bit for bit against the plain version and the single-card batched
+     kernel. Then phase 7's gateway groups under set_mesh(make_mesh(8)) on
+     a fresh store, and its chunked and spread groups under
+     set_mesh(make_mesh(32)): placements identical to the single-card
+     groups', each batched sharded kernel of the mesh's route launched
+     and no single-card batched kernel.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -200,6 +208,7 @@ REPLACES = {
     "scan_sharded": "nomad_tpu/parallel/sharded.py:73",
     "kway_sharded": "nomad_tpu/ops/select.py:1870",
     # the batched programs SPMD over the mesh (select_many, select.py:1966)
+    "chunked_batched_cluster": "nomad_tpu/ops/select.py:597",
     "chunked_batched_sharded": "nomad_tpu/ops/select.py:597",
     "kway_batched_sharded": "nomad_tpu/ops/select.py:785",
     "scan_batched_cluster": "nomad_tpu/ops/select.py:395",
@@ -219,24 +228,31 @@ SOURCE = {arm: "nomad_tpu_torch/ops/csrc/select_kernels.cu"
           for arm in SELECT_ARMS + BATCHED}
 SOURCE.update({k: "nomad_tpu_torch/ops/csrc/table_kernels.cu"
                for k in TABLE_KERNELS})
-# the sharded scan's two kernels, the route the library fixes by S
-# (kernels.scan_sharded_info): a thread-block cluster a lane
-# ("scan_cluster", "scan_batched_cluster": scan_batched_cluster_kernel), the
-# cooperative grid past the shards a cluster takes ("scan_sharded",
-# "scan_batched_sharded": scan_batched_sharded_kernel)
+# the sharded scan's and chunked kernels' two kernels each, the route the
+# library fixes by S (kernels.scan_sharded_info, chunked_sharded_info): a
+# thread-block cluster a lane ("scan_cluster", "scan_batched_cluster":
+# scan_batched_cluster_kernel; "chunked_batched_cluster":
+# chunked_batched_cluster_kernel), the cooperative grid past the shards a
+# cluster takes ("scan_sharded", "scan_batched_sharded":
+# scan_batched_sharded_kernel; "chunked_batched_sharded":
+# chunked_batched_sharded_kernel)
 SHARDED = ("scan_cluster", "scan_sharded", "kway_sharded")
-BATCHED_SHARDED = ("chunked_batched_sharded", "scan_batched_cluster",
-                   "scan_batched_sharded", "kway_batched_sharded")
+BATCHED_SHARDED = ("chunked_batched_cluster", "chunked_batched_sharded",
+                   "scan_batched_cluster", "scan_batched_sharded",
+                   "kway_batched_sharded")
+# the batched sharded kernels of the grid route, whose main path is the
+# MESH_GRID mesh's
+GRID_ROUTE = ("scan_batched_sharded", "chunked_batched_sharded")
 SOURCE.update({k: "nomad_tpu_torch/ops/csrc/sharded_kernels.cu"
                for k in SHARDED + BATCHED_SHARDED})
-# the mesh of the main path, the mesh whose scans take the sharded scan's
-# grid path (its own main path), and the other shard counts timed beside
-# them (with the most the card holds at once; the scan at 16 too, the
-# cluster path's largest)
+# the mesh of the main path, the mesh whose scans and batched chunked
+# lanes take the grid route (its own main path), and the other shard counts
+# timed beside them (with the most the card holds at once; the scan and
+# the chunked kernels at 16 too, the cluster route's largest)
 MESH_SHARDS = 8
 MESH_GRID = 32
 MESH_SWEEP = (2, 32)
-SCAN_SWEEP = (2, 16, 32)
+CLUSTER_SWEEP = (2, 16, 32)
 # phase 6's main shapes: (kernel, lane counts, variant)
 BATCHED_MAIN = (("chunked_batched", [10] * 8, ""),
                 ("scan_batched", [200] * 4, "one_spread"),
@@ -688,9 +704,11 @@ def kway_edge_checks():
 
 def mesh_shard_counts(device, kernel):
     """The shard counts the mesh phases run: MESH_SHARDS, MESH_SWEEP (the
-    scan's SCAN_SWEEP) and the most the card holds at once."""
+    scan's and the chunked kernels' CLUSTER_SWEEP) and the most the card
+    holds at once."""
     from nomad_tpu_torch.ops import kernels
-    sweep = SCAN_SWEEP if kernel.startswith("scan") else MESH_SWEEP
+    sweep = CLUSTER_SWEEP if kernel.startswith(("scan", "chunked")) \
+        else MESH_SWEEP
     grid = "scan_sharded" if kernel.startswith("scan") else kernel
     return sorted(set((MESH_SHARDS,) + sweep
                       + (kernels.max_shards(grid, device),)))
@@ -703,6 +721,14 @@ def scan_route(shards, per, batched=False):
     route = "cluster" if kernels.scan_sharded_info(
         shards, per)["route"] == "cluster" else "sharded"
     return f"scan_batched_{route}" if batched else f"scan_{route}"
+
+
+def chunked_route(shards):
+    """The LAUNCHES key of the sharded chunked kernel that S shards take,
+    as the library routes them."""
+    from nomad_tpu_torch.ops import kernels
+    route = kernels.chunked_sharded_info(shards)["route"]
+    return f"chunked_batched_{'cluster' if route == 'cluster' else 'sharded'}"
 
 
 def kway_sharded_edge_checks(device):
@@ -792,6 +818,97 @@ def kway_sharded_edge_checks(device):
     print("kernel kway_batched_sharded mixed lanes: every launch equal to "
           "the plain version and the single-card batched kernel bit for "
           "bit (shards, lanes' counts left after each 8-phase launch): "
+          f"{trails}", flush=True)
+
+
+def chunk_handoffs(choice, steps, per):
+    """A sharded chunked lane's handoffs: its steps whose winner lies in
+    another shard than the last step's (one exchange each)."""
+    rows = [int(c) for c in choice[:steps] if int(c) >= 0]
+    return sum(1 for a, b in zip(rows, rows[1:]) if a // per != b // per)
+
+
+def held_chunked_sharded(targs, kw, shards, label, launches=2):
+    """Batched sharded chunked launches as SelectKernel continues a lane:
+    each launch after the first from the carry the last one left on the
+    card (a first launch that drains every lane is followed by one from its
+    carry all the same, at half the counts), every launch held exactly
+    against its plain version and the single-card batched kernel, on the
+    kernel of the route the library gives for S and no other. Returns each
+    launch's (steps, remaining) a lane."""
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    name, args, trail = chunked_route(shards), dict(targs), []
+    for launch in range(launches):
+        before = kernels.LAUNCHES[name]
+        got = kernels.select_chunked_batched_sharded(**args, **kw,
+                                                     shards=shards)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[name] == before:
+            fail(f"{label}: {name} not launched")
+        tag = f"{label} launch {launch}"
+        for what, other in (
+                ("plain", kernels.chunked_batched_sharded_plain(
+                    **args, **kw, shards=shards)),
+                ("single card", kernels.select_chunked_batched(**args,
+                                                               **kw))):
+            compare(f"{tag} carry vs {what}", got[0], other[0], 0.0)
+            compare(f"{tag} outputs vs {what}", got[1], other[1], 0.0)
+        rem, steps = got[1][6], got[1][7]
+        trail.append(list(zip(steps.tolist(), rem.tolist())))
+        left = rem.clamp(min=0).to(torch.int32)
+        if int(left.sum()) == 0:
+            left = (args["k_valid"] // 2).clamp(min=1).to(torch.int32)
+        used, coll, freep, devs = got[0]
+        args.update(used0=used, tg_coll0=coll, free_ports=freep,
+                    dev_slots0=devs, k_valid=left)
+    return trail
+
+
+def chunked_sharded_edge_checks(device):
+    """The sharded chunked kernels at CHUNKED_EDGES' card rows (one lane,
+    binpack and spread, SelectKernel's step budget) and at CHUNKED_LANES
+    over 10,000 rows (an 8-step budget), at every shard count of the mesh
+    phases, each table padded as a mesh of S shards pads it: every launch,
+    and a continuation from the card's own carry, held bit for bit against
+    the plain version and the single-card batched kernel."""
+    from nomad_tpu_torch.mock.chunked_edges import (
+        CHUNKED_EDGES, CHUNKED_LANES, chunked_edge_args, chunked_lanes,
+        edge_rows, one_lane, pad_lanes)
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shard_counts = mesh_shard_counts(device, "chunked_batched_sharded")
+    held = []
+    for i, label in enumerate(CHUNKED_EDGES):
+        count = CHUNKED_EDGES[label][2]
+        for shards in shard_counts:
+            n_pad = pad_for_mesh(make_mesh(shards, device),
+                                 edge_rows(label, card=True))
+            targs = _card(one_lane(chunked_edge_args(
+                label, SEED + 60 + i, card=True, n_pad=n_pad)))
+            for spread_alg in (False, True):
+                kw = dict(max_steps=64 if count <= 64 else 512,
+                          spread_alg=spread_alg)
+                trail = held_chunked_sharded(
+                    targs, kw, shards, f"chunked sharded edge {label} "
+                    f"(shards {shards}, spread_alg {spread_alg})")
+                held.append((label, shards, spread_alg,
+                             [t[0] for t in trail]))
+    print("kernel chunked sharded edge shapes: every launch equal to the "
+          "plain version and the single-card batched kernel bit for bit "
+          "(label, shards, spread_alg, (steps, left) a launch): "
+          f"{held}", flush=True)
+    trails = []
+    for shards in shard_counts:
+        n_pad = pad_for_mesh(make_mesh(shards, device), MAIN_NODES)
+        targs = _card(pad_lanes(chunked_lanes(MAIN_NODES, CHUNKED_LANES,
+                                              SEED + 70), n_pad))
+        trail = held_chunked_sharded(
+            targs, dict(max_steps=8, spread_alg=False), shards,
+            f"chunked sharded mixed lanes (shards {shards})", launches=4)
+        trails.append((shards, [[left for _s, left in t] for t in trail]))
+    print("kernel chunked sharded mixed lanes: every launch equal to the "
+          "plain version and the single-card batched kernel bit for bit "
+          "(shards, lanes' counts left after each 8-step launch): "
           f"{trails}", flush=True)
 
 
@@ -1867,7 +1984,7 @@ def sharded_kernel_phase(device):
     shards (and the scan's grid path at MESH_GRID) against their plain
     versions (every launch of the K-way loop) and the solo kernel,
     exactly, and timed beside both; at every other shard count of
-    MESH_SWEEP (the scan's SCAN_SWEEP) and the card's most, against the
+    MESH_SWEEP (the scan's CLUSTER_SWEEP) and the card's most, against the
     MESH_SHARDS result on the real rows, exactly, and timed."""
     import torch
     from nomad_tpu_torch.ops import kernels, select as S
@@ -2144,40 +2261,56 @@ def mesh_phase(device, nodes, jobs, single_places, single_walls, steps,
 
 def batched_sharded_kernel_phase(device):
     """The batched node-sharded kernels at phase 6's main shapes, at
-    MESH_SHARDS and every count of MESH_SWEEP (the scan's SCAN_SWEEP):
+    MESH_SHARDS and every count of MESH_SWEEP (the scan's and the chunked
+    kernels' CLUSTER_SWEEP):
     each call held exactly against its plain version and the single-card
     batched kernel on the same padded lanes; timed beside both (the plain
-    version at MESH_SHARDS, and for the scan's grid path at MESH_GRID)."""
+    version at MESH_SHARDS, and for the grid routes at MESH_GRID). The
+    chunked kernels also at B 8 of count 512 and on the all-alike table
+    (one lane of count 512, binpack and spread) at MESH_SHARDS, and at the
+    edge shapes (chunked_sharded_edge_checks)."""
     import torch
+    from nomad_tpu_torch.mock.chunked_edges import one_lane
+    from nomad_tpu_torch.mock.kway_edges import kway_edge_args, pad_rows
     from nomad_tpu_torch.ops import kernels, select as S
     from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
     from nomad_tpu_torch.state.carry import select_request_from_arrays
     sk = S.SelectKernel(device)
     n = MAIN_NODES
     rows = []
-    for case, (kind, counts, variant) in enumerate(BATCHED_MAIN):
+    extra = [("chunked_batched", [512] * 8, "", [MESH_SHARDS]),
+             ("chunked_batched", [512], "alike binpack", [MESH_SHARDS]),
+             ("chunked_batched", [512], "alike spread", [MESH_SHARDS])]
+    for case, (kind, counts, variant, shard_list) in enumerate(
+            [(k, c, v, None) for k, c, v in BATCHED_MAIN] + extra):
         base = kind[:-len("_batched")]
-        fields = lane_batch(base, counts, SEED + 500 + 100 * case, variant)
+        alike = variant.startswith("alike")
+        fields = [{}] if alike else lane_batch(
+            base, counts, SEED + 500 + 100 * case, variant)
         run = getattr(kernels, f"select_{kind}_sharded")
         plain = getattr(kernels, f"{kind}_sharded_plain")
         single = getattr(kernels, "select_" + kind)
         most = kernels.max_shards(kind + "_sharded", device)
-        for shards in [MESH_SHARDS] + [
+        for shards in shard_list or [MESH_SHARDS] + [
                 x for x in mesh_shard_counts(device, kind + "_sharded")
                 if x != MESH_SHARDS]:
             n_pad = pad_for_mesh(make_mesh(shards, device), n)
             name = scan_route(shards, n_pad // shards, True) \
-                if base == "scan" else kind + "_sharded"
-            main = shards == MESH_SHARDS or (
-                name == "scan_batched_sharded" and shards == MESH_GRID)
+                if base == "scan" else chunked_route(shards) \
+                if base == "chunked" else kind + "_sharded"
+            main = (shards == MESH_SHARDS and shard_list is None) or (
+                name in GRID_ROUTE and shards == MESH_GRID)
             packs, s_live, p_live = [], 0, 0
-            for f in fields:
+            for f in [] if alike else fields:
                 args, st = S.pack_request(select_request_from_arrays(f),
                                           n_pad)
                 packs.append(args)
                 s_live = max(s_live, st["s_live"])
                 p_live = max(p_live, st["p_live"])
-            if kind == "scan_batched":
+            if alike:
+                kw = dict(max_steps=512, spread_alg=variant.endswith(
+                    "spread"))
+            elif kind == "scan_batched":
                 names = S._SCAN_ARGS
                 kw = dict(k_steps=S._bucket_k(max(counts)),
                           spread_alg=st["spread_alg"], s_live=s_live,
@@ -2192,15 +2325,17 @@ def batched_sharded_kernel_phase(device):
                 kw = dict(max_steps=64 if max(counts) <= 64 else 512,
                           spread_alg=st["spread_alg"])
             skw = dict(kw, shards=shards)
-            targs = sk._tensors(S.SelectKernel._stack_lanes(packs, names),
-                                names)
+            targs = _card(one_lane(pad_rows(kway_edge_args(
+                n, 512, "alike", SEED + 60), n_pad))) if alike \
+                else sk._tensors(S.SelectKernel._stack_lanes(packs, names),
+                                 names)
             label = (f"{name} n={n} lanes={len(counts)} count={counts[0]} "
-                     f"shards={shards}")
+                     f"shards={shards}{' ' + variant if variant else ''}")
             before = kernels.LAUNCHES[name]
             got = run(**targs, **skw)
             torch.cuda.synchronize()
             launches = kernels.LAUNCHES[name] - before
-            groups = 1 if name == "scan_batched_cluster" \
+            groups = 1 if name.endswith("_cluster") \
                 else -(-len(counts) // (most // shards))
             if launches != groups:
                 fail(f"{label}: {launches} launches, expected {groups}")
@@ -2215,7 +2350,7 @@ def batched_sharded_kernel_phase(device):
                       compare(f"{label} outputs vs single card", got[1],
                               ref[1], 0.0))
             nbytes = rows_bytes([targs["capacity"]], n, n_pad)
-            f32 = f64 = longest = 0
+            f32 = f64 = longest = handoffs = 0
             for i, f in enumerate(fields):
                 lane = kernels.lane_args(targs, i)
                 g_carry = [t[i] for t in got[0]]
@@ -2226,6 +2361,8 @@ def batched_sharded_kernel_phase(device):
                     steps = int(g_outs[0][0, -1])
                 else:
                     steps = int(g_outs[7])
+                    handoffs += chunk_handoffs(g_outs[0], steps,
+                                               n_pad // shards)
                 longest = max(longest, steps)
                 b, o32, o64 = lane_bound(kind, lane, g_carry, g_outs, n,
                                          n_pad, steps, kw,
@@ -2239,6 +2376,14 @@ def batched_sharded_kernel_phase(device):
                        max_abs_err=err,
                        ms=cuda_ms(lambda: run(**targs, **skw)),
                        solo_ms=cuda_ms(lambda: single(**targs, **kw)))
+            if variant:
+                row["variant"] = variant
+            if base == "chunked":
+                row.update(handoffs_a_lane=handoffs / len(fields),
+                           graph_ms=graph_ms(lambda: run(**targs, **skw),
+                                             launches=10),
+                           solo_graph_ms=graph_ms(
+                               lambda: single(**targs, **kw), launches=10))
             if main:
                 row["plain_ms"] = cuda_ms(lambda: plain(**targs, **skw),
                                           reps=3)
@@ -2259,6 +2404,13 @@ def batched_sharded_kernel_phase(device):
                           f"run in the longest lane, "
                           f"{row['ms'] / row['steps_run'] * 1e3:.1f} us "
                           f"each")
+            if base == "chunked":
+                row.update(kernels.chunked_sharded_info(shards))
+                extra += (f"; {row['route']} route (the card holds "
+                          f"{row['max_clusters']} such clusters), "
+                          f"{row['handoffs_a_lane']:.2f} handoffs a lane; "
+                          f"device {row['graph_ms']:.4f} ms, single card "
+                          f"{row['solo_graph_ms']:.4f} ms")
             print(f"kernel {label} (n_pad {n_pad}, {launches} launch"
                   f"{'es' if launches > 1 else ''}, the card holds {most} "
                   f"blocks): equal to its plain version and the single-card "
@@ -2270,24 +2422,24 @@ def batched_sharded_kernel_phase(device):
                   f"bound {row['bound_ms']:.6f} ms", flush=True)
             if kind == "kway_batched" and main:
                 kway_continuations(targs, kw, run, plain, label, shards)
+    chunked_sharded_edge_checks(device)
     return rows
 
 
 def mesh_gateway_phase(nodes, mock, models, single_groups):
     """Phase 7's gateway groups with the mesh set at MESH_SHARDS shards, on
-    a fresh store, then its scan-batched group (group 2) at MESH_GRID
-    shards (the sharded scan's grid path); fails unless they place as the
-    single card's groups did, launch every batched sharded kernel of their
-    route and no single-card batched kernel. Returns the launches of the
-    two runs."""
+    a fresh store, then its chunked and scan-batched groups (groups 1 and
+    2) at MESH_GRID shards (the grid routes); fails unless they place as
+    the single card's groups did, launch every batched sharded kernel of
+    their route and no single-card batched kernel. Returns the launches of
+    the two runs."""
     from nomad_tpu_torch.ops import kernels
     from nomad_tpu_torch.ops.select import mesh_stats_snapshot, set_mesh
     from nomad_tpu_torch.parallel import make_mesh
     groups = gateway_groups(mock, models)
     runs = [(MESH_SHARDS, groups, single_groups,
-             [k for k in BATCHED_SHARDED if k != "scan_batched_sharded"]),
-            (MESH_GRID, groups[1:2], single_groups[1:2],
-             ["scan_batched_sharded"])]
+             [k for k in BATCHED_SHARDED if k not in GRID_ROUTE]),
+            (MESH_GRID, groups[:2], single_groups[:2], list(GRID_ROUTE))]
     out = {}
     for shards, mine, singles, names in runs:
         try:
@@ -2314,8 +2466,7 @@ def mesh_gateway_phase(nodes, mock, models, single_groups):
                 fail(f"{label} on {shards} shards: placements differ from "
                      f"the single card's")
             gate = "BatchGateway" if kind == "batch" else "MicroBatchGateway"
-            name = next(k for k in names if k.startswith(arm)) \
-                if arm == "scan_batched" else arm + "_sharded"
+            name = next(k for k in names if k.startswith(arm))
             print(f"mesh gateway {label} ({len(jobs)} lanes, {gate}, "
                   f"{name} over {shards} shards): {g['wall']:.3f} s "
                   f"on the card, {c['wall']:.3f} s on the single card; "
@@ -2382,9 +2533,9 @@ def main():
                                steady_gpu)
     bs_rows = batched_sharded_kernel_phase("cuda")
     mesh_gw_launches = mesh_gateway_phase(nodes, mock, models, gateway_gpu)
-    # each sharded kernel's launches on its main path: the sharded scan's
-    # grid kernel on the MESH_GRID mesh's, every other on MESH_SHARDS'
-    grid = ("scan_sharded", "scan_batched_sharded")
+    # each sharded kernel's launches on its main path: the grid route's
+    # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
+    grid = ("scan_sharded",) + GRID_ROUTE
 
     record = []
     for arm in SELECT_ARMS:
@@ -2468,10 +2619,12 @@ def main():
             library_ms=None, solo_ms=top["solo_ms"], shards=top["shards"],
             max_blocks=top["max_blocks"],
             shapes=[{k: r[k] for k in (
-                "n", "n_pad", "lanes", "counts", "shards", "launches_held",
-                "main", "steps", "steps_run", "route", "ms", "us_per_step",
-                "solo_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err") if k in r} for r in mine]))
+                "n", "n_pad", "lanes", "counts", "shards", "variant",
+                "launches_held", "main", "steps", "steps_run", "route",
+                "max_clusters", "handoffs_a_lane", "ms", "graph_ms",
+                "us_per_step",
+                "solo_ms", "solo_graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err") if k in r} for r in mine]))
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

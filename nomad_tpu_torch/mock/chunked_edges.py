@@ -38,10 +38,11 @@ def _pad_n(n: int) -> int:
     return p
 
 
-def chunked_edge_args(label, seed, card=False):
+def chunked_edge_args(label, seed, card=False, n_pad=None):
     """The chunked kernel's arguments (numpy, by `select._CHUNKED_ARGS`
     name) of the edge case `label` of CHUNKED_EDGES, seeded, over its CPU
-    or (`card`) its card rows, padded."""
+    or (`card`) its card rows, padded as `select.pack_request` pads them
+    or, given `n_pad` (a mesh's padding, `pad_for_mesh`), to n_pad rows."""
     n_cpu, n_card, count, kind, keep = CHUNKED_EDGES[label]
     n = n_card if card else n_cpu
     if kind in ("tie_low", "tie_high"):
@@ -63,7 +64,7 @@ def chunked_edge_args(label, seed, card=False):
         if kind == "room":
             row = np.flatnonzero(a["feasible"])[0]
             a["capacity"][row, :2] = 1e6
-    return pad_rows(a, _pad_n(n))
+    return pad_rows(a, _pad_n(n) if n_pad is None else n_pad)
 
 
 # a batch of 8 lanes: (count, kind, feasible rows); lane 2 runs dry (its
@@ -99,4 +100,44 @@ def chunked_lanes(n, specs, seed):
             out[k] = np.stack([a[k] for a in lanes])
         else:
             out[k] = np.array([a[k] for a in lanes], np.float32)
+    return out
+
+
+def edge_rows(label, card=False):
+    """The rows of edge case `label` before any padding."""
+    return CHUNKED_EDGES[label][1 if card else 0]
+
+
+def one_lane(args):
+    """One request's arguments as a batch of one lane: arrays with a lane
+    axis (the shared capacity without), k_valid as int32 [1] and the other
+    scalars as float32 [1]."""
+    out = {}
+    for k, v in args.items():
+        if k == "capacity":
+            out[k] = v
+        elif isinstance(v, np.ndarray) and v.ndim >= 1:
+            out[k] = v[None]
+        else:
+            out[k] = np.array([v], np.int32 if k == "k_valid"
+                              else np.float32)
+    return out
+
+
+def pad_lanes(args, n_pad):
+    """A batch of chunked_lanes' arguments over n_pad rows, each lane's rows
+    past the table's own zero: infeasible, as a mesh pads its table so that
+    each shard holds equal rows (`pad_rows`, lane by lane)."""
+    n = args["capacity"].shape[0]
+    out = dict(args)
+    for k, a in args.items():
+        if k == "capacity":
+            pad = np.zeros((n_pad,) + a.shape[1:], a.dtype)
+            pad[:n] = a
+        elif k != "ask" and isinstance(a, np.ndarray) and a.ndim >= 2:
+            pad = np.zeros(a.shape[:1] + (n_pad,) + a.shape[2:], a.dtype)
+            pad[:, :n] = a
+        else:
+            continue
+        out[k] = pad
     return out

@@ -366,14 +366,6 @@ __device__ __forceinline__ float local_score(
         aff, desired, spread_alg, dev_score, dev_fires, pre);
 }
 
-// Index of the first losing sub-placement in one CHUNK_J-long score
-// stream, from its per-warp ballots of losers (CHUNK_J if none loses).
-__device__ __forceinline__ int first_loser(const unsigned* lose) {
-    for (int k = 0; k < CHUNK_J / 32; ++k)
-        if (lose[k]) return k * 32 + __ffs(lose[k]) - 1;
-    return CHUNK_J;
-}
-
 // Inputs shared by the node-local kernels (chunked and K-way).
 struct LocalArgs {
     const float* capacity;   // [n, d]
@@ -460,6 +452,42 @@ __device__ __forceinline__ Sweep local_sweep_rows(const LocalArgs& a,
     for (int dd = 0; dd < D_MAX; ++dd) r.cnt[dd] = 0;
     for (int x = lo + threadIdx.x; x < hi; x += NT)
         a.masked[x] = local_row(a, s_ask, x, r);
+    return r;
+}
+
+// The chunked kernels' carries as the caller passed them. Their step-0
+// sweep copies each row it reads into LocalArgs' carries (the launch's own,
+// fresh outputs), so the wrappers launch no copy of their own.
+struct LocalCarry {
+    const float* used;       // [n, d]
+    const int* coll;         // [n]
+    const float* free_p;     // [n]
+    const float* dev_slots;  // [n]
+};
+
+// Row x's carries copied from the caller's into the launch's own.
+__device__ __forceinline__ void copy_carry(const LocalCarry& c,
+                                           const LocalArgs& a, int x) {
+    for (int dd = 0; dd < a.d; ++dd)
+        a.used[x * a.d + dd] = c.used[x * a.d + dd];
+    a.coll[x] = c.coll[x];
+    a.free_p[x] = c.free_p[x];
+    a.dev_slots[x] = c.dev_slots[x];
+}
+
+// local_sweep_rows, each row's carries first copied from c.
+__device__ __forceinline__ Sweep local_sweep_copy(const LocalArgs& a,
+                                                  const LocalCarry& c,
+                                                  const float* s_ask,
+                                                  int lo, int hi) {
+    Sweep r;
+    r.okc = 0;
+#pragma unroll
+    for (int dd = 0; dd < D_MAX; ++dd) r.cnt[dd] = 0;
+    for (int x = lo + threadIdx.x; x < hi; x += NT) {
+        copy_carry(c, a, x);
+        a.masked[x] = local_row(a, s_ask, x, r);
+    }
     return r;
 }
 
@@ -1644,7 +1672,8 @@ struct ChunkedOut {
     float* ts;     // [max_steps, 5]
     int* exh;      // [max_steps, d]
     int* feas;     // [max_steps]
-    int* rem_steps;  // [2]: remaining, steps
+    int* rem;      // [1]: remaining
+    int* steps;    // [1]: steps run
 };
 
 // Per-lane scalars of the batched node-local kernels.
@@ -1684,6 +1713,16 @@ __device__ __forceinline__ LocalArgs local_lane(LocalArgs a,
     return a;
 }
 
+__device__ __forceinline__ LocalCarry carry_lane(LocalCarry c,
+                                                const LocalArgs& a, int b) {
+    const size_t n = a.n, nd = (size_t)a.n * a.d;
+    c.used += b * nd;
+    c.coll += b * n;
+    c.free_p += b * n;
+    c.dev_slots += b * n;
+    return c;
+}
+
 __device__ __forceinline__ ChunkedOut chunked_out_lane(ChunkedOut o, int b,
                                                        const LocalArgs& a) {
     const size_t ms = a.max_steps;
@@ -1693,7 +1732,8 @@ __device__ __forceinline__ ChunkedOut chunked_out_lane(ChunkedOut o, int b,
     o.ts += b * ms * TOP_K;
     o.exh += b * ms * a.d;
     o.feas += b * ms;
-    o.rem_steps += (size_t)b * 2;
+    o.rem += b;
+    o.steps += b;
     return o;
 }
 
@@ -1779,4 +1819,223 @@ __device__ __forceinline__ ScanOut scan_out_lane(ScanOut o, int b,
     o.exh += b * k * a.d;
     o.ok_count += b * k;
     return o;
+}
+
+// ---------------------------------------------------------------------------
+// The chunked step (PR 12's body, select_kernels.cu chunked_body): a kept
+// top-m list of masked, and one warp that runs step after step from it.
+// The single-card kernels keep one list over the whole table; the
+// node-sharded kernels (sharded_kernels.cu) one a shard, whose owner runs
+// the steps its rows win.
+// ---------------------------------------------------------------------------
+#define CHUNK_M 256    // the kept list's most entries (at most TOPK_CAND)
+
+// What the step warp's block does next, as the warp hands it over.
+#define CHUNK_END 0
+#define CHUNK_SWEEP 1     // sweep masked for a step's counts, then a list
+                          // (sharded: the lane's top is invalid)
+#define CHUNK_REBUILD 2   // the list again from masked
+#define CHUNK_HANDOFF 3   // sharded: another shard's head is the best
+
+// The step warp's state: the list's first entry and length (its entries
+// at lv[h], ..., lv[h + len - 1]), the next step, the count left, and
+// whether the last step was valid.
+struct ChunkState {
+    int h, len, step, remaining;
+    bool alive;
+};
+
+// The kept list after its first entry, row c, was rescored to sv (one
+// warp, every lane): c put back where (sv, c) ranks, the entries ranked
+// above it moved one place up, or dropped when it ranks below the last
+// entry (unless the list holds every row, `whole`).
+__device__ __forceinline__ void chunk_list_update(float* lv, int* li,
+                                                  ChunkState& s, float sv,
+                                                  int c, bool whole) {
+    const int lane = threadIdx.x & 31;
+    const int last = s.h + s.len - 1;
+    if (!whole && !better(sv, c, lv[last], li[last])) {
+        s.h += 1;
+        s.len -= 1;
+        return;
+    }
+    // r: the entries after the first that rank above (sv, c), a prefix
+    int r = 0;
+    for (int k0 = 1; k0 < s.len; k0 += 32) {
+        const int k = k0 + lane;
+        const unsigned above = __ballot_sync(
+            0xffffffffu, k < s.len && better(lv[s.h + k], li[s.h + k], sv, c));
+        r += __popc(above);
+        if (above != 0xffffffffu) break;
+    }
+    for (int k0 = 0; k0 < r; k0 += 32) {
+        const int k = k0 + lane;
+        float v = 0.0f;
+        int i = 0;
+        if (k < r) {
+            v = lv[s.h + 1 + k];
+            i = li[s.h + 1 + k];
+        }
+        __syncwarp();
+        if (k < r) {
+            lv[s.h + k] = v;
+            li[s.h + k] = i;
+        }
+    }
+    __syncwarp();
+    if (lane == 0) {
+        lv[s.h + r] = sv;
+        li[s.h + r] = c;
+    }
+}
+
+// Row c as the step warp holds it: lane dd < d its dimension dd's used
+// and capacity (0 past d), every lane the row's other columns.
+struct ChunkRow {
+    float used, cap, free_p, dev_slots, aff, dev_score, pre;
+    int coll;
+    bool feasible, port_ok, pen;
+};
+
+__device__ __forceinline__ ChunkRow chunk_row(const LocalArgs& a, int c) {
+    const int lane = threadIdx.x & 31;
+    ChunkRow r;
+    r.used = lane < a.d ? a.used[c * a.d + lane] : 0.0f;
+    r.cap = lane < a.d ? a.capacity[c * a.d + lane] : 0.0f;
+    r.free_p = a.free_p[c];
+    r.dev_slots = a.dev_slots[c];
+    r.aff = a.affinity[c];
+    r.dev_score = a.dev_score[c];
+    r.pre = a.pre_score[c];
+    r.coll = a.coll[c];
+    r.feasible = a.feasible[c] != 0;
+    r.port_ok = a.port_ok[c] != 0;
+    r.pen = a.penalty[c] != 0;
+    return r;
+}
+
+// The step warp, every lane: steps from s.step on, each from the list's
+// first two entries, until the loop ends, the list is short or a step is
+// invalid without its counts (`meta`: the block swept at this step, and
+// wrote its counts and top-5). A step loads the winner's row once into the
+// warp (chunk_row) and computes from it, with the shared pieces of
+// fit_cap, sub_score, place and local_row in their operation order: a_max
+// by one dimension a lane; the stream CHUNK_ROUND sub-placements a round,
+// the two powers of one on a lane pair; the placed row's new masked score
+// as local_row gives it, its two powers on lanes 0 and 1. Returns what the
+// block does next. SH (the node-sharded kernels): the list is the shard's,
+// and (ov, oi) the best head of the lane's other shards, which no step of
+// this shard changes; the warp hands off once that head ranks above its
+// own, and takes the runner-up as the better of its second entry and that
+// head (both exact: each list is the exact top of its shard's rows).
+#define CHUNK_ROUND 16
+template <bool SH>
+__device__ __forceinline__ int chunked_steps(const LocalArgs& a,
+                                             const ChunkedOut& o,
+                                             const float* s_ask, float* lv,
+                                             int* li, ChunkState& s,
+                                             bool whole, bool meta,
+                                             float ov = -INFINITY,
+                                             int oi = INT_MAX) {
+    const int lane = threadIdx.x & 31, half = lane & 1;
+    const bool dim = lane < a.d;
+    const float ask = s_ask[dim ? lane : 0];
+    for (;; meta = false) {
+        if (!(s.remaining > 0 && s.alive && s.step < a.max_steps))
+            return CHUNK_END;
+        if constexpr (SH) {
+            if (s.len > 0 && !better(lv[s.h], li[s.h], ov, oi))
+                return CHUNK_HANDOFF;
+        }
+        if (s.len < 2) return CHUNK_REBUILD;
+        const float tv = lv[s.h];
+        const int c = li[s.h];
+        float rv = lv[s.h + 1];
+        int ri = li[s.h + 1];
+        if constexpr (SH) {
+            if (!better(rv, ri, ov, oi)) {
+                rv = ov;
+                ri = oi;
+            }
+        }
+        if (!(tv > HALF_NEG_INF)) {
+            if (!meta) return CHUNK_SWEEP;
+            // no feasible row: chunk 0, choice -1 as initialised
+            s.step += 1;
+            s.alive = false;
+            continue;
+        }
+        if (!meta) {
+            if (dim) o.exh[s.step * a.d + lane] = -1;
+            if (lane == 0) o.feas[s.step] = -1;
+        }
+        const ChunkRow r = chunk_row(a, c);
+        float m_fit = dim ? fit_dim(r.cap, r.used, ask) : INFINITY;
+        for (int off = 16; off > 0; off >>= 1)
+            m_fit = fminf(m_fit, __shfl_xor_sync(0xffffffffu, m_fit, off));
+        const float a_max = fminf(fit_rest(m_fit, r.free_p, a.port_need,
+                                           r.dev_slots),
+                                  (float)s.remaining);
+        // the chunk: the winner's stream against the runner-up, walked up
+        // to its first loser or past a_max (every chunk is capped there);
+        // lanes 2k and 2k + 1 hold sub-placement j0 + k's cpu and mem
+        const float u_h = __shfl_sync(0xffffffffu, r.used, half);
+        const float cap_h = fmaxf(__shfl_sync(0xffffffffu, r.cap, half),
+                                  1e-9f);
+        const float ask_h = s_ask[half];
+        int f = CHUNK_J;
+        for (int j0 = 0; j0 < CHUNK_J; j0 += CHUNK_ROUND) {
+            if (!((float)j0 < a_max)) {
+                f = j0;
+                break;
+            }
+            const float jf = (float)(j0 + (lane >> 1));
+            const float p = free_pow(sub_after(u_h, jf, ask_h), cap_h);
+            const float q = __shfl_xor_sync(0xffffffffu, p, 1);
+            const float fj = local_score_of(
+                half ? q + p : p + q, (float)r.coll + jf, r.pen, r.aff,
+                a.desired, a.spread_alg, r.dev_score, a.dev_fires, r.pre);
+            const unsigned lose = __ballot_sync(
+                0xffffffffu, !(fj > rv || (fj == rv && c < ri)))
+                & 0x55555555u;
+            if (lose) {
+                f = j0 + ((__ffs(lose) - 1) >> 1);
+                break;
+            }
+        }
+        const float chunk = fminf(fmaxf((float)f, 1.0f), a_max);
+        const int chunk_i = (int)chunk;
+        // place, then the row's masked score as local_row gives it
+        const float used = placed_used(r.used, chunk, ask);
+        const float free_p = placed_ports(r.free_p, chunk, a.port_need);
+        const float dev_slots = placed_slots(r.dev_slots, chunk);
+        const int coll = r.coll + chunk_i;
+        if (dim) a.used[c * a.d + lane] = used;
+        const float after = used + ask;
+        const unsigned fits = __ballot_sync(0xffffffffu,
+                                            dim && dim_fits(after, r.cap));
+        float sv = NEG_INF;
+        if (row_feasible(r.feasible, free_p, a.port_need, r.port_ok,
+                         dev_slots) && fits == (1u << a.d) - 1u) {
+            const float p = free_pow(after, fmaxf(r.cap, 1e-9f));
+            sv = local_score_of(
+                __shfl_sync(0xffffffffu, p, 0)
+                    + __shfl_sync(0xffffffffu, p, 1),
+                (float)coll, r.pen, r.aff, a.desired, a.spread_alg,
+                r.dev_score, a.dev_fires, r.pre);
+        }
+        if (lane == 0) {
+            a.coll[c] = coll;
+            a.free_p[c] = free_p;
+            a.dev_slots[c] = dev_slots;
+            a.masked[c] = sv;
+            o.choice[s.step] = c;
+            o.chunk[s.step] = chunk_i;
+        }
+        chunk_list_update(lv, li, s, sv, c, whole);
+        // the list, the row's carries and masked before the next step
+        __syncwarp();
+        s.remaining -= chunk_i;
+        s.step += 1;
+    }
 }

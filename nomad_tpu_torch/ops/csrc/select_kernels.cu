@@ -68,8 +68,9 @@
 //     two give the same bits;
 //   * step 0's sweep runs across the card's SMs: chunked_sweep_kernel, one
 //     row a thread, launched just before the body on the same stream,
-//     writes masked and each of its blocks' counts; the body adds the
-//     counts up (integer sums: exact in any order);
+//     copies each row's carries from the caller's (LocalCarry) into the
+//     launch's own, writes masked and each of its blocks' counts; the body
+//     adds the counts up (integer sums: exact in any order);
 //   * the winner and the runner-up are the first two entries of a kept
 //     list: the top-CHUNK_M of masked in (score desc, row asc) order, made
 //     by block_topk_radix (NEG_INF ties in row order; step 0's top-5 are
@@ -95,197 +96,11 @@
 // radix list. The list's length and the pre-pass were chosen by A/B
 // (scripts/profile_chunked.py --compare; PERF.md §6).
 // ---------------------------------------------------------------------------
-#define CHUNK_M 256    // the kept list's most entries (at most TOPK_CAND)
 #define PRE_NT 256     // chunked_sweep_kernel's threads, one row each
 
-// What chunked_body's block does next, as the step warp hands it over.
-#define CHUNK_END 0
-#define CHUNK_SWEEP 1     // sweep masked for a step's counts, then a list
-#define CHUNK_REBUILD 2   // the list again from masked
-
-// The step warp's state: the list's first entry and length (its entries
-// at lv[h], ..., lv[h + len - 1]), the next step, the count left, and
-// whether the last step was valid.
-struct ChunkState {
-    int h, len, step, remaining;
-    bool alive;
-};
-
-// The kept list after its first entry, row c, was rescored to sv (one
-// warp, every lane): c put back where (sv, c) ranks, the entries ranked
-// above it moved one place up, or dropped when it ranks below the last
-// entry (unless the list holds every row, `whole`).
-__device__ __forceinline__ void chunk_list_update(float* lv, int* li,
-                                                  ChunkState& s, float sv,
-                                                  int c, bool whole) {
-    const int lane = threadIdx.x & 31;
-    const int last = s.h + s.len - 1;
-    if (!whole && !better(sv, c, lv[last], li[last])) {
-        s.h += 1;
-        s.len -= 1;
-        return;
-    }
-    // r: the entries after the first that rank above (sv, c), a prefix
-    int r = 0;
-    for (int k0 = 1; k0 < s.len; k0 += 32) {
-        const int k = k0 + lane;
-        const unsigned above = __ballot_sync(
-            0xffffffffu, k < s.len && better(lv[s.h + k], li[s.h + k], sv, c));
-        r += __popc(above);
-        if (above != 0xffffffffu) break;
-    }
-    for (int k0 = 0; k0 < r; k0 += 32) {
-        const int k = k0 + lane;
-        float v = 0.0f;
-        int i = 0;
-        if (k < r) {
-            v = lv[s.h + 1 + k];
-            i = li[s.h + 1 + k];
-        }
-        __syncwarp();
-        if (k < r) {
-            lv[s.h + k] = v;
-            li[s.h + k] = i;
-        }
-    }
-    __syncwarp();
-    if (lane == 0) {
-        lv[s.h + r] = sv;
-        li[s.h + r] = c;
-    }
-}
-
-// Row c as the step warp holds it: lane dd < d its dimension dd's used
-// and capacity (0 past d), every lane the row's other columns.
-struct ChunkRow {
-    float used, cap, free_p, dev_slots, aff, dev_score, pre;
-    int coll;
-    bool feasible, port_ok, pen;
-};
-
-__device__ __forceinline__ ChunkRow chunk_row(const LocalArgs& a, int c) {
-    const int lane = threadIdx.x & 31;
-    ChunkRow r;
-    r.used = lane < a.d ? a.used[c * a.d + lane] : 0.0f;
-    r.cap = lane < a.d ? a.capacity[c * a.d + lane] : 0.0f;
-    r.free_p = a.free_p[c];
-    r.dev_slots = a.dev_slots[c];
-    r.aff = a.affinity[c];
-    r.dev_score = a.dev_score[c];
-    r.pre = a.pre_score[c];
-    r.coll = a.coll[c];
-    r.feasible = a.feasible[c] != 0;
-    r.port_ok = a.port_ok[c] != 0;
-    r.pen = a.penalty[c] != 0;
-    return r;
-}
-
-// Warp 0 of chunked_body, every lane: steps from s.step on, each from the
-// list's first two entries, until the loop ends, the list is short or a
-// step is invalid without its counts (`meta`: the block swept at this
-// step, and wrote its counts and top-5). A step loads the winner's row
-// once into the warp (chunk_row) and computes from it, with the shared
-// pieces of fit_cap, sub_score, place and local_row in their operation
-// order: a_max by one dimension a lane; the stream CHUNK_ROUND
-// sub-placements a round, the two powers of one on a lane pair; the
-// placed row's new masked score as local_row gives it, its two powers on
-// lanes 0 and 1. Returns what the block does next.
-#define CHUNK_ROUND 16
-__device__ __forceinline__ int chunked_steps(const LocalArgs& a,
-                                             const ChunkedOut& o,
-                                             const float* s_ask, float* lv,
-                                             int* li, ChunkState& s,
-                                             bool whole, bool meta) {
-    const int lane = threadIdx.x & 31, half = lane & 1;
-    const bool dim = lane < a.d;
-    const float ask = s_ask[dim ? lane : 0];
-    for (;; meta = false) {
-        if (!(s.remaining > 0 && s.alive && s.step < a.max_steps))
-            return CHUNK_END;
-        if (s.len < 2) return CHUNK_REBUILD;
-        const float tv = lv[s.h], rv = lv[s.h + 1];
-        const int c = li[s.h], ri = li[s.h + 1];
-        if (!(tv > HALF_NEG_INF)) {
-            if (!meta) return CHUNK_SWEEP;
-            // no feasible row: chunk 0, choice -1 as initialised
-            s.step += 1;
-            s.alive = false;
-            continue;
-        }
-        if (!meta) {
-            if (dim) o.exh[s.step * a.d + lane] = -1;
-            if (lane == 0) o.feas[s.step] = -1;
-        }
-        const ChunkRow r = chunk_row(a, c);
-        float m_fit = dim ? fit_dim(r.cap, r.used, ask) : INFINITY;
-        for (int off = 16; off > 0; off >>= 1)
-            m_fit = fminf(m_fit, __shfl_xor_sync(0xffffffffu, m_fit, off));
-        const float a_max = fminf(fit_rest(m_fit, r.free_p, a.port_need,
-                                           r.dev_slots),
-                                  (float)s.remaining);
-        // the chunk: the winner's stream against the runner-up, walked up
-        // to its first loser or past a_max (every chunk is capped there);
-        // lanes 2k and 2k + 1 hold sub-placement j0 + k's cpu and mem
-        const float u_h = __shfl_sync(0xffffffffu, r.used, half);
-        const float cap_h = fmaxf(__shfl_sync(0xffffffffu, r.cap, half),
-                                  1e-9f);
-        const float ask_h = s_ask[half];
-        int f = CHUNK_J;
-        for (int j0 = 0; j0 < CHUNK_J; j0 += CHUNK_ROUND) {
-            if (!((float)j0 < a_max)) {
-                f = j0;
-                break;
-            }
-            const float jf = (float)(j0 + (lane >> 1));
-            const float p = free_pow(sub_after(u_h, jf, ask_h), cap_h);
-            const float q = __shfl_xor_sync(0xffffffffu, p, 1);
-            const float fj = local_score_of(
-                half ? q + p : p + q, (float)r.coll + jf, r.pen, r.aff,
-                a.desired, a.spread_alg, r.dev_score, a.dev_fires, r.pre);
-            const unsigned lose = __ballot_sync(
-                0xffffffffu, !(fj > rv || (fj == rv && c < ri)))
-                & 0x55555555u;
-            if (lose) {
-                f = j0 + ((__ffs(lose) - 1) >> 1);
-                break;
-            }
-        }
-        const float chunk = fminf(fmaxf((float)f, 1.0f), a_max);
-        const int chunk_i = (int)chunk;
-        // place, then the row's masked score as local_row gives it
-        const float used = placed_used(r.used, chunk, ask);
-        const float free_p = placed_ports(r.free_p, chunk, a.port_need);
-        const float dev_slots = placed_slots(r.dev_slots, chunk);
-        const int coll = r.coll + chunk_i;
-        if (dim) a.used[c * a.d + lane] = used;
-        const float after = used + ask;
-        const unsigned fits = __ballot_sync(0xffffffffu,
-                                            dim && dim_fits(after, r.cap));
-        float sv = NEG_INF;
-        if (row_feasible(r.feasible, free_p, a.port_need, r.port_ok,
-                         dev_slots) && fits == (1u << a.d) - 1u) {
-            const float p = free_pow(after, fmaxf(r.cap, 1e-9f));
-            sv = local_score_of(
-                __shfl_sync(0xffffffffu, p, 0)
-                    + __shfl_sync(0xffffffffu, p, 1),
-                (float)coll, r.pen, r.aff, a.desired, a.spread_alg,
-                r.dev_score, a.dev_fires, r.pre);
-        }
-        if (lane == 0) {
-            a.coll[c] = coll;
-            a.free_p[c] = free_p;
-            a.dev_slots[c] = dev_slots;
-            a.masked[c] = sv;
-            o.choice[s.step] = c;
-            o.chunk[s.step] = chunk_i;
-        }
-        chunk_list_update(lv, li, s, sv, c, whole);
-        // the list, the row's carries and masked before the next step
-        __syncwarp();
-        s.remaining -= chunk_i;
-        s.step += 1;
-    }
-}
+// The kept list, its update and the step warp (ChunkState,
+// chunk_list_update, chunked_steps) live in select_common.cuh: the
+// node-sharded chunked kernels run the same step on their owner's warp.
 
 // The body of one request: the solo kernel runs it once, the batched kernel
 // once per block, each block on its own lane. `part` holds the pre-pass's
@@ -357,8 +172,8 @@ __device__ __forceinline__ void chunked_body(const LocalArgs& a,
             __syncwarp();
             s.h = 0;
             s.len = m;
-            const int next = chunked_steps(a, o, s_ask, s_lv, s_li, s,
-                                           m == a.n, todo == CHUNK_SWEEP);
+            const int next = chunked_steps<false>(
+                a, o, s_ask, s_lv, s_li, s, m == a.n, todo == CHUNK_SWEEP);
             if (tid == 0) {
                 s_ctl[0] = next;
                 s_ctl[1] = s.step;
@@ -369,18 +184,19 @@ __device__ __forceinline__ void chunked_body(const LocalArgs& a,
         at = s_ctl[1];
     }
     if (tid == 0) {
-        o.rem_steps[0] = s.remaining;
-        o.rem_steps[1] = s.step;
+        o.rem[0] = s.remaining;
+        o.steps[0] = s.step;
     }
 }
 
-// Step 0's sweep across the card's SMs: block (g, b) writes masked for
+// Step 0's sweep across the card's SMs: block (g, b) copies the carries of
 // rows [g * PRE_NT, (g + 1) * PRE_NT) of lane b (`lanes`: the batched
-// kernel's LocalLanes; null for one request) and its counts of first
-// failing dimensions and ok rows into part[(b * gridDim.x + g) *
-// (D_MAX + 1) + k] (k < D_MAX a dimension, D_MAX the ok rows).
+// kernel's LocalLanes; null for one request) from c0 into the launch's
+// own, writes their masked, and its counts of first failing dimensions and
+// ok rows into part[(b * gridDim.x + g) * (D_MAX + 1) + k] (k < D_MAX a
+// dimension, D_MAX the ok rows).
 __global__ void __launch_bounds__(PRE_NT) chunked_sweep_kernel(
-        LocalArgs a0, LocalLanes l, bool lanes, int* part) {
+        LocalArgs a0, LocalCarry c0, LocalLanes l, bool lanes, int* part) {
     __shared__ float s_ask[D_MAX];
     __shared__ int s_sum[PRE_NT / 32][D_MAX + 1];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -390,7 +206,10 @@ __global__ void __launch_bounds__(PRE_NT) chunked_sweep_kernel(
     __syncthreads();
     Sweep r{};
     const int x = blockIdx.x * PRE_NT + tid;
-    if (x < a.n) a.masked[x] = local_row(a, s_ask, x, r);
+    if (x < a.n) {
+        copy_carry(lanes ? carry_lane(c0, a0, b) : c0, a, x);
+        a.masked[x] = local_row(a, s_ask, x, r);
+    }
 #pragma unroll
     for (int k = 0; k <= D_MAX; ++k) {
         const int v = warp_sum(k < D_MAX ? r.cnt[k] : r.okc);
@@ -761,22 +580,24 @@ extern "C" int nomad_select_chunked(
         const float* ask, int* coll, const uint8_t* penalty,
         const float* affinity, float* free_p, const uint8_t* port_ok,
         float* dev_slots, const float* dev_score, const float* pre_score,
-        float* masked, int n, int d, int k_valid, int max_steps,
-        int spread_alg, float desired, float port_need, float dev_fires,
-        int* out_choice, int* out_chunk, int* out_ti, float* out_ts,
-        int* out_exh, int* out_feas, int* rem_steps, int* part,
-        int part_ints, void* stream) {
+        float* masked, const float* used0, const int* coll0,
+        const float* free0, const float* slots0, int n, int d, int k_valid,
+        int max_steps, int spread_alg, float desired, float port_need,
+        float dev_fires, int* out_choice, int* out_chunk, int* out_ti,
+        float* out_ts, int* out_exh, int* out_feas, int* out_rem,
+        int* out_steps, int* part, int part_ints, void* stream) {
     const int parts = chunked_parts(n);
     if (n < TOP_K || d < 2 || d > D_MAX || part_ints < parts * (D_MAX + 1))
         return (int)cudaErrorInvalidValue;
+    const LocalCarry c = {used0, coll0, free0, slots0};
     LocalArgs a = {capacity, used, feasible, ask, coll, penalty, affinity,
                    free_p, port_ok, dev_slots, dev_score, pre_score, masked,
                    n, d, k_valid, max_steps, spread_alg,
                    desired, port_need, dev_fires};
     ChunkedOut o = {out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
-                    rem_steps};
+                    out_rem, out_steps};
     chunked_sweep_kernel<<<dim3(parts, 1), PRE_NT, 0,
-                           (cudaStream_t)stream>>>(a, LocalLanes{}, false,
+                           (cudaStream_t)stream>>>(a, c, LocalLanes{}, false,
                                                    part);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -864,24 +685,27 @@ extern "C" int nomad_select_chunked_batched(
         const float* ask, int* coll, const uint8_t* penalty,
         const float* affinity, float* free_p, const uint8_t* port_ok,
         float* dev_slots, const float* dev_score, const float* pre_score,
-        float* masked, int lanes, int n, int d, int max_steps,
-        int spread_alg, const int* k_valid, const float* desired,
-        const float* port_need, const float* dev_fires,
-        int* out_choice, int* out_chunk, int* out_ti, float* out_ts,
-        int* out_exh, int* out_feas, int* rem_steps, int* part,
-        int part_ints, void* stream) {
+        float* masked, const float* used0, const int* coll0,
+        const float* free0, const float* slots0, int lanes, int n, int d,
+        int max_steps, int spread_alg, const int* k_valid,
+        const float* desired, const float* port_need,
+        const float* dev_fires, int* out_choice, int* out_chunk,
+        int* out_ti, float* out_ts, int* out_exh, int* out_feas,
+        int* out_rem, int* out_steps, int* part, int part_ints,
+        void* stream) {
     const int parts = chunked_parts(n);
     if (lanes < 1 || n < TOP_K || d < 2 || d > D_MAX
             || part_ints < lanes * parts * (D_MAX + 1))
         return (int)cudaErrorInvalidValue;
+    const LocalCarry c = {used0, coll0, free0, slots0};
     LocalArgs a = {capacity, used, feasible, ask, coll, penalty, affinity,
                    free_p, port_ok, dev_slots, dev_score, pre_score, masked,
                    n, d, 0, max_steps, spread_alg, 0.0f, 0.0f, 0.0f};
     ChunkedOut o = {out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
-                    rem_steps};
+                    out_rem, out_steps};
     LocalLanes l = {k_valid, desired, port_need, dev_fires};
     chunked_sweep_kernel<<<dim3(parts, lanes), PRE_NT, 0,
-                           (cudaStream_t)stream>>>(a, l, true, part);
+                           (cudaStream_t)stream>>>(a, c, l, true, part);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     chunked_batched_kernel<<<lanes, NT, 0, (cudaStream_t)stream>>>(

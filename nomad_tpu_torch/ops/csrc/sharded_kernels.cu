@@ -13,8 +13,10 @@
 //                                     on select.py:612) and
 //                                     _select_kway_batched over it
 //                                     (select.py:2028-2043 on :785)
-//   chunked_batched_sharded_kernel <- _chunked_batched_jit over the mesh
-//                                     (select.py:2179 on :597)
+//   chunked_batched_cluster_kernel <- _chunked_batched_jit over the mesh
+//     (S <= 16)                       (select.py:2179 on :597)
+//   chunked_batched_sharded_kernel
+//     (S > 16)
 //
 // Here every shard of the mesh lives on ONE card. A launch covers B lanes
 // (requests over one shared capacity table) split into S shards each: block
@@ -22,17 +24,17 @@
 // table padded by pad_for_mesh (parallel/sharded_table.py; padded rows are
 // infeasible) and sweeps them on its own SM. The step loop stays on the
 // device, and XLA's collectives become exchanges between the blocks of a
-// lane: for the chunked and K-way kernels, and the scan past 16 shards, the
-// launch is cooperative (cudaLaunchCooperativeKernel), so all B * S blocks
-// are resident at once, and the exchanges go through global memory between
-// grid-wide syncs (cooperative_groups::this_grid().sync()), each lane
-// through its own slice of the exchange buffers; the scan up to 16 shards
-// runs a lane as one thread-block cluster instead (see its section). Every
-// block of a lane reduces that lane's S
-// candidates itself, in the same order, so the lane's replicated state (the
-// winner, the spread and distinct_property histograms, `remaining`) is
-// identical in all its blocks without a broadcast. Lanes share only the
-// read-only capacity.
+// lane: for the K-way kernel, and the scan and the chunked kernel past 16
+// shards, the launch is cooperative (cudaLaunchCooperativeKernel), so all
+// B * S blocks are resident at once, and the exchanges go through global
+// memory between grid-wide syncs (cooperative_groups::this_grid().sync()),
+// each lane through its own slice of the exchange buffers; the scan and the
+// chunked kernel up to 16 shards run a lane as one thread-block cluster
+// instead (see their sections). Every block of a lane reduces what the
+// lane's blocks published itself, in the same order, so the lane's
+// replicated state (the winner, the spread and distinct_property
+// histograms, `remaining`) is identical in all its blocks without a
+// broadcast. Lanes share only the read-only capacity.
 //
 // A grid sync is grid-wide: every block calls it the same number of times,
 // whatever its lane is doing. So each decision around a sync (run another
@@ -42,18 +44,8 @@
 // scan: see its section below (scan_body's design shard by shard, one
 // exchange a step, a stop at the first invalid step).
 //
-// chunked, each step: every block of a running lane writes its shard's best
-// two (score, global row) (best five on step 0, with its counts); one grid
-// sync; every block of the lane merges the S lists into the winner and the
-// runner-up (exact: the global runner-up is the winner's shard's second or
-// another shard's first). The winner's owner scores the CHUNK_J stream
-// against the runner-up, places the chunk and publishes (runs the next
-// step, remaining) by parity; every block reads it after the next step's
-// sync. A lane's blocks sweep the next step unless its winner was invalid
-// or its budget is spent, and a sweep the published count shows was not
-// needed writes nothing but scratch. An invalid step's top-5 and counts
-// are merged after the next sync. The loop ends after the first sync at
-// which no lane of the launch runs.
+// chunked: see its section below (chunked_body's kept list a shard, the
+// steps its rows win on its own warp, one exchange a handoff).
 //
 // K-way, each phase (the single-card body's design, kway_body, shard by
 // shard): every block of a running lane takes its shard's top-(w + 1) by
@@ -107,24 +99,17 @@ namespace cg = cooperative_groups;
 
 #define CNT_W (D_MAX + 1)
 
-// Cross-shard exchange buffers in global memory, allocated by the wrapper;
-// lane b's blocks use its slice (xchg_lane). A buffer kept "by parity" has
-// one half for even steps and one for odd, so what a step writes before a
-// grid sync stays readable until the next one.
+// The K-way kernels' cross-shard exchange buffers in global memory,
+// allocated by the wrapper; lane b's blocks use its slice (xchg_lane).
 struct ShardXchg {
-    float* lv;     // [lanes, 2, S, kl] each shard's candidates, by parity
-    int* li;       //   (scan kl = 1, its best; chunked 5; K-way w + 1,
-                   //   of which it fills min(w + 1, per) a shard, end to
-                   //   end, in parity 0)
-    float* dv;     // [lanes, 2, S, TOP_K] a diagnostic step's top-5, by
-    int* di;       //   parity
+    float* lv;     // [lanes, 2, S, kl] each shard's candidates (K-way
+    int* li;       //   kl = w + 1, of which it fills min(w + 1, per) a
+                   //   shard, end to end, in parity 0)
     int* cnt;      // [lanes, 2, S, CNT_W] first-failing-dimension counts,
-                   // then the feasible count, by parity
+                   // then the feasible count
     float* chunk;  // [lanes, W_MAX + 1] K-way: the winners' chunks; [W_MAX]
                    // holds winner 0's chunk against the runner-up
-    int* flag;     // [lanes, 2, 2] chunked: (runs the next step, remaining
-                   // after this one), by parity; K-way: [0] runs the next
-                   // phase
+    int* flag;     // [lanes, 2, 2] K-way: [0] runs the next phase
     int shards, per, kl;
 };
 
@@ -132,62 +117,10 @@ __device__ __forceinline__ ShardXchg xchg_lane(ShardXchg x, int b) {
     const size_t s2 = 2 * (size_t)x.shards;
     x.lv += b * s2 * x.kl;
     x.li += b * s2 * x.kl;
-    x.dv += b * s2 * TOP_K;
-    x.di += b * s2 * TOP_K;
     x.cnt += b * s2 * CNT_W;
     x.chunk += (size_t)b * (W_MAX + 1);
     x.flag += (size_t)b * 4;
     return x;
-}
-
-// Offset of shard s's entry of k values in a [2, S, k] by-parity buffer.
-__device__ __forceinline__ size_t at(const ShardXchg& x, int par, int s,
-                                     int k) {
-    return ((size_t)par * x.shards + s) * k;
-}
-
-// Block-wide: the first kout entries, in (value desc, row asc) order, of
-// the union of `lists` sorted lists (list t's k entries at t * stride),
-// which other blocks wrote before a grid sync. Thread t < lists walks list
-// t, and each pass takes the best of the lists' heads. Thread 0 writes
-// ov[j], oi[j]. Needs at least kout real entries in the union: a sentinel
-// (-inf, INT_MAX) is never taken.
-static __device__ void merge_sorted(const float* lv, const int* li,
-                                    int lists, int stride, int k, int kout,
-                                    float* ov, int* oi, Red& r) {
-    const int t = threadIdx.x;
-    int head = 0;
-    for (int j = 0; j < kout; ++j) {
-        float v = -INFINITY;
-        int i = INT_MAX;
-        if (t < lists && head < k) {
-            v = __ldcg(lv + t * stride + head);
-            i = __ldcg(li + t * stride + head);
-        }
-        const int mine = i;
-        block_best(v, i, r);
-        if (t < lists && head < k && mine == i) ++head;
-        if (t == 0) {
-            ov[j] = v;
-            oi[j] = i;
-        }
-    }
-}
-
-// Block-wide: the block's top-k over its rows [lo, lo + per) of `masked`,
-// sorted, with global rows, into its entry of the exchange (tv, ti);
-// entries past the shard's rows are (-inf, INT_MAX).
-static __device__ void shard_topk(const float* masked, int lo, int per,
-                                  int k, float* tv, int* ti, Red& r) {
-    const int kk = k < per ? k : per;
-    block_topk(masked + lo, per, kk, tv, ti, r);
-    if (threadIdx.x == 0) {
-        for (int j = 0; j < kk; ++j) ti[j] += lo;
-        for (int j = kk; j < k; ++j) {
-            tv[j] = -INFINITY;
-            ti[j] = INT_MAX;
-        }
-    }
 }
 
 // Block-wide: the block's exhaustion counts (d of them) and feasible count
@@ -213,17 +146,6 @@ static __device__ void sum_counts(const int* cnt, int shards, int d,
         if (dd < d) exh[dd] = tot;
         else *ok = tot;
     }
-}
-
-// Block-wide, in the lane's block 0: a diagnostic step's S top-5 lists
-// (parity par) merged and its counts summed into that step's outputs.
-static __device__ void merge_diag(const ShardXchg& xg, int par, int d,
-                                  float* ts, int* ti, int* exh, int* ok,
-                                  Red& r) {
-    merge_sorted(xg.dv + at(xg, par, 0, TOP_K), xg.di + at(xg, par, 0, TOP_K),
-                 xg.shards, TOP_K, TOP_K, TOP_K, ts, ti, r);
-    if (threadIdx.x == 0)
-        sum_counts(xg.cnt + at(xg, par, 0, CNT_W), xg.shards, d, exh, ok);
 }
 
 // Block-wide: whether any of the launch's `lanes` lanes has its flag at
@@ -843,144 +765,723 @@ __global__ void __launch_bounds__(NT) scan_batched_sharded_kernel(
 
 // ---------------------------------------------------------------------------
 // chunked over S shards a lane (_select_chunked_fn, select.py:446-588, node
-// axis split; batched as _chunked_batched_jit, select.py:597): outputs as
-// chunked_body's, lane by lane.
+// axis split; batched as _chunked_batched_jit, select.py:597): chunked_body's
+// design (select_kernels.cu, PR 12), shard by shard. A step changes masked
+// at its winner's row only, so only the list of the shard that owns that
+// row changes; the other shards' heads stay what they were until one of
+// them wins. So:
+//   * step 0 (a report round): each block sweeps its rows [lo, lo + per)
+//     into masked with their counts, and takes its shard's top-m by the
+//     radix top-k (block_topk_radix over its slice; global rows, in (score
+//     desc, row asc) order, NEG_INF ties in row order), m chunked_body's
+//     fitted length capped at the shard's rows: a list that holds its
+//     shard never drops an entry, and one of min(max_steps, k_valid) + 1
+//     never needs a new one. It publishes its head, counts and first five;
+//     one exchange; every block keeps every shard's head in a table in
+//     shared memory, and the lane's block 0 merges the S top-5 lists (in
+//     shard order: a shard's rows lie below the next shard's) and sums the
+//     counts (exact in any order) into step 0's outputs;
+//   * the lane's winner is the best head, and its runner-up the better of
+//     the winner shard's second entry and the other shards' heads: both
+//     exact, since each list is the exact top of its shard, and ties go to
+//     the lower row, which lies in the lower shard;
+//   * the owner of the best head runs step after step on its warp 0 with
+//     PR 12's step (chunked_steps<true>: the stream 16 sub-placements a
+//     round, fit_cap, place, the row's rescoring and the list update on
+//     its own list, __syncwarp only), reading the other shards' best head
+//     from its table. It stops at a handoff (another shard's head ranks
+//     above its own), at the lane's end, or when every head is invalid; a
+//     list short of two entries (and not whole) its block makes again from
+//     its own rows, and carries on. Only the owner ever writes its rows
+//     (masked, the carries);
+//   * a step whose top is invalid still reports its counts and top-5: if it
+//     is step 0, from step 0's report; else one more report round, in which
+//     every block sweeps its shard (the values masked holds) and publishes
+//     its counts and top-5. The loop ends there.
+// So a shard's rows are swept only at a launch's step 0 (a continuation
+// launch too: the scratch is fresh) and at an invalid step, a list is made
+// only at step 0 and when it runs short, and a lane exchanges only at
+// step 0, at a handoff, at its end and at an invalid step. Two kernels run
+// this body, the route fixed by S alone (chunked_on_cluster):
+//   chunked_batched_cluster_kernel  S <= CHUNK_CLUSTER_MAX: a lane is one
+//       thread-block cluster (cudaLaunchKernelEx with the cluster dimension
+//       S; past 8 blocks the non-portable size). A report round is one
+//       cluster.sync(), after which the blocks read each other's entries
+//       through distributed shared memory. Between report rounds only warp
+//       0 of each block runs, the other warps waiting at one barrier: a
+//       handoff is one message from the owner to the next owner alone (the
+//       lane's state and every shard's head, ChunkMsg), stored by st.async
+//       into the next owner's shared memory and counted on its transaction
+//       barrier, with no cluster or block barrier; the lane's end and an
+//       invalid step are the same message to every block. Every lane goes
+//       in one launch and stops on its own; a block leaves only after a
+//       last cluster.sync(), so that none leaves while another may still
+//       read or write its shared memory. (PR 5's one grid sync a step and
+//       a first cut with one cluster.sync() and a block barrier a handoff
+//       took 0.163 and 0.067 ms at B 8 count 10 S 8 on an H100, device
+//       time: PERF.md section 6.)
+//   chunked_batched_sharded_kernel  S > CHUNK_CLUSTER_MAX: the cooperative
+//       launch over lanes * S blocks, the entries in global memory read
+//       through L2 (__ldcg), one grid.sync() a round (a report round, a
+//       handoff); each round every lane's block 0 publishes whether the
+//       lane still runs, every block reads all lanes' flags after the sync,
+//       and the loop ends once none does, so every block syncs equally
+//       often (a finished lane keeps syncing).
+// Every output and carry is bit for bit chunked_batched_kernel's on the
+// same padded lane. What bounds it on an H100: latency, as for the single
+// card: step 0 (the shard's sweep and radix list), then per step one warp's
+// two float64 powers and one row's load, and per handoff one message or
+// one grid sync.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) chunked_batched_sharded_kernel(
-        LocalArgs a0, ChunkedOut o0, LocalLanes l, ShardXchg x0, int lanes) {
-    cg::grid_group grid = cg::this_grid();
-    __shared__ Red red;
-    __shared__ float s_ask[D_MAX];
-    __shared__ float s_tv[TOP_K];
-    __shared__ int s_ti[TOP_K];
-    __shared__ unsigned s_lose[CHUNK_J / 32];
-    const int tid = threadIdx.x, S = x0.shards;
-    const int b = blockIdx.x / S, s = blockIdx.x - b * S;
-    const LocalArgs a = l.k_valid ? local_lane(a0, l, b) : a0;
-    const ChunkedOut o = chunked_out_lane(o0, b, a0);
-    const ShardXchg xg = xchg_lane(x0, b);
-    const int lo = s * xg.per, hi = lo + xg.per;
-    if (s == 0) {
-        for (int r = tid; r < a.max_steps; r += NT) {
-            o.choice[r] = -1;
-            o.chunk[r] = 0;
-            o.feas[r] = 0;
-            for (int k = 0; k < TOP_K; ++k) {
-                o.ti[r * TOP_K + k] = -1;
-                o.ts[r * TOP_K + k] = NEG_INF;
-            }
-            for (int dd = 0; dd < a.d; ++dd) o.exh[r * a.d + dd] = 0;
-        }
+#define CHUNK_CLUSTER_MAX 16
+// the most shards a lane: the heads table's entries, and the lane's S
+// top-5 lists merged by one block
+#define CHUNK_SHARDS_MAX (NT / TOP_K)
+
+// The chunked kernels' route, fixed by the shard count alone; the wrappers
+// read it through nomad_chunked_sharded_info.
+static inline bool chunked_on_cluster(int shards) {
+    return shards <= CHUNK_CLUSTER_MAX;
+}
+
+// What a block publishes in a round.
+struct __align__(16) ChunkEntry {
+    float v;              // the head of its list (its shard's best row)
+    int i;                //   and that row
+    int step, remaining;  // the lane after the owner's steps
+    int cnt[CNT_W];       // a report round: the shard's counts (first
+                          // failing dimensions, then the feasible count)
+    float tv[TOP_K];      //   and its top-5 (global rows)
+    int ti[TOP_K];
+};
+static_assert(sizeof(ChunkEntry) == 96,
+              "kernels.py (CHUNK_ENTRY_INTS) counts 96 bytes an entry");
+
+// The cluster route's report rounds: a block's entries [2] (step 0's, an
+// invalid step's) in its own shared memory, read by the lane's blocks
+// through distributed shared memory after a cluster.sync().
+struct ChunkClusterX {
+    ChunkEntry* own;
+    int shards;
+    __device__ __forceinline__ ChunkEntry* mine(int par) const {
+        return own + par;
     }
+    __device__ __forceinline__ const ChunkEntry* of(int j, int par) const {
+        return cg::this_cluster().map_shared_rank(own + par, j);
+    }
+    template <typename T>
+    __device__ __forceinline__ T load(const T* p) const { return *p; }
+};
+
+// The grid route's exchange: every lane's entries in global memory, [2][S]
+// a lane by round parity; flags [lanes][2] say by round parity whether a
+// lane still runs.
+struct ChunkGridX {
+    ChunkEntry* lane_x;   // this lane's entries
+    int* flags;
+    int s, shards, per, lanes, b;
+    bool any;
+    __device__ __forceinline__ ChunkEntry* mine(int par) const {
+        return lane_x + par * shards + s;
+    }
+    __device__ __forceinline__ const ChunkEntry* of(int j, int par) const {
+        return lane_x + par * shards + j;
+    }
+    __device__ __forceinline__ float load(const float* p) const {
+        return __ldcg(p);
+    }
+    __device__ __forceinline__ int load(const int* p) const {
+        return __ldcg(p);
+    }
+    __device__ __forceinline__ void begin(int par, bool running) const {
+        if (s == 0 && threadIdx.x == 0) flags[b * 2 + par] = running ? 1 : 0;
+    }
+    __device__ __forceinline__ void exchange(int par) {
+        cg::this_grid().sync();
+        const int t = threadIdx.x;
+        any = __syncthreads_or(t < lanes && __ldcg(flags + t * 2 + par) != 0);
+    }
+    __device__ __forceinline__ bool more(bool) const { return any; }
+};
+
+// The lane's state between rounds, the same in each of its blocks.
+#define CLANE_START 0   // step 0: every block sweeps, makes its list, reports
+#define CLANE_RUN 1     // the best head's owner runs steps
+#define CLANE_META 2    // a later step is invalid: every block reports it
+#define CLANE_DONE 3
+
+// Block-wide in a lane's block 0: the outputs' values for the steps no
+// step writes (choice -1, chunk 0, top-5 (-1, NEG_INF), counts 0).
+__device__ __forceinline__ void chunk_outputs_init(const LocalArgs& a,
+                                                   const ChunkedOut& o,
+                                                   int s) {
+    if (s != 0) return;
+    for (int r = threadIdx.x; r < a.max_steps; r += NT) {
+        o.choice[r] = -1;
+        o.chunk[r] = 0;
+        o.feas[r] = 0;
+        for (int k = 0; k < TOP_K; ++k) {
+            o.ti[r * TOP_K + k] = -1;
+            o.ts[r * TOP_K + k] = NEG_INF;
+        }
+        for (int dd = 0; dd < a.d; ++dd) o.exh[r * a.d + dd] = 0;
+    }
+}
+
+// A shard's list length: chunked_body's, at most the shard's rows.
+__device__ __forceinline__ int chunk_list_len(const LocalArgs& a, int per) {
+    return min(per, max(TOP_K, min(CHUNK_M, min(a.max_steps, a.k_valid)
+                                            + 1)));
+}
+
+// One warp, every lane: the best head of the shards other than s (of
+// every shard where s is -1; the sentinel where there is none).
+__device__ __forceinline__ void chunk_other(const float* hv, const int* hi,
+                                            int shards, int s, float& ov,
+                                            int& oi) {
+    const int lane = threadIdx.x & 31;
+    ov = -INFINITY;
+    oi = INT_MAX;
+    for (int j = lane; j < shards; j += 32)
+        if (j != s && better(hv[j], hi[j], ov, oi)) {
+            ov = hv[j];
+            oi = hi[j];
+        }
+    warp_best(ov, oi);
+}
+
+// Block-wide: the shard's k best rows of masked (the first k of its rows
+// [lo, lo + per) in (score desc, row asc) order) into lv, li, as global
+// rows.
+static __device__ __forceinline__ void chunk_shard_list(const LocalArgs& a,
+                                                        int lo, int per,
+                                                        int k, float* lv,
+                                                        int* li,
+                                                        TopkShared& tk) {
+    block_topk_radix<false>(a.masked + lo, nullptr, per, k, lv, li, tk);
+    if (threadIdx.x < k) li[threadIdx.x] += lo;
+    __syncthreads();
+}
+
+// Block-wide, a report round: the shard swept (masked rewritten, its
+// counts into *me; at step 0 each row's carries first copied from c), its
+// top-k list made (k >= TOP_K), and its head and first five into *me.
+static __device__ __forceinline__ void chunk_report(const LocalArgs& a,
+                                                    const LocalCarry* c,
+                                                    const float* s_ask,
+                                                    int lo, int per, int k,
+                                                    float* lv, int* li,
+                                                    TopkShared& tk,
+                                                    int (*sums)[CNT_W],
+                                                    ChunkEntry* me) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const Sweep sw = c ? local_sweep_copy(a, *c, s_ask, lo, lo + per)
+                       : local_sweep_rows(a, s_ask, lo, lo + per);
+    // each warp's counts, then thread k <= D_MAX's over the warps; the
+    // loop is unrolled so that sw.cnt stays in registers
+#pragma unroll
+    for (int q = 0; q < CNT_W; ++q) {
+        const int v = warp_sum(q < D_MAX ? sw.cnt[q] : sw.okc);
+        if (lane == 0) sums[warp][q] = v;
+    }
+    // the sums, and masked swept before the list reads it
+    __syncthreads();
+    if (tid < CNT_W) {
+        int t = 0;
+        for (int w = 0; w < NWARPS; ++w) t += sums[w][tid];
+        me->cnt[tid] = t;
+    }
+    chunk_shard_list(a, lo, per, k, lv, li, tk);
+    if (tid < TOP_K) {
+        me->tv[tid] = lv[tid];
+        me->ti[tid] = li[tid];
+    }
+    if (tid == 0) {
+        me->v = lv[0];
+        me->i = li[0];
+    }
+}
+
+// Block-wide, in a lane's block 0 after a report round's exchange: the S
+// shards' reports (parity par) into step `step`'s outputs. The top-5 of
+// the S lists (each sorted, of TOP_K distinct rows) by TOP_K passes, each
+// taking the best entry strictly after the last under (score desc, row
+// asc): top_k over every row; the counts summed, in shard order.
+template <class X>
+static __device__ __forceinline__ void chunk_merge(const X& x, int par,
+                                                   const LocalArgs& a,
+                                                   const ChunkedOut& o,
+                                                   int step, Red& red) {
+    const int t = threadIdx.x;
+    float v = -INFINITY;
+    int i = INT_MAX;
+    if (t < x.shards * TOP_K) {
+        const ChunkEntry* e = x.of(t / TOP_K, par);
+        v = x.load(e->tv + t % TOP_K);
+        i = x.load(e->ti + t % TOP_K);
+    }
+    float pv = INFINITY;
+    int pi = -1;
+    for (int j = 0; j < TOP_K; ++j) {
+        float bv = -INFINITY;
+        int bi = INT_MAX;
+        if (better(pv, pi, v, i)) { bv = v; bi = i; }
+        block_best(bv, bi, red);
+        if (t == 0) {
+            o.ts[step * TOP_K + j] = bv;
+            o.ti[step * TOP_K + j] = bi;
+        }
+        pv = bv;
+        pi = bi;
+    }
+    if (t <= a.d) {
+        const int col = t < a.d ? t : D_MAX;
+        int tot = 0;
+        for (int j = 0; j < x.shards; ++j)
+            tot += x.load(x.of(j, par)->cnt + col);
+        if (t < a.d) o.exh[step * a.d + t] = tot;
+        else o.feas[step] = tot;
+    }
+}
+
+// The grid route's lane, every thread of block s of S: rounds of one
+// grid.sync() each (a report round, the owner's steps, or nothing), every
+// block of the lane taking the published heads into its table after the
+// sync, as the design above describes.
+__device__ __forceinline__ void chunked_grid_body(const LocalArgs& a,
+                                                  const LocalCarry& c,
+                                                  const ChunkedOut& o,
+                                                  ChunkGridX& x) {
+    __shared__ Red red;
+    __shared__ TopkShared tk;
+    __shared__ float s_ask[D_MAX];
+    __shared__ float s_lv[CHUNK_M];          // the shard's kept list
+    __shared__ int s_li[CHUNK_M];
+    __shared__ float s_hv[CHUNK_SHARDS_MAX]; // every shard's head
+    __shared__ int s_hi[CHUNK_SHARDS_MAX];
+    __shared__ int s_sum[NWARPS][CNT_W];
+    __shared__ int s_ctl[4];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int s = x.s, S = x.shards, per = x.per, lo = s * per;
+    chunk_outputs_init(a, o, s);
     if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
-    // the lane's state, the same in each of its blocks
-    int remaining = a.k_valid, steps = 0, pending = -1;
-    bool ran = false;                               // ran the previous step
-    bool maybe = remaining > 0 && a.max_steps > 0;  // may run this one
-    if (s == 0 && tid == 0) xg.flag[1 * 2] = maybe ? 1 : 0;  // "step -1"
+    const int m = chunk_list_len(a, per);
+    const bool whole = m == per;
+    int state = a.k_valid > 0 && a.max_steps > 0 ? CLANE_START : CLANE_DONE;
+    int step = 0, remaining = a.k_valid;
+    int own = -1;            // the shard of the best head
+    int h = 0, len = 0;      // this block's list: s_lv[h, h + len)
+    float ov = -INFINITY;    // warp 0: the best head of the other shards
+    int oi = INT_MAX;
+    // a lane that places nothing still hands back its carries
+    if (state == CLANE_DONE)
+        for (int r = lo + tid; r < lo + per; r += NT) copy_carry(c, a, r);
     __syncthreads();
 
-    for (int step = 0;; ++step) {
-        const int par = step & 1, k = step == 0 ? TOP_K : 2;
-        Sweep sw = {};
-        if (maybe) {
-            sw = local_sweep_rows(a, s_ask, lo, hi);
-            if (step == 0)
-                shard_counts(sw.cnt, sw.okc, a.d,
-                             xg.cnt + at(xg, 0, s, CNT_W), red);
-            shard_topk(a.masked, lo, xg.per, k,
-                       xg.lv + at(xg, par, s, TOP_K),
-                       xg.li + at(xg, par, s, TOP_K), red);
+    for (int round = 0;; ++round) {
+        const int par = round & 1;
+        const bool running = state != CLANE_DONE;
+        ChunkEntry* me = x.mine(par);
+        x.begin(par, running);
+        if (state == CLANE_START || state == CLANE_META) {
+            const bool start = state == CLANE_START;
+            chunk_report(a, start ? &c : nullptr, s_ask, lo, per,
+                         start ? m : TOP_K, s_lv, s_li, tk, s_sum, me);
+            h = 0;
+            len = m;
+        } else if (state == CLANE_RUN && own == s) {
+            // the owner: steps on warp 0 until a handoff, the lane's end or
+            // an invalid top; a short list is made again from its rows
+            for (;;) {
+                if (warp == 0) {
+                    ChunkState cs = {h, len, step, remaining, true};
+                    const int next = chunked_steps<true>(
+                        a, o, s_ask, s_lv, s_li, cs, whole, step == 0, ov,
+                        oi);
+                    h = cs.h;
+                    len = cs.len;
+                    step = cs.step;
+                    remaining = cs.remaining;
+                    if (lane == 0) {
+                        s_ctl[0] = next;
+                        if (next != CHUNK_REBUILD) {
+                            me->v = len > 0 ? s_lv[h] : -INFINITY;
+                            me->i = len > 0 ? s_li[h] : INT_MAX;
+                            me->step = step;
+                            me->remaining = remaining;
+                        }
+                    }
+                }
+                __syncthreads();
+                if (s_ctl[0] != CHUNK_REBUILD) break;
+                chunk_shard_list(a, lo, per, m, s_lv, s_li, tk);
+                h = 0;
+                len = m;
+            }
         }
-        grid.sync();
-        // the lane's state after the previous step, as its winner's owner
-        // published it (or block 0 when the lane did not run)
-        const int* prev = xg.flag + (par ^ 1) * 2;
-        const bool active = __ldcg(prev) != 0;
-        if (ran) remaining = __ldcg(prev + 1);
-        if (s == 0 && pending >= 0)
-            merge_diag(xg, pending & 1, a.d, o.ts + pending * TOP_K,
-                       o.ti + pending * TOP_K, o.exh + pending * a.d,
-                       o.feas + pending, red);
-        pending = -1;
-        if (!any_lane(x0.flag, lanes, (par ^ 1) * 2)) break;
-        if (!active) {
-            if (s == 0 && tid == 0) xg.flag[par * 2] = 0;
-            ran = maybe = false;
-            continue;
-        }
+        x.exchange(par);
 
-        // every block of the lane: the winner and the runner-up (the first
-        // two of top_k(masked)) from the S shards' lists
-        merge_sorted(xg.lv + at(xg, par, 0, TOP_K),
-                     xg.li + at(xg, par, 0, TOP_K), S, TOP_K, k, k, s_tv,
-                     s_ti, red);
-        __syncthreads();
-        const int c = s_ti[0];
-        const bool valid = s_tv[0] > HALF_NEG_INF;
-        const float rv = s_tv[1];
-        const int ri = s_ti[1];
-        if (s == 0 && tid == 0) {
-            if (step == 0) {
-                for (int j = 0; j < TOP_K; ++j) {
-                    o.ti[j] = s_ti[j];
-                    o.ts[j] = s_tv[j];
+        if (running) {
+            if (warp == 0) {
+                // the published heads into the table: every shard's after a
+                // report round, the owner's after its steps
+                if (state == CLANE_RUN) {
+                    if (lane == 0) {
+                        const ChunkEntry* e = x.of(own, par);
+                        s_hv[own] = x.load(&e->v);
+                        s_hi[own] = x.load(&e->i);
+                        s_ctl[1] = x.load(&e->step);
+                        s_ctl[2] = x.load(&e->remaining);
+                    }
+                } else {
+                    for (int j = lane; j < S; j += 32) {
+                        const ChunkEntry* e = x.of(j, par);
+                        s_hv[j] = x.load(&e->v);
+                        s_hi[j] = x.load(&e->i);
+                    }
+                    if (lane == 0) {
+                        s_ctl[1] = step;
+                        s_ctl[2] = remaining;
+                    }
                 }
-                sum_counts(xg.cnt + at(xg, 0, 0, CNT_W), S, a.d, o.exh,
-                           o.feas);
-            } else if (valid) {
-                for (int j = 0; j < TOP_K; ++j) {
-                    o.ti[step * TOP_K + j] = -1;
-                    o.ts[step * TOP_K + j] = NEG_INF;
+                __syncwarp();
+                // the best head, and the best of the other shards' heads
+                float bv;
+                int bi;
+                chunk_other(s_hv, s_hi, S, -1, bv, bi);
+                chunk_other(s_hv, s_hi, S, s, ov, oi);
+                if (lane == 0) {
+                    int st = s_ctl[1], next = CLANE_RUN;
+                    const int rem = s_ctl[2];
+                    const bool valid = bv > HALF_NEG_INF;
+                    if (state == CLANE_META) {
+                        st += 1;   // the invalid step places nothing
+                        next = CLANE_DONE;
+                    } else if (state == CLANE_START && !valid) {
+                        st = 1;    // step 0 is invalid: its report stands
+                        next = CLANE_DONE;
+                    } else if (!(rem > 0 && st < a.max_steps)) {
+                        next = CLANE_DONE;
+                    } else if (!valid) {
+                        next = CLANE_META;
+                    }
+                    s_ctl[0] = next;
+                    s_ctl[1] = st;
+                    s_ctl[3] = bi / per;
                 }
-                for (int dd = 0; dd < a.d; ++dd) o.exh[step * a.d + dd] = -1;
-                o.feas[step] = -1;
             }
-        }
-        if (step > 0 && !valid) {
-            // the step's diagnostics, merged after the next grid sync
-            shard_counts(sw.cnt, sw.okc, a.d,
-                         xg.cnt + at(xg, par, s, CNT_W), red);
-            shard_topk(a.masked, lo, xg.per, TOP_K,
-                       xg.dv + at(xg, par, s, TOP_K),
-                       xg.di + at(xg, par, s, TOP_K), red);
-            pending = step;
-        }
-        if (c >= lo && c < hi) {
-            // the owner: the leading run of sub-placements that still beat
-            // the runner-up; each of the first CHUNK_J / 32 warps ballots
-            // its losers
-            if (tid < CHUNK_J) {
-                const float fj = sub_score(a, s_ask, c, tid);
-                const bool wins = fj > rv || (fj == rv && c < ri);
-                const unsigned lose = __ballot_sync(0xffffffffu, !wins);
-                if ((tid & 31) == 0) s_lose[tid >> 5] = lose;
-            }
+            if (s == 0 && state != CLANE_RUN)
+                chunk_merge(x, par, a, o, step, red);
             __syncthreads();
-            if (tid == 0) {
-                const float a_max = fminf(fit_cap(a, s_ask, c),
-                                          (float)remaining);
-                float chunk = fminf(fmaxf((float)first_loser(s_lose), 1.0f),
-                                    a_max);
-                if (!valid) chunk = 0.0f;
-                const int chunk_i = (int)chunk;
-                place(a, s_ask, c, chunk);
-                o.choice[step] = valid ? c : -1;
-                o.chunk[step] = chunk_i;
-                xg.flag[par * 2] = remaining - chunk_i > 0 && valid
-                                   && step + 1 < a.max_steps;
-                xg.flag[par * 2 + 1] = remaining - chunk_i;
-            }
+            state = s_ctl[0];
+            step = s_ctl[1];
+            remaining = s_ctl[2];
+            own = s_ctl[3];
         }
-        ran = true;
-        steps = step + 1;
-        maybe = valid && step + 1 < a.max_steps;
-        __syncthreads();
+        if (!x.more(state != CLANE_DONE)) break;
     }
     if (s == 0 && tid == 0) {
-        o.rem_steps[0] = remaining;
-        o.rem_steps[1] = steps;
+        o.rem[0] = remaining;
+        o.steps[0] = step;
     }
+}
+
+// Lane b's arguments and outputs, written into shared memory by one
+// thread: held by each thread, the lane's pointers would take registers
+// the body's state needs (as the sharded scan found, scan_shard_lane).
+struct ChunkLaneArgs {
+    LocalArgs a;
+    LocalCarry c;
+    ChunkedOut o;
+};
+
+__device__ __forceinline__ void chunk_lane_args(ChunkLaneArgs& sh,
+                                                const LocalArgs& a0,
+                                                const LocalCarry& c0,
+                                                const ChunkedOut& o0,
+                                                const LocalLanes& l,
+                                                int b) {
+    if (threadIdx.x == 0) {
+        sh.a = local_lane(a0, l, b);
+        sh.c = carry_lane(c0, a0, b);
+        sh.o = chunked_out_lane(o0, b, a0);
+    }
+    __syncthreads();
+}
+
+// The cluster route's handoff: the owner sends the next owner one message,
+// by st.async into that block's shared memory, counted on its transaction
+// barrier: the lane's state and every shard's head (ChunkMsg, 16-byte
+// chunks). Only the next owner needs them, since only the owner steps; a
+// block's message buffer is written only when it becomes the owner, after
+// it read its last message (it sent a message since), so one buffer a
+// block suffices. The lane's end, and an invalid step, go to every block
+// alike (a message of the same size). Each block arms its barrier for its
+// next message once it has read the last.
+#define CMSG_RUN 0    // you own the best head
+#define CMSG_META 1   // step `step` is invalid: report it, then the end
+#define CMSG_DONE 2   // the lane ends
+struct __align__(16) ChunkMsg {
+    int kind, step, remaining, pad;
+    float2 head[CHUNK_CLUSTER_MAX];   // (score, row as int bits) a shard
+};
+
+// The bytes of a message over S shards (whole 16-byte chunks).
+__device__ __forceinline__ int chunk_msg_bytes(int shards) {
+    return 16 * (1 + (shards + 1) / 2);
+}
+
+// This block's barrier armed for its next message.
+__device__ __forceinline__ void chunk_msg_arm(unsigned bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Warp 0, every lane: a message to block `to` (kind, step, remaining, and
+// the heads s_hv / s_hi of the S shards), one 16-byte chunk a lane.
+__device__ __forceinline__ void chunk_msg_send(int to, int kind, int step,
+                                               int remaining,
+                                               const float* hv,
+                                               const int* hi, int shards,
+                                               unsigned msg, unsigned bar) {
+    const int lane = threadIdx.x & 31;
+    if (lane >= 1 + (shards + 1) / 2) return;
+    unsigned q[4] = {(unsigned)kind, (unsigned)step, (unsigned)remaining, 0u};
+    if (lane > 0) {
+        const int j = 2 * (lane - 1);
+        q[0] = __float_as_uint(hv[j]);
+        q[1] = (unsigned)hi[j];
+        q[2] = j + 1 < shards ? __float_as_uint(hv[j + 1]) : 0u;
+        q[3] = j + 1 < shards ? (unsigned)hi[j + 1] : 0u;
+    }
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
+                 " [%0], {%1, %2, %3, %4}, [%5];"
+                 :: "r"(cluster_addr(msg + 16 * lane, to)), "r"(q[0]),
+                    "r"(q[1]), "r"(q[2]), "r"(q[3]),
+                    "r"(cluster_addr(bar, to))
+                 : "memory");
+}
+
+// Warp 0, every lane: wait for this block's message number `got` (its
+// barrier's phase of that parity). A message that never comes (a fault)
+// ends the launch with an error after ~2^34 cycles instead of holding the
+// card.
+__device__ __forceinline__ void chunk_msg_wait(unsigned bar, int got) {
+    const long long t0 = clock64();
+    unsigned done = 0;
+    while (!done) {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+                     "%2;\nselp.u32 %0, 1, 0, p;\n}"
+                     : "=r"(done) : "r"(bar), "r"(got & 1) : "memory");
+        if (!done && clock64() - t0 > (1ll << 34)) __trap();
+    }
+}
+
+// The lane's state as a block knows it: CLANE_*, the next step, the count
+// left, and the shard of the best head.
+struct ChunkLane {
+    int state, step, remaining, own;
+};
+
+// Warp 0 of block s, every lane: from the lane state `ln` (CLANE_RUN, `own`
+// the best head's shard), steps while this block owns the best head, a
+// message to the next owner at each handoff, and a wait for a message
+// while another block owns it; returns the lane's state at a list to make
+// again (CLANE_RUN: this block still owns the best head), at an invalid
+// step (CLANE_META) or at the lane's end (CLANE_DONE).
+__device__ __forceinline__ int chunk_drive(
+        const LocalArgs& a, const ChunkedOut& o, const float* s_ask,
+        float* lv, int* li, float* hv, int* hi, const ChunkMsg& msg,
+        unsigned msg_at, unsigned bar, int& got, ChunkLane& ln, int& h,
+        int& len, bool whole, int s, int shards, int per) {
+    const int lane = threadIdx.x & 31;
+    const int bytes = chunk_msg_bytes(shards);
+    for (;;) {
+        if (ln.own != s) {
+            chunk_msg_wait(bar, got);
+            const int kind = msg.kind;
+            ln.step = msg.step;
+            ln.remaining = msg.remaining;
+            if (lane < shards) {
+                const float2 e = msg.head[lane];
+                hv[lane] = e.x;
+                hi[lane] = __float_as_int(e.y);
+            }
+            __syncwarp();
+            got += 1;
+            if (lane == 0) chunk_msg_arm(bar, bytes);
+            if (kind != CMSG_RUN)
+                return kind == CMSG_META ? CLANE_META : CLANE_DONE;
+            ln.own = s;
+        }
+        float ov;
+        int oi;
+        chunk_other(hv, hi, shards, s, ov, oi);
+        ChunkState cs = {h, len, ln.step, ln.remaining, true};
+        const int next = chunked_steps<true>(a, o, s_ask, lv, li, cs, whole,
+                                             ln.step == 0, ov, oi);
+        h = cs.h;
+        len = cs.len;
+        ln.step = cs.step;
+        ln.remaining = cs.remaining;
+        if (next == CHUNK_REBUILD) return CLANE_RUN;
+        if (lane == 0) {
+            hv[s] = len > 0 ? lv[h] : -INFINITY;
+            hi[s] = len > 0 ? li[h] : INT_MAX;
+        }
+        __syncwarp();
+        if (next == CHUNK_HANDOFF) {
+            ln.own = oi / per;
+            chunk_msg_send(ln.own, CMSG_RUN, ln.step, ln.remaining, hv, hi,
+                           shards, msg_at, bar);
+            continue;
+        }
+        // the lane's end (CHUNK_END) or an invalid top (CHUNK_SWEEP), to
+        // every other block
+        const int kind = next == CHUNK_END ? CMSG_DONE : CMSG_META;
+        for (int t = 0; t < shards; ++t)
+            if (t != s)
+                chunk_msg_send(t, kind, ln.step, ln.remaining, hv, hi,
+                               shards, msg_at, bar);
+        return kind == CMSG_META ? CLANE_META : CLANE_DONE;
+    }
+}
+
+// The cluster route's lane, every thread of block s of S: a report round
+// at step 0 and at an invalid step (one cluster.sync() and the pull of
+// every block's ChunkEntry through distributed shared memory); between
+// them warp 0 alone drives the steps (chunk_drive) while the block's other
+// warps wait at one barrier, and the block joins it to make its list
+// again.
+__device__ __forceinline__ void chunked_cluster_body(const LocalArgs& a,
+                                                     const LocalCarry& c,
+                                                     const ChunkedOut& o,
+                                                     int per) {
+    __shared__ Red red;
+    __shared__ TopkShared tk;
+    __shared__ float s_ask[D_MAX];
+    __shared__ float s_lv[CHUNK_M];          // the shard's kept list
+    __shared__ int s_li[CHUNK_M];
+    __shared__ float s_hv[CHUNK_CLUSTER_MAX];   // every shard's head
+    __shared__ int s_hi[CHUNK_CLUSTER_MAX];
+    __shared__ int s_sum[NWARPS][CNT_W];
+    __shared__ ChunkEntry s_x[2];            // the report rounds' entries
+    __shared__ ChunkMsg s_msg;               // this block's next message
+    __shared__ unsigned long long s_bar;
+    __shared__ ChunkLane s_ln;
+    const cg::cluster_group cl = cg::this_cluster();
+    const int S = (int)cl.num_blocks(), s = (int)cl.block_rank();
+    const int tid = threadIdx.x, warp = tid >> 5, lo = s * per;
+    const ChunkClusterX x = {s_x, S};
+    const unsigned bar = smem_addr(&s_bar), msg_at = smem_addr(&s_msg);
+    chunk_outputs_init(a, o, s);
+    if (tid < D_MAX) s_ask[tid] = tid < a.d ? a.ask[tid] : 0.0f;
+    if (tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        chunk_msg_arm(bar, chunk_msg_bytes(S));
+    }
+    const int m = chunk_list_len(a, per);
+    const bool whole = m == per;
+    ChunkLane ln = {a.k_valid > 0 && a.max_steps > 0 ? CLANE_START
+                                                     : CLANE_DONE,
+                    0, a.k_valid, -1};
+    int h = 0, len = 0, got = 0;
+    if (ln.state == CLANE_DONE)
+        for (int r = lo + tid; r < lo + per; r += NT) copy_carry(c, a, r);
+    __syncthreads();
+    if (ln.state == CLANE_START) {
+        chunk_report(a, &c, s_ask, lo, per, m, s_lv, s_li, tk, s_sum,
+                     x.mine(0));
+        h = 0;
+        len = m;
+    }
+    // the reports, the barriers' set-up and block 0's outputs before any
+    // block reads or sends
+    cg::this_cluster().sync();
+    if (ln.state == CLANE_START) {
+        if (warp == 0) {
+            const int lane = tid & 31;
+            if (lane < S) {
+                const ChunkEntry* e = x.of(lane, 0);
+                s_hv[lane] = e->v;
+                s_hi[lane] = e->i;
+            }
+            __syncwarp();
+            float bv;
+            int bi;
+            chunk_other(s_hv, s_hi, S, -1, bv, bi);
+            if (lane == 0) {
+                s_ln = ln;
+                s_ln.own = bi / per;
+                // step 0 invalid: its report stands, and the lane ends
+                if (!(bv > HALF_NEG_INF)) {
+                    s_ln.state = CLANE_DONE;
+                    s_ln.step = 1;
+                } else {
+                    s_ln.state = CLANE_RUN;
+                }
+            }
+        }
+        if (s == 0) chunk_merge(x, 0, a, o, 0, red);
+        __syncthreads();
+        ln = s_ln;
+    }
+    while (ln.state == CLANE_RUN) {
+        if (warp == 0) {
+            const int next = chunk_drive(a, o, s_ask, s_lv, s_li, s_hv, s_hi,
+                                         s_msg, msg_at, bar, got, ln, h, len,
+                                         whole, s, S, per);
+            if ((tid & 31) == 0) {
+                s_ln = ln;
+                s_ln.state = next;
+            }
+        }
+        __syncthreads();
+        ln = s_ln;
+        if (ln.state == CLANE_RUN) {   // this block's list, made again
+            chunk_shard_list(a, lo, per, m, s_lv, s_li, tk);
+            h = 0;
+            len = m;
+        }
+    }
+    if (ln.state == CLANE_META) {
+        // every shard's counts and top-5 at the invalid step
+        chunk_report(a, nullptr, s_ask, lo, per, TOP_K, s_lv, s_li, tk,
+                     s_sum, x.mine(1));
+        cg::this_cluster().sync();
+        if (s == 0) chunk_merge(x, 1, a, o, ln.step, red);
+        ln.step += 1;   // the invalid step places nothing
+    }
+    // no block leaves while another may read its entries or send to it
+    cg::this_cluster().sync();
+    if (s == 0 && tid == 0) {
+        o.rem[0] = ln.remaining;
+        o.steps[0] = ln.step;
+    }
+}
+
+// S <= CHUNK_CLUSTER_MAX: a lane a cluster of S blocks.
+__global__ void __launch_bounds__(NT) chunked_batched_cluster_kernel(
+        LocalArgs a0, LocalCarry c0, ChunkedOut o0, LocalLanes l, int per) {
+    __shared__ ChunkLaneArgs sh;
+    chunk_lane_args(sh, a0, c0, o0, l,
+                    blockIdx.x / (int)cg::this_cluster().num_blocks());
+    chunked_cluster_body(sh.a, sh.c, sh.o, per);
+}
+
+// S > CHUNK_CLUSTER_MAX: one cooperative launch of lanes * S blocks.
+__global__ void __launch_bounds__(NT) chunked_batched_sharded_kernel(
+        LocalArgs a0, LocalCarry c0, ChunkedOut o0, LocalLanes l,
+        ChunkEntry* xe, int* flags, int shards, int per, int lanes) {
+    __shared__ ChunkLaneArgs sh;
+    const int S = shards, b = blockIdx.x / S, s = blockIdx.x - b * S;
+    ChunkGridX x = {xe + (size_t)b * 2 * S, flags, s, S, per, lanes, b,
+                    false};
+    chunk_lane_args(sh, a0, c0, o0, l, b);
+    chunked_grid_body(sh.a, sh.c, sh.o, x);
 }
 
 // ---------------------------------------------------------------------------
@@ -1211,6 +1712,14 @@ static int scan_cluster_smem() {
     return bytes;
 }
 
+// Whether the chunked cluster kernel takes cluster sizes past 8 (set once).
+static bool chunked_cluster_ready() {
+    static const bool ok = cudaFuncSetAttribute(
+        (const void*)chunked_batched_cluster_kernel,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess;
+    return ok;
+}
+
 // A sharded scan launch's dynamic shared memory: a shard's per live slots
 // at most, as far as `most` bytes hold them.
 static int scan_shard_smem(int most, int per) {
@@ -1286,9 +1795,9 @@ static bool layout_ok(int lanes, int shards, int per, long long n) {
            && per >= TOP_K && (long long)shards * per == n;
 }
 
-static ShardXchg xchg(float* lv, int* li, float* dv, int* di, int* cnt,
-                      float* chunk, int* flag, int shards, int per, int kl) {
-    ShardXchg x = {lv, li, dv, di, cnt, chunk, flag, shards, per, kl};
+static ShardXchg xchg(float* lv, int* li, int* cnt, float* chunk,
+                      int* flag, int shards, int per, int kl) {
+    ShardXchg x = {lv, li, cnt, chunk, flag, shards, per, kl};
     return x;
 }
 
@@ -1365,8 +1874,8 @@ static int launch_kway(const LocalArgs& a, const KwayOut& o,
         float* dev_slots, const float* dev_score, const float* pre_score,   \
         float* masked
 #define XCHG_PARAMS                                                         \
-        float* x_lv, int* x_li, float* x_dv, int* x_di, int* x_cnt,         \
-        float* x_chunk, int* x_flag, int shards, int per
+        float* x_lv, int* x_li, int* x_cnt, float* x_chunk, int* x_flag,    \
+        int shards, int per
 
 // The scan's exchange on the grid path (unused on the cluster path, where
 // they may be null): ScanEntry [lanes, 2, shards] and int [lanes, 2].
@@ -1431,7 +1940,7 @@ extern "C" int nomad_select_kway_sharded(
                    desired, port_need, dev_fires};
     KwayOut o = {packed, out_ts, w};
     LocalLanes l = {nullptr, nullptr, nullptr, nullptr};
-    return launch_kway(a, o, l, xchg(x_lv, x_li, x_dv, x_di, x_cnt, x_chunk,
+    return launch_kway(a, o, l, xchg(x_lv, x_li, x_cnt, x_chunk,
                                      x_flag, shards, per, w + 1), 1, stream);
 }
 
@@ -1446,29 +1955,70 @@ extern "C" int nomad_select_kway_batched_sharded(
     KwayOut o = {packed, out_ts, w};
     LocalLanes l = {k_valid, desired, port_need, dev_fires};
     if (!k_valid) return (int)cudaErrorInvalidValue;
-    return launch_kway(a, o, l, xchg(x_lv, x_li, x_dv, x_di, x_cnt, x_chunk,
+    return launch_kway(a, o, l, xchg(x_lv, x_li, x_cnt, x_chunk,
                                      x_flag, shards, per, w + 1), lanes,
                        stream);
 }
 
+// The chunked kernels' exchange on the grid route (unused on the cluster
+// route, where they may be null): ChunkEntry [lanes, 2, shards] and int
+// [lanes, 2].
+#define CHUNK_XCHG_PARAMS                                                   \
+        void* x_entries, int* x_flags, int shards, int per
+
 extern "C" int nomad_select_chunked_batched_sharded(
-        LOCAL_PARAMS, int lanes, int n, int d, int max_steps,
+        LOCAL_PARAMS, const float* used0, const int* coll0,
+        const float* free0, const float* slots0, int lanes, int n, int d,
+        int max_steps,
         int spread_alg, const int* k_valid, const float* desired,
         const float* port_need, const float* dev_fires,
         int* out_choice, int* out_chunk, int* out_ti, float* out_ts,
-        int* out_exh, int* out_feas, int* rem_steps, XCHG_PARAMS,
-        void* stream) {
+        int* out_exh, int* out_feas, int* out_rem, int* out_steps,
+        CHUNK_XCHG_PARAMS, void* stream) {
     if (!k_valid || n < TOP_K || d < 2 || d > D_MAX
-            || !layout_ok(lanes, shards, per, n))
+            || shards > CHUNK_SHARDS_MAX || !layout_ok(lanes, shards, per, n))
         return (int)cudaErrorInvalidValue;
     LocalArgs a = {capacity, used, feasible, ask, coll, penalty, affinity,
                    free_p, port_ok, dev_slots, dev_score, pre_score, masked,
                    n, d, 0, max_steps, spread_alg, 0.0f, 0.0f, 0.0f};
     ChunkedOut o = {out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
-                    rem_steps};
+                    out_rem, out_steps};
     LocalLanes l = {k_valid, desired, port_need, dev_fires};
-    return launch_cooperative(
-        chunked_batched_sharded_kernel, lanes * shards, 0, stream, a, o, l,
-        xchg(x_lv, x_li, x_dv, x_di, x_cnt, x_chunk, x_flag, shards, per,
-             TOP_K), lanes);
+    const LocalCarry c = {used0, coll0, free0, slots0};
+    if (chunked_on_cluster(shards)) {
+        if (!chunked_cluster_ready())
+            return (int)cudaErrorInvalidConfiguration;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg = cluster_config(lanes, shards, 0,
+                                                      stream, attr);
+        const cudaError_t e = cudaLaunchKernelEx(
+            &cfg, chunked_batched_cluster_kernel, a, c, o, l, per);
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
+        return (int)cudaGetLastError();
+    }
+    if (!x_entries || !x_flags) return (int)cudaErrorInvalidValue;
+    return launch_cooperative(chunked_batched_sharded_kernel, lanes * shards,
+                              0, stream, a, c, o, l, (ChunkEntry*)x_entries,
+                              x_flags, shards, per, lanes);
+}
+
+// The chunked kernels' route for `shards` shards: out[0] 1 on the cluster
+// route (chunked_on_cluster), else 0; out[1] on the cluster route the most
+// clusters of that size the card holds at once
+// (cudaOccupancyMaxActiveClusters), else 0.
+extern "C" int nomad_chunked_sharded_info(int shards, int* out) {
+    if (shards < 1 || shards > CHUNK_SHARDS_MAX)
+        return (int)cudaErrorInvalidValue;
+    const bool cluster = chunked_on_cluster(shards);
+    out[0] = cluster ? 1 : 0;
+    out[1] = 0;
+    if (!cluster) return (int)cudaSuccess;
+    if (!chunked_cluster_ready()) return (int)cudaErrorInvalidConfiguration;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t c = cluster_config(1, shards, 0, nullptr, attr);
+    return (int)cudaOccupancyMaxActiveClusters(
+        out + 1, (const void*)chunked_batched_cluster_kernel, &c);
 }

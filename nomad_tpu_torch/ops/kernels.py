@@ -28,10 +28,12 @@ written by hand in CUDA C++ for Hopper:
   select_kway_batched_sharded    <- _select_kway_batched  (select_many on
   select_scan_batched_sharded    <- _scan_batched_jit     a mesh: B lanes
                                            of S shards, B * S blocks)
-      in csrc/sharded_kernels.cu: the scan as scan_batched_cluster_kernel
-      (a lane one thread-block cluster) up to a shard count the library
-      fixes (scan_sharded_info), past it as scan_batched_sharded_kernel
-      (one cooperative launch), the others cooperative at every S.
+      in csrc/sharded_kernels.cu: the scan and the batched chunked kernel
+      as scan_batched_cluster_kernel / chunked_batched_cluster_kernel (a
+      lane one thread-block cluster) up to a shard count the library fixes
+      (scan_sharded_info, chunked_sharded_info), past it as
+      scan_batched_sharded_kernel / chunked_batched_sharded_kernel (one
+      cooperative launch), the K-way cooperative at every S.
       The __device__ pieces the placement kernels share are in
       csrc/select_common.cuh.
 
@@ -84,7 +86,8 @@ LAUNCHES: Dict[str, int] = {"chunked": 0, "kway": 0, "scan": 0,
                             "chunked_batched_sharded": 0,
                             "kway_batched_sharded": 0,
                             "scan_batched_sharded": 0, "scan_cluster": 0,
-                            "scan_batched_cluster": 0}
+                            "scan_batched_cluster": 0,
+                            "chunked_batched_cluster": 0}
 
 # argument names, in order, of the node-local kernels (chunked, K-way) and
 # of the scan; _LOCAL_INPUTS are _local_inputs' arguments, in its order
@@ -781,18 +784,18 @@ _CPU = torch.device("cpu")
 BUILD_INFO: Dict[str, object] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# a sharded kernel's exchange buffers (_xchg), shards, rows a shard, stream
-_XCHG = [_P] * 7 + [_I] * 2 + [_P]
-# the sharded scan's: its grid path's entries and flags, shards, rows a
-# shard, stream
+# the K-way kernels' exchange buffers (_xchg), shards, rows a shard, stream
+_XCHG = [_P] * 5 + [_I] * 2 + [_P]
+# the sharded scan's and chunked kernels': their grid route's entries and
+# flags, shards, rows a shard, stream
 _SCAN_XCHG = [_P] * 2 + [_I] * 2 + [_P]
 _ARGTYPES = {
-    "nomad_select_chunked": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P] * 8
+    "nomad_select_chunked": [_P] * 17 + [_I] * 5 + [_F] * 3 + [_P] * 9
     + [_I, _P],
     "nomad_select_kway": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P, _P, _P],
     "nomad_select_scan": [_P] * 30 + [_I] * 7 + [_F] * 6 + [_P] * 14,
-    "nomad_select_chunked_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
-    + [_P] * 8 + [_I, _P],
+    "nomad_select_chunked_batched": [_P] * 17 + [_I] * 5 + [_P] * 4
+    + [_P] * 9 + [_I, _P],
     "nomad_select_kway_batched": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_I, _P, _P, _P],
     "nomad_select_scan_batched": [_P] * 30 + [_I] * 7 + [_P] * 7
@@ -804,14 +807,15 @@ _ARGTYPES = {
     + _SCAN_XCHG,
     "nomad_select_kway_sharded": [_P] * 13 + [_I] * 5 + [_F] * 3
     + [_I, _P, _P] + _XCHG,
-    "nomad_select_chunked_batched_sharded": [_P] * 13 + [_I] * 5 + [_P] * 4
-    + [_P] * 7 + _XCHG,
+    "nomad_select_chunked_batched_sharded": [_P] * 17 + [_I] * 5 + [_P] * 4
+    + [_P] * 8 + _SCAN_XCHG,
     "nomad_select_kway_batched_sharded": [_P] * 13 + [_I] * 5 + [_P] * 4
     + [_I, _P, _P] + _XCHG,
     "nomad_select_scan_batched_sharded": [_P] * 30 + [_I] * 7 + [_P] * 7
     + [_P] * 13 + _SCAN_XCHG,
     "nomad_sharded_max_blocks": [_I, ctypes.POINTER(ctypes.c_int)],
     "nomad_scan_sharded_info": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "nomad_chunked_sharded_info": [_I, ctypes.POINTER(ctypes.c_int)],
     "nomad_scan_shared_slots": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 
@@ -845,6 +849,8 @@ def load_library():
     """Build (once per hash of the sources and flags) and load the
     kernels' shared library."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
@@ -882,6 +888,9 @@ def load_library():
 # -- wrappers --------------------------------------------------------------
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if isinstance(t, torch.Tensor) and t.device == device \
+            and t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t)}")
     if t.device != device:
@@ -894,10 +903,10 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _u8(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
-    """A bool column as the uint8 view the kernels read."""
+def _bools(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
+    """A bool column, checked: the kernels read its bytes as uint8."""
     _check(name, t, torch.bool, shape, device)
-    return t.view(torch.uint8)
+    return t
 
 
 def _raise_on(rc: int, kernel: str) -> None:
@@ -915,12 +924,15 @@ def _is_cpu(capacity: torch.Tensor) -> bool:
 
 def _local_inputs(capacity, used0, feasible, ask, tg_coll0, penalty,
                   affinity_norm, free_ports, port_ok, dev_slots0, dev_score,
-                  pre_score, lead=()):
-    """Checks the node-local kernels' inputs; returns the 13 pointers (the
-    12 inputs, carries as fresh copies the kernel updates in place, and the
-    masked scratch), the carry tensors, and (n, d). `lead` is () for one
-    request and (B,) for a batch: every input but the shared capacity then
-    carries a leading lane axis, and the scratch has one row a lane."""
+                  pre_score, lead=(), copies=True):
+    """Checks the node-local kernels' inputs; returns the 13 tensors the
+    kernels take (the 12 inputs, carries as fresh copies the kernel updates
+    in place, and the masked scratch), the carry tensors, and (n, d).
+    `lead` is () for one request and (B,) for a batch: every input but the
+    shared capacity then carries a leading lane axis, and the scratch has
+    one row a lane. Without `copies` (the chunked kernels, whose step-0
+    sweep copies each row it reads) the carries are fresh and unwritten,
+    and the caller's four carries follow the 13 tensors."""
     dev = capacity.device
     if capacity.dim() != 2:
         raise ValueError("capacity must be [N, D]")
@@ -937,13 +949,22 @@ def _local_inputs(capacity, used0, feasible, ask, tg_coll0, penalty,
                   ("dev_slots0", dev_slots0), ("dev_score", dev_score),
                   ("pre_score", pre_score)):
         _check(nm, t, f32, lead + (n,), dev)
-    used, coll = used0.clone(), tg_coll0.clone()
-    free_p, dev_slots = free_ports.clone(), dev_slots0.clone()
+    if copies:
+        used, coll = used0.clone(), tg_coll0.clone()
+        free_p, dev_slots = free_ports.clone(), dev_slots0.clone()
+    else:
+        used = torch.empty(lead + (n, d), dtype=f32, device=dev)
+        coll = torch.empty(lead + (n,), dtype=i32, device=dev)
+        free_p = torch.empty(lead + (n,), dtype=f32, device=dev)
+        dev_slots = torch.empty(lead + (n,), dtype=f32, device=dev)
     masked = torch.empty(lead + (n,), dtype=f32, device=dev)
-    ptrs = [capacity, used, _u8("feasible", feasible, lead + (n,), dev), ask,
-            coll, _u8("penalty", penalty, lead + (n,), dev), affinity_norm,
-            free_p, _u8("port_ok", port_ok, lead + (n,), dev), dev_slots,
+    ptrs = [capacity, used, _bools("feasible", feasible, lead + (n,), dev),
+            ask, coll, _bools("penalty", penalty, lead + (n,), dev),
+            affinity_norm, free_p,
+            _bools("port_ok", port_ok, lead + (n,), dev), dev_slots,
             dev_score, pre_score, masked]
+    if not copies:
+        ptrs += [used0, tg_coll0, free_ports, dev_slots0]
     return ptrs, (used, coll, free_p, dev_slots), n, d
 
 
@@ -965,8 +986,11 @@ def _lane_scalars(b: int, device, **named):
 
 
 def _at(tensors, g: int = 0):
-    """Pointers of lane-led tensors at lane g."""
-    return [t[g:].data_ptr() for t in tensors]
+    """Pointers of lane-led (contiguous) tensors at lane g."""
+    if g == 0:
+        return [t.data_ptr() for t in tensors]
+    return [t.data_ptr() + g * t.stride(0) * t.element_size()
+            for t in tensors]
 
 
 def _stream(device) -> int:
@@ -977,13 +1001,36 @@ def _stream(device) -> int:
         torch.cuda.current_device() if index is None else index)
 
 
-def _chunked_part(lanes: int, n: int, device) -> torch.Tensor:
-    """The chunked kernels' scratch for their step-0 sweep's counts: a
-    block's D_MAX first-failing-dimension counts and its ok rows, for
-    each block of CHUNK_PRE_ROWS rows of each lane."""
-    blocks = -(-n // CHUNK_PRE_ROWS)
-    return torch.empty(lanes * blocks * (D_MAX + 1), dtype=torch.int32,
-                       device=device)
+def _chunked_outputs(lanes: int, steps: int, d: int, device, solo=False,
+                     scratch: int = 0):
+    """The chunked kernels' eight outputs (choice, chunk [B, steps]; ti,
+    ts [B, steps, TOP_K]; exh [B, steps, d]; feas [B, steps]; remaining,
+    steps [B]; without the lane axis where `solo`) in one int32
+    allocation, handed out as views (ts as float32), and after them, 16
+    bytes aligned, `scratch` ints of the launch's own scratch (the pre-pass
+    counts, or the grid route's exchange). Returns (outputs, scratch)."""
+    sizes = [lanes * s for s in (steps, steps, steps * TOP_K, steps * TOP_K,
+                                 steps * d, steps, 1, 1)]
+    sizes += [-sum(sizes) % 4, scratch]
+    outs = list(torch.empty(sum(sizes), dtype=torch.int32,
+                            device=device).split(sizes))
+    scratch_at = outs.pop() if scratch else None
+    del outs[8:]   # the alignment's pad, and an empty scratch
+    lead = () if solo else (lanes,)
+    for i, s in enumerate(((steps,), (steps,), (steps, TOP_K),
+                           (steps, TOP_K), (steps, d), (steps,))):
+        outs[i] = outs[i].view(lead + s)
+    outs[3] = outs[3].view(torch.float32)
+    if solo:
+        outs[6], outs[7] = outs[6].view(()), outs[7].view(())
+    return outs, scratch_at
+
+
+def _chunked_part(lanes: int, n: int) -> int:
+    """The ints of the chunked kernels' scratch for their step-0 sweep's
+    counts: a block's D_MAX first-failing-dimension counts and its ok rows,
+    for each block of CHUNK_PRE_ROWS rows of each lane."""
+    return lanes * -(-n // CHUNK_PRE_ROWS) * (D_MAX + 1)
 
 
 def select_chunked(capacity, used0, feasible, ask, k_valid, tg_coll0,
@@ -1001,28 +1048,18 @@ def select_chunked(capacity, used0, feasible, ask, k_valid, tg_coll0,
     dev = capacity.device
     ptrs, carry, n, d = _local_inputs(
         capacity, used0, feasible, ask, tg_coll0, penalty, affinity_norm,
-        free_ports, port_ok, dev_slots0, dev_score, pre_score)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out_choice = torch.empty(max_steps, **i32)
-    out_chunk = torch.empty(max_steps, **i32)
-    out_ti = torch.empty((max_steps, TOP_K), **i32)
-    out_ts = torch.empty((max_steps, TOP_K), dtype=torch.float32, device=dev)
-    out_exh = torch.empty((max_steps, d), **i32)
-    out_feas = torch.empty(max_steps, **i32)
-    rem_steps = torch.empty(2, **i32)
-    part = _chunked_part(1, n, dev)
+        free_ports, port_ok, dev_slots0, dev_score, pre_score, copies=False)
+    outs, part = _chunked_outputs(1, max_steps, d, dev, solo=True,
+                                  scratch=_chunked_part(1, n))
     lib = load_library()
     rc = lib.nomad_select_chunked(
         *[t.data_ptr() for t in ptrs], n, d, int(k_valid), int(max_steps),
         int(bool(spread_alg)), float(desired_count), float(port_need),
-        float(dev_fires),
-        *[t.data_ptr() for t in (out_choice, out_chunk, out_ti, out_ts,
-                                 out_exh, out_feas, rem_steps, part)],
+        float(dev_fires), *[t.data_ptr() for t in outs], part.data_ptr(),
         part.numel(), _stream(dev))
     _raise_on(rc, "chunked")
     LAUNCHES["chunked"] += 1
-    return carry, (out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
-                   rem_steps[0], rem_steps[1])
+    return carry, tuple(outs)
 
 
 def select_kway(capacity, used0, feasible, ask, k_valid, tg_coll0, penalty,
@@ -1092,13 +1129,13 @@ def _scan_inputs(a: Dict, lead=()):
     inputs = [t_cap, t_used, t_feas, t_ask, t_coll, job_cnt, scan_placed,
               t_pen, t_aff, t_free, t_port, t_dev, t_dscore, t_pre,
               sp_codes, a["sp_counts0"],
-              _u8("sp_present0", a["sp_present0"], lead + (S_MAX, c), dev),
+              _bools("sp_present0", a["sp_present0"], lead + (S_MAX, c), dev),
               a["sp_desired"], a["sp_weight"],
-              _u8("sp_has_targets", a["sp_has_targets"], lead + (S_MAX,),
+              _bools("sp_has_targets", a["sp_has_targets"], lead + (S_MAX,),
                   dev),
-              _u8("sp_valid", a["sp_valid"], lead + (S_MAX,), dev),
+              _bools("sp_valid", a["sp_valid"], lead + (S_MAX,), dev),
               dp_codes, a["dp_counts0"], a["dp_limit"],
-              _u8("dp_valid", a["dp_valid"], lead + (P_MAX,), dev),
+              _bools("dp_valid", a["dp_valid"], lead + (P_MAX,), dev),
               sp_counts, sp_present.view(torch.uint8), dp_counts, t_masked]
     carry = (used, coll, job_cnt, scan_placed, free_p, dev_slots, sp_counts,
              sp_present, dp_counts)
@@ -1234,12 +1271,12 @@ def scan_batched_plain(*, k_steps: int, spread_alg: bool, s_live: int,
                           s_live=s_live, p_live=p_live))
 
 
-def _local_batched(a: Dict):
-    """Checks a batched node-local call; returns (13 pointers, carry, B,
-    n, d, the 4 lane-scalar pointers)."""
+def _local_batched(a: Dict, copies=True):
+    """Checks a batched node-local call; returns (_local_inputs' tensors,
+    carry, B, n, d, the 4 lane-scalar tensors)."""
     b = _lanes(a["used0"])
     ptrs, carry, n, d = _local_inputs(*(a[k] for k in _LOCAL_INPUTS),
-                                      lead=(b,))
+                                      lead=(b,), copies=copies)
     lane = _lane_scalars(b, a["capacity"].device, k_valid=a["k_valid"],
                          desired_count=a["desired_count"],
                          port_need=a["port_need"], dev_fires=a["dev_fires"])
@@ -1254,28 +1291,17 @@ def select_chunked_batched(*, max_steps: int, spread_alg: bool, **a):
         return chunked_batched_plain(**a, max_steps=max_steps,
                                      spread_alg=spread_alg)
     dev = a["capacity"].device
-    ptrs, carry, b, n, d, lane = _local_batched(a)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out_choice = torch.empty((b, max_steps), **i32)
-    out_chunk = torch.empty((b, max_steps), **i32)
-    out_ti = torch.empty((b, max_steps, TOP_K), **i32)
-    out_ts = torch.empty((b, max_steps, TOP_K), dtype=torch.float32,
-                         device=dev)
-    out_exh = torch.empty((b, max_steps, d), **i32)
-    out_feas = torch.empty((b, max_steps), **i32)
-    rem_steps = torch.empty((b, 2), **i32)
-    part = _chunked_part(b, n, dev)
+    ptrs, carry, b, n, d, lane = _local_batched(a, copies=False)
+    outs, part = _chunked_outputs(b, max_steps, d, dev,
+                                  scratch=_chunked_part(b, n))
     lib = load_library()
     rc = lib.nomad_select_chunked_batched(
         *[t.data_ptr() for t in ptrs], b, n, d, int(max_steps),
-        int(bool(spread_alg)), *_at(lane),
-        *[t.data_ptr() for t in (out_choice, out_chunk, out_ti, out_ts,
-                                 out_exh, out_feas, rem_steps, part)],
-        part.numel(), _stream(dev))
+        int(bool(spread_alg)), *_at(lane), *[t.data_ptr() for t in outs],
+        part.data_ptr(), part.numel(), _stream(dev))
     _raise_on(rc, "chunked_batched")
     LAUNCHES["chunked_batched"] += 1
-    return carry, (out_choice, out_chunk, out_ti, out_ts, out_exh, out_feas,
-                   rem_steps[:, 0], rem_steps[:, 1])
+    return carry, tuple(outs)
 
 
 def select_kway_batched(*, max_steps: int, spread_alg: bool, w: int, **a):
@@ -1567,6 +1593,13 @@ def feas_scatter(mask, idx, vals):
 _MAX_SHARDS: Dict[tuple, int] = {}
 # scan_sharded_info by (shards, per, device index)
 _SCAN_INFO: Dict[tuple, Dict[str, object]] = {}
+# chunked_sharded_info by (shards, device index), and the batched sharded
+# chunked calls' (LAUNCHES key, lane groups) by (lanes, shards, device
+# index)
+_CHUNK_INFO: Dict[tuple, Dict[str, object]] = {}
+_CHUNK_PLAN: Dict[tuple, tuple] = {}
+# the ints of one ChunkEntry (csrc/sharded_kernels.cu, 96 bytes)
+CHUNK_ENTRY_INTS = 24
 # nomad_sharded_max_blocks' kernel ids: the solo launchers run the batched
 # kernels with one lane (the scan's: its grid path)
 _SHARDED_IDS = {"scan_sharded": 0, "scan_batched_sharded": 0,
@@ -1581,8 +1614,8 @@ def _shard_layout(shards: int, n: int, tensors) -> int:
     if shards < 1 or n % shards or n // shards < TOP_K:
         raise ValueError(f"{n} rows do not split into {shards} shards of "
                          f"at least {TOP_K} rows")
-    cards = {t.device for t in tensors
-             if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
+    cards = {t.get_device() for t in tensors if isinstance(t, torch.Tensor)}
+    cards.discard(-1)   # the CPU
     if len(cards) > 1:
         raise NotImplementedError(
             f"shards on {len(cards)} cards: a mesh across cards needs a "
@@ -1640,6 +1673,23 @@ def scan_sharded_info(shards: int, per: int) -> Dict[str, object]:
     return dict(_SCAN_INFO[key])
 
 
+def chunked_sharded_info(shards: int) -> Dict[str, object]:
+    """How the sharded chunked kernels run `shards` shards on the current
+    card, as the library decides it: the route ("cluster", a thread-block
+    cluster a lane, up to a shard count fixed in csrc/sharded_kernels.cu;
+    else "grid", one cooperative launch), and on the cluster route the most
+    clusters of that size the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0 on the grid route)."""
+    key = (int(shards), torch.cuda.current_device())
+    if key not in _CHUNK_INFO:
+        out = (ctypes.c_int * 2)()
+        _raise_on(load_library().nomad_chunked_sharded_info(key[0], out),
+                  "sharded chunked query")
+        _CHUNK_INFO[key] = dict(route="cluster" if out[0] else "grid",
+                                max_clusters=out[1])
+    return dict(_CHUNK_INFO[key])
+
+
 def _check_coresident(kernel: str, shards: int, device) -> int:
     """Raises unless one lane's `shards` blocks fit on the card at once;
     returns the most lanes of them one launch holds."""
@@ -1658,16 +1708,14 @@ def _lane_groups(kernel: str, lanes: int, shards: int, device):
 
 
 def _xchg(lanes: int, shards: int, kl: int, device):
-    """A sharded launch's exchange buffers for `lanes` lanes (ShardXchg in
+    """The K-way kernels' exchange buffers for `lanes` lanes (ShardXchg in
     csrc/sharded_kernels.cu): the shards' candidate lists (kl entries a
-    shard), diagnostic top-5 lists and counts by step parity, the K-way
-    chunks and the lanes' flags."""
+    shard), the shards' counts, the winners' chunks and the lanes'
+    flags."""
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return (torch.empty((lanes, 2, shards, kl), **f32),
             torch.empty((lanes, 2, shards, kl), **i32),
-            torch.empty((lanes, 2, shards, TOP_K), **f32),
-            torch.empty((lanes, 2, shards, TOP_K), **i32),
             torch.empty((lanes, 2, shards, D_MAX + 1), **i32),
             torch.empty((lanes, W_MAX + 1), **f32),
             torch.empty((lanes, 2, 2), **i32))
@@ -1770,10 +1818,31 @@ def select_kway_sharded(capacity, used0, feasible, ask, k_valid, tg_coll0,
     return carry, (packed, out_ts)
 
 
+def _chunked_plan(lanes: int, shards: int, device):
+    """(LAUNCHES key, lane groups) of a batched sharded chunked call of
+    `lanes` lanes of `shards` shards on the card `device`: every lane in one
+    launch of thread-block clusters, or the cooperative grid's lane groups
+    (chunked_sharded_info's route). Looked up once for each (lanes, S,
+    card)."""
+    key = (lanes, shards, device.index)
+    plan = _CHUNK_PLAN.get(key)
+    if plan is None:
+        with torch.cuda.device(device):
+            route = chunked_sharded_info(shards)["route"]
+        plan = ("chunked_batched_cluster", [(0, lanes)]) \
+            if route == "cluster" else \
+            ("chunked_batched_sharded",
+             _lane_groups("chunked_batched_sharded", lanes, shards, device))
+        _CHUNK_PLAN[key] = plan
+    return plan
+
+
 def select_chunked_batched_sharded(*, max_steps: int, spread_alg: bool,
                                    shards: int, **a):
     """B chunked placements over one capacity table, each lane's node axis
-    split into `shards` blocks (select_many's chunked arm on a mesh);
+    split into `shards` blocks (select_many's chunked arm on a mesh): every
+    lane in one launch of thread-block clusters, or past the shards a
+    cluster takes the lanes in cooperative groups (chunked_sharded_info);
     arguments and results as chunked_batched_sharded_plain."""
     a = _named(LOCAL_NAMES, a)
     per = _shard_layout(shards, a["capacity"].shape[0], a.values())
@@ -1781,28 +1850,27 @@ def select_chunked_batched_sharded(*, max_steps: int, spread_alg: bool,
         return chunked_batched_sharded_plain(
             **a, max_steps=max_steps, spread_alg=spread_alg, shards=shards)
     dev = a["capacity"].device
-    ptrs, carry, b, n, d, lane = _local_batched(a)
-    i32 = dict(dtype=torch.int32, device=dev)
-    outs = (torch.empty((b, max_steps), **i32),
-            torch.empty((b, max_steps), **i32),
-            torch.empty((b, max_steps, TOP_K), **i32),
-            torch.empty((b, max_steps, TOP_K), dtype=torch.float32,
-                        device=dev),
-            torch.empty((b, max_steps, d), **i32),
-            torch.empty((b, max_steps), **i32),
-            torch.empty((b, 2), **i32))
-    groups = _lane_groups("chunked_batched_sharded", b, shards, dev)
-    xchg = _xchg(groups[0][1], shards, TOP_K, dev)
+    ptrs, carry, b, n, d, lane = _local_batched(a, copies=False)
+    name, groups = _chunked_plan(b, shards, dev)
+    # the grid route's exchange, one group's at a time (the groups launch
+    # in order on one stream): its entries, then its flags
+    most = groups[0][1] if name == "chunked_batched_sharded" else 0
+    outs, xchg = _chunked_outputs(
+        b, max_steps, d, dev,
+        scratch=most * 2 * (shards * CHUNK_ENTRY_INTS + 1))
+    entries = flags = 0
+    if most:
+        entries = xchg.data_ptr()
+        flags = entries + most * 2 * shards * CHUNK_ENTRY_INTS * 4
     lib = load_library()
     for g0, g1 in groups:
         rc = lib.nomad_select_chunked_batched_sharded(
             ptrs[0].data_ptr(), *_at(ptrs[1:], g0), g1 - g0, n, d,
             int(max_steps), int(bool(spread_alg)), *_at(lane, g0),
-            *_at(outs, g0), *_at(xchg), int(shards), per, _stream(dev))
-        _raise_on(rc, "chunked_batched_sharded")
-        LAUNCHES["chunked_batched_sharded"] += 1
-    rem_steps = outs[6]
-    return carry, (*outs[:6], rem_steps[:, 0], rem_steps[:, 1])
+            *_at(outs, g0), entries, flags, int(shards), per, _stream(dev))
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+    return carry, tuple(outs)
 
 
 def select_kway_batched_sharded(*, max_steps: int, spread_alg: bool, w: int,

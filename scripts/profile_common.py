@@ -55,7 +55,8 @@ def load(kernels, src: Path, build: Path):
     made current for the wrappers of `kernels`."""
     kernels._LIB = None
     kernels._MAX_SHARDS.clear()
-    getattr(kernels, "_SCAN_INFO", {}).clear()
+    for cache in ("_SCAN_INFO", "_CHUNK_INFO", "_CHUNK_PLAN"):
+        getattr(kernels, cache, {}).clear()
     kernels.SOURCES = tuple(src / p.name for p in kernels.SOURCES)
     kernels.HEADERS = tuple(src / p.name for p in kernels.HEADERS)
     kernels.BUILD_DIR = build
@@ -73,10 +74,12 @@ def same(want, got) -> bool:
     return all(torch.equal(a, b) for a, b in zip(want, got))
 
 
-def probe_sums(kernels, lib, run, want, slots: int, label: str):
-    """The probes' sums (g_prof, `slots` words) of one call of `run` with
-    the instrumented library `lib` made current, after a first call whose
-    outputs must equal `want` (the plain build's, flat) bit for bit."""
+def probe_sums(kernels, lib, run, want, slots: int, label: str,
+               name: str = "prof"):
+    """The probes' sums (`slots` words, read by nomad_<name>_read) of one
+    call of `run` with the instrumented library `lib` made current, after
+    a first call whose outputs must equal `want` (the plain build's, flat)
+    bit for bit."""
     import torch
     kernels._LIB = lib
     got = flat(run())
@@ -84,11 +87,11 @@ def probe_sums(kernels, lib, run, want, slots: int, label: str):
     if not same(want, got):
         raise SystemExit(f"profile: {label}: the instrumented kernel's "
                          f"outputs differ")
-    lib.nomad_prof_reset()
+    getattr(lib, f"nomad_{name}_reset")()
     run()
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * slots)()
-    lib.nomad_prof_read(buf)
+    getattr(lib, f"nomad_{name}_read")(buf)
     return buf
 
 

@@ -14,7 +14,8 @@ from test_torch_kway import EDGE_CASES as KWAY_EDGE_CASES
 from test_torch_kway import kway_edge_args
 from nomad_tpu_torch.mock.kway_edges import pad_rows
 from nomad_tpu_torch.mock.chunked_edges import (
-    CHUNKED_EDGES, CHUNKED_LANES, chunked_edge_args, chunked_lanes)
+    CHUNKED_EDGES, CHUNKED_LANES, chunked_edge_args, chunked_lanes,
+    edge_rows, one_lane, pad_lanes)
 from nomad_tpu_torch.mock.scan_edges import (
     SCAN_EDGES, edge_case as scan_edge_case, lanes_batch as scan_lanes_batch,
     mixed_lanes as scan_mixed_lanes)
@@ -489,6 +490,13 @@ def _scan_key(solo, shards, per):
     return f"{solo}_{'cluster' if route == 'cluster' else 'sharded'}"
 
 
+def _chunked_key(shards):
+    """The LAUNCHES key of the sharded chunked kernel that S shards take,
+    as the library routes them."""
+    route = kernels.chunked_sharded_info(shards)["route"]
+    return f"chunked_batched_{'cluster' if route == 'cluster' else 'sharded'}"
+
+
 @pytest.mark.parametrize("kind", ["kway", "scan"])
 @pytest.mark.parametrize("n", [48, 100])
 @pytest.mark.parametrize("shards", [1, 2, 8])
@@ -586,7 +594,8 @@ def _held_batched_sharded(kind, targs, kw, shards):
     name = f"{kind}_batched_sharded"
     counted = _scan_key("scan_batched", shards,
                         targs["capacity"].shape[0] // shards) \
-        if kind == "scan" else name
+        if kind == "scan" else _chunked_key(shards) if kind == "chunked" \
+        else name
     before = dict(kernels.LAUNCHES)
     got = getattr(kernels, f"select_{name}")(**targs, **kw, shards=shards)
     torch.cuda.synchronize()
@@ -864,3 +873,113 @@ def test_scan_sharded_routes_on_card(cuda):
             assert info["slots"] == per
         else:
             assert 9_000 < info["slots"] < per
+
+
+def _chunked_shards(cuda, shards):
+    return kernels.max_shards("chunked_batched_sharded", cuda) \
+        if shards == "max" else shards
+
+
+def _held_chunked_sharded(targs, kw, shards, launches=2):
+    """Batched sharded chunked launches as SelectKernel continues a lane:
+    each launch after the first from the carry the last one left on the
+    card (the lanes' remaining counts; a first launch that drains every
+    lane is followed by one from its carry all the same, at half the
+    counts), every launch held exactly against its plain version and the
+    single-card batched kernel, on the kernel of the route the library
+    gives for S and no other. Returns each launch's (steps, remaining) a
+    lane."""
+    name, args, trail = _chunked_key(shards), dict(targs), []
+    for launch in range(launches):
+        before = dict(kernels.LAUNCHES)
+        got = kernels.select_chunked_batched_sharded(**args, **kw,
+                                                     shards=shards)
+        torch.cuda.synchronize()
+        assert set(_launched(before)) == {name}
+        want = kernels.chunked_batched_sharded_plain(**args, **kw,
+                                                     shards=shards)
+        single = kernels.select_chunked_batched(**args, **kw)
+        for other in (want, single):
+            _assert_equal(got[0], other[0])
+            _assert_equal(got[1], other[1])
+        rem, steps = got[1][6], got[1][7]
+        trail.append(list(zip(steps.tolist(), rem.tolist())))
+        left = rem.clamp(min=0).to(torch.int32)
+        if int(left.sum()) == 0:
+            left = (args["k_valid"] // 2).clamp(min=1).to(torch.int32)
+        used, coll, freep, devs = got[0]
+        args.update(used0=used, tg_coll0=coll, free_ports=freep,
+                    dev_slots0=devs, k_valid=left)
+    return trail
+
+
+@pytest.mark.parametrize("shards", [2, 8, 16, 32, "max"])
+@pytest.mark.parametrize("spread_alg", [False, True])
+@pytest.mark.parametrize("label", sorted(CHUNKED_EDGES))
+def test_chunked_sharded_edge_shapes_on_card(cuda, label, spread_alg,
+                                             shards):
+    """The sharded chunked kernels (a kept list a shard, the owner's steps
+    on its warp, an exchange a handoff: a thread-block cluster a lane up to
+    16 shards, the cooperative grid past that) at CHUNKED_EDGES' card rows,
+    each table padded as a mesh of S shards pads it, one lane, with
+    SelectKernel's step budget and a continuation launch from the card's
+    own carry: equal to the plain version and the single-card batched
+    kernel, exactly."""
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shards = _chunked_shards(cuda, shards)
+    count = CHUNKED_EDGES[label][2]
+    n_pad = pad_for_mesh(make_mesh(shards, cuda),
+                         edge_rows(label, card=True))
+    targs = _on(cuda, one_lane(chunked_edge_args(label, seed=6, card=True,
+                                                 n_pad=n_pad)))
+    kw = dict(max_steps=64 if count <= 64 else 512, spread_alg=spread_alg)
+    assert len(_held_chunked_sharded(targs, kw, shards)) == 2
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, 16, 32, "max"])
+def test_chunked_batched_sharded_mixed_lanes_on_card(cuda, shards):
+    """CHUNKED_LANES (eight lanes of counts 1-512 over one table of 400
+    rows, one that runs dry and one with no feasible row), padded as a mesh
+    of S shards pads it, with an 8-step budget continued three times from
+    the card's own carry: every launch equal to the plain version and the
+    single-card batched kernel, exactly."""
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    shards = _chunked_shards(cuda, shards)
+    a = pad_lanes(chunked_lanes(400, CHUNKED_LANES, seed=8),
+                  pad_for_mesh(make_mesh(shards, cuda), 400))
+    trail = _held_chunked_sharded(_on(cuda, a),
+                                  dict(max_steps=8, spread_alg=False),
+                                  shards, launches=4)
+    assert any(s == 8 for s, _ in trail[0])
+
+
+def test_chunked_sharded_routes_on_card(cuda):
+    """The route is fixed by S alone: clusters up to 16 shards (the card
+    holds at least one cluster of each size), the grid past that."""
+    for shards in (1, 2, 8, 16, 17, 32):
+        info = kernels.chunked_sharded_info(shards)
+        assert info["route"] == ("cluster" if shards <= 16 else "grid")
+        assert (info["max_clusters"] >= 1) == (shards <= 16)
+
+
+def test_chunked_sharded_wrapper_makes_no_synchronising_call(cuda):
+    """The batched sharded chunked wrapper, on either route, never
+    synchronises."""
+    from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
+    calls = []
+    for shards in (8, 32):
+        a = pad_lanes(chunked_lanes(400, CHUNKED_LANES, seed=5),
+                      pad_for_mesh(make_mesh(shards, cuda), 400))
+        calls.append((_on(cuda, a), shards))
+    kw = dict(max_steps=512, spread_alg=False)
+    for args, shards in calls:
+        kernels.select_chunked_batched_sharded(**args, **kw, shards=shards)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args, shards in calls:
+            kernels.select_chunked_batched_sharded(**args, **kw,
+                                                   shards=shards)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -263,7 +263,8 @@ def test_kernel_wrappers_count_no_cpu_launches():
                                 "chunked_batched_sharded": 0,
                                 "kway_batched_sharded": 0,
                                 "scan_batched_sharded": 0, "scan_cluster": 0,
-                                "scan_batched_cluster": 0}
+                                "scan_batched_cluster": 0,
+                                "chunked_batched_cluster": 0}
 
 
 def test_wrapper_rejects_unsupported_device():
