@@ -148,6 +148,26 @@ Phases (each raises on failure, so the process exits non-zero):
      set_mesh(make_mesh(32)): placements identical to the single-card
      groups', each batched sharded kernel of the mesh's route launched
      and no single-card batched kernel.
+ 10. the cold start: the main path's store after its three evals is dumped
+     (StateStore.dump_columnar, packed with msgpack), restored into a
+     fresh store (StateStore.restore), primed from its decoded alloc
+     columns (NodeTableCache.prime(snapshot, pop_cold_columns())) and its
+     device mirror uploaded to the card on a thread
+     (NodeTableCache.prefetch_device, PrefetchThread) before the first
+     eval; then the main path's three jobs again (new ids) and E1-E4 on
+     the restored store and on the store that was never dumped, and the
+     same pipeline with device="cpu": every alloc placed, placements
+     identical, no full table build on the restored store, the prefetch's
+     the mirror's one upload, every dispatch from the first served by the
+     mirror, each kernel of the path launched, the mirror equal to the
+     host table at the end. Then the pipeline again under
+     set_mesh(make_mesh(8)): the prefetch uploads the mesh-resident table
+     before the first dispatch (one upload, none per eval), every dispatch
+     served by it, the mesh's kernels launched and no single-card
+     placement kernel, placements identical to the single card's. Printed:
+     the snapshot's bytes, the seconds of dump_columnar, restore, prime and
+     prefetch_device, and the first eval's wall after the restore against
+     the never-dumped store's, with the card's name and power limit.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -278,6 +298,9 @@ RESIDENT = ("nomad.select.dispatches", "nomad.select.resident_dispatch",
             "nomad.select.mesh_resident_dispatch",
             "nomad.select.mesh_resident_fallback")
 TOKENS = ("token_survivals", "token_invalidations", "residue_rows")
+# the share of a table's rows past which a journal replay re-uploads the
+# mesh table instead of scattering (ops/device_table.py SPARSE_MAX_FRAC)
+SPARSE_MAX_FRAC = 0.5
 
 
 def fail(msg):
@@ -1358,7 +1381,7 @@ def run_main_path(device, jobs, nodes):
                  f"placed, failed {list(done.failed_tg_allocs)}")
         placements.append(sorted((a.name, names[a.node_id])
                                  for a in allocs))
-    return placements, walls, launched
+    return placements, walls, launched, h
 
 
 def steady_state_steps(mock, models, nodes):
@@ -1423,17 +1446,73 @@ def steady_counters(h):
     return out
 
 
-def run_steady_state(device, steps, nodes, mesh=False):
-    """One Harness over the nodes runs the steps. Returns, per eval, its
-    label, placements, wall, launches and counter deltas; and the mirror
-    (with `mesh`, the mesh table) checked against the host table row for
-    row at the end."""
+def run_evals(h, evals, names, device, split_first=False):
+    """The evals through Harness `h`: per eval its label, placements,
+    wall, launches, counter deltas (steady_counters), the mesh table's
+    uploads during it and the rows (nodes) its job's allocs occupy; with
+    `split_first`, the first eval's wall split by stage too
+    (utils/stages.py)."""
     import copy
     import torch
     from nomad_tpu_torch import models
     from nomad_tpu_torch.ops import kernels
-    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.ops.select import mesh_stats_snapshot
+    from nomad_tpu_torch.utils import stages
     from nomad_tpu_torch.utils.ids import generate_uuid
+    out = []
+    for label, sched, job in evals:
+        first = split_first and not out
+        job = copy.deepcopy(job)
+        h.store.upsert_job(h.next_index(), job)
+        ev = models.Evaluation(
+            id=generate_uuid(), namespace=job.namespace,
+            priority=job.priority,
+            triggered_by=models.TRIGGER_JOB_REGISTER, job_id=job.id,
+            status=models.EVAL_STATUS_PENDING, type=job.type)
+        c0, l0 = steady_counters(h), dict(kernels.LAUNCHES)
+        u0 = mesh_stats_snapshot().get("reshard_uploads", 0)
+        if first:
+            stages.enable()
+        t0 = time.perf_counter()
+        h.process(sched, ev)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        split = None
+        if first:
+            split = {k: v["seconds"] for k, v in stages.snapshot().items()
+                     if v["calls"]}
+            stages.disable()
+        c1 = steady_counters(h)
+        uploads = mesh_stats_snapshot().get("reshard_uploads", 0) - u0
+        done = h.evals[-1]
+        allocs = h.store.allocs_by_job(job.namespace, job.id)
+        live = [a for a in allocs if a.desired_status == "run"]
+        want = sum(tg.count for tg in job.task_groups)
+        if done.status != "complete" or done.failed_tg_allocs \
+                or len(live) != want:
+            fail(f"{label} {job.id} on {device}: status {done.status}, "
+                 f"{len(live)}/{want} placed, failed "
+                 f"{list(done.failed_tg_allocs)}")
+        out.append(dict(
+            label=label, job=job.id, wall=wall,
+            placements=sorted((a.name, a.desired_status, names[a.node_id])
+                              for a in allocs),
+            launches={k: kernels.LAUNCHES[k] - l0[k] for k in l0
+                      if kernels.LAUNCHES[k] != l0[k]},
+            counters={k: c1[k] - c0[k] for k in c1},
+            mesh_uploads=uploads, rows=len({a.node_id for a in allocs}),
+            stages=split))
+    return out
+
+
+def run_steady_state(device, steps, nodes, mesh=False):
+    """One Harness over the nodes runs the steps. Returns, per eval, its
+    label, placements, wall, launches and counter deltas (run_evals); and
+    the mirror (with `mesh`, the mesh table) checked against the host
+    table row for row at the end."""
+    import copy
+    from nomad_tpu_torch.scheduler.harness import Harness
     h = Harness(device=device)
     for node in nodes:
         h.store.upsert_node(h.next_index(), copy.deepcopy(node))
@@ -1448,53 +1527,31 @@ def run_steady_state(device, steps, nodes, mesh=False):
                                        [copy.deepcopy(step[1])])
             continue
         _kind, label, job = step
-        job = copy.deepcopy(job)
-        h.store.upsert_job(h.next_index(), job)
-        ev = models.Evaluation(
-            id=generate_uuid(), namespace=job.namespace,
-            priority=job.priority,
-            triggered_by=models.TRIGGER_JOB_REGISTER, job_id=job.id,
-            status=models.EVAL_STATUS_PENDING, type=job.type)
-        c0, l0 = steady_counters(h), dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        h.process("service", ev)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        c1 = steady_counters(h)
-        done = h.evals[-1]
-        allocs = h.store.allocs_by_job(job.namespace, job.id)
-        live = [a for a in allocs if a.desired_status == "run"]
-        want = sum(tg.count for tg in job.task_groups)
-        if done.status != "complete" or done.failed_tg_allocs \
-                or len(live) != want:
-            fail(f"{label} {job.id} on {device}: status {done.status}, "
-                 f"{len(live)}/{want} placed, failed "
-                 f"{list(done.failed_tg_allocs)}")
-        evals.append(dict(
-            label=label, job=job.id, wall=wall,
-            placements=sorted((a.name, a.desired_status, names[a.node_id])
-                              for a in allocs),
-            launches={k: kernels.LAUNCHES[k] - l0[k] for k in l0
-                      if kernels.LAUNCHES[k] != l0[k]},
-            counters={k: c1[k] - c0[k] for k in c1}))
-    t = h.store.snapshot().node_table()
-    if mesh:
-        from nomad_tpu_torch.ops.select import get_shared_sharded
-        what, st = "mesh table", get_shared_sharded().resident.arrays_for(t)
+        evals += run_evals(h, [(label, "service", job)], names, device)
+    served_table_matches(h.store, f"steady state on {device}",
+                         "mesh table" if mesh else "mirror")
+    return evals
+
+
+def served_table_matches(store, where, what):
+    """The table that serves the store's latest snapshot, the mirror
+    (`what` "mirror") or the mesh table ("mesh table"), equal to the host
+    table row for row."""
+    import torch
+    t = store.snapshot().node_table()
+    if what == "mirror":
+        st = t.device_mirror.arrays_for(t, store.table_cache.device.device)
     else:
-        what = "mirror"
-        st = t.device_mirror.arrays_for(t, h.store.table_cache.device.device)
+        from nomad_tpu_torch.ops.select import get_shared_sharded
+        st = get_shared_sharded().resident.arrays_for(t)
     if st is None:
-        fail(f"steady state on {device}: the {what} does not serve the "
-             f"latest table")
+        fail(f"{where}: the {what} does not serve the latest table")
     for name, col, host in (("capacity", st.capacity, t.capacity),
                             ("used", st.used, t.base_used),
                             ("free_ports", st.free_ports, t.free_ports)):
         if not torch.equal(col[:t.n].cpu(), torch.from_numpy(host)):
-            fail(f"steady state on {device}: the {what}'s {name} differs "
-                 f"from the host table")
-    return evals
+            fail(f"{where}: the {what}'s {name} differs from the host "
+                 f"table")
 
 
 def steady_state_phase(nodes, mock, models):
@@ -2206,7 +2263,8 @@ def mesh_phase(device, nodes, jobs, single_places, single_walls, steps,
         for shards, names in paths.items():
             set_mesh(make_mesh(shards, device))
             kernels.reset_launches()
-            places, walls, launched = run_main_path(device, jobs, nodes)
+            places, walls, launched, _h = run_main_path(device, jobs,
+                                                        nodes)
             launches = dict(kernels.LAUNCHES)
             out[shards] = launches
             for name in names:
@@ -2478,6 +2536,199 @@ def mesh_gateway_phase(nodes, mock, models, single_groups):
     return out[MESH_SHARDS], out[MESH_GRID]
 
 
+def cold_evals(jobs, steps):
+    """The cold-start phase's evals as (label, scheduler, job): the main
+    path's three jobs again under new ids, then E1-E4."""
+    import copy
+    out = []
+    for kind, job, arm in jobs:
+        job = copy.deepcopy(job)
+        job.id = f"{job.id}-again"
+        out.append((f"{arm} again", kind, job))
+    out += [(label, "service", job) for _k, label, job in steps[:4]]
+    return out
+
+
+def restore_primed(blob, device):
+    """The cold-start pipeline up to the first eval: unpack, restore,
+    prime from the decoded alloc columns, and prefetch the device mirror
+    (and the mesh table, with a mesh set) on a thread. Returns the store
+    and the seconds of each stage."""
+    import msgpack
+    import torch
+    from nomad_tpu_torch.ops.tables import PrefetchThread
+    from nomad_tpu_torch.state import StateStore
+    secs = {}
+    t0 = time.perf_counter()
+    data = msgpack.unpackb(blob, raw=False, strict_map_key=False)
+    secs["unpack"] = time.perf_counter() - t0
+    store = StateStore()
+    t0 = time.perf_counter()
+    store.restore(data)
+    secs["restore"] = time.perf_counter() - t0
+    cache = store.table_cache
+    t0 = time.perf_counter()
+    cache.prime(store.snapshot(), store.pop_cold_columns())
+    secs["prime"] = time.perf_counter() - t0
+    thread = PrefetchThread(cache, device)
+    t0 = time.perf_counter()
+    thread.start()
+    thread.join(timeout=300)
+    if thread.is_alive():
+        fail(f"cold start on {device}: prefetch_device did not end")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs["prefetch_device"] = time.perf_counter() - t0
+    if cache.device.stats["uploads"] != 1 or \
+            cache.device.device != torch.device(device):
+        fail(f"cold start on {device}: the prefetch left the mirror "
+             f"{cache.device.snapshot()} on {cache.device.device}")
+    return store, secs
+
+
+def cold_store_checks(store, evals, device, what):
+    """No full table build, one upload (the prefetch's), and every
+    dispatch from the first served by the mirror (`what` "mirror") or the
+    mesh table ("mesh table"); the table it serves equal to the host
+    table row for row at the end."""
+    cache = store.table_cache
+    if cache.stats["full_builds"] != 0 or cache.stats.get("primes") != 1:
+        fail(f"cold start on {device} ({what}): table cache {cache.stats}")
+    tot = {k: sum(e["counters"][k] for e in evals)
+           for k in evals[0]["counters"]}
+    key = "resident" if what == "mirror" else "mesh_resident"
+    if tot[f"{key}_fallback"] != 0 or tot["dispatches"] < len(evals) \
+            or tot[f"{key}_dispatch"] != tot["dispatches"]:
+        fail(f"cold start on {device}: {tot[f'{key}_dispatch']:.0f} of "
+             f"{tot['dispatches']:.0f} dispatches served by the {what}, "
+             f"{tot[f'{key}_fallback']:.0f} fell back")
+    if what == "mirror" and cache.device.stats["uploads"] != 1:
+        fail(f"cold start on {device}: the mirror was uploaded "
+             f"{cache.device.stats['uploads']} times")
+    served_table_matches(store, f"cold start on {device}", what)
+    return tot
+
+
+def same_placements(got, want, what):
+    for g, w in zip(got, want):
+        if g["placements"] != w["placements"]:
+            diff = [x for x in g["placements"]
+                    if x not in w["placements"]][:3]
+            fail(f"cold start {g['label']}: {what} differ, e.g. {diff}")
+
+
+def cold_start_phase(warm, nodes, jobs, steps, info):
+    """Phase 10 (see the module's docstring). `warm` is the main path's
+    Harness on the card after its three evals. Returns the launches of
+    the restored store's run on the card and of its run on the mesh."""
+    import msgpack
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.ops.select import mesh_stats_snapshot, set_mesh
+    from nomad_tpu_torch.parallel import make_mesh
+    from nomad_tpu_torch.scheduler.harness import Harness
+    names = {node.id: node.name for node in nodes}
+    evals = cold_evals(jobs, steps)
+    held = (len(warm.store.nodes()), len(warm.store.allocs()),
+            len(warm.store.evals()))
+    t0 = time.perf_counter()
+    data = warm.store.dump_columnar()
+    dump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = msgpack.packb(data, use_bin_type=True)
+    pack_s = time.perf_counter() - t0
+    del data
+
+    kernels.reset_launches()
+    store, secs = restore_primed(blob, "cuda")
+    cold = run_evals(Harness(store, device="cuda"), evals, names, "cuda",
+                     split_first=True)
+    launches = dict(kernels.LAUNCHES)
+    tot = cold_store_checks(store, cold, "cuda", "mirror")
+    for name in SELECT_ARMS + ("scatter_set", "overlay_add"):
+        if launches[name] < 1:
+            fail(f"cold start never launched the {name} kernel")
+    warm_run = run_evals(warm, evals, names, "cuda", split_first=True)
+    same_placements(cold, warm_run, "the restored and never-dumped "
+                    "stores' placements")
+    cpu_store, _ = restore_primed(blob, "cpu")
+    cpu = run_evals(Harness(cpu_store, device="cpu"), evals, names, "cpu")
+    cold_store_checks(cpu_store, cpu, "cpu", "mirror")
+    same_placements(cold, cpu, "the card's and the CPU's placements")
+    for c, w, h in zip(cold, warm_run, cpu):
+        print(f"cold start {c['label']} {c['job']}: {c['wall']:.3f} s on "
+              f"the card after the restore, {w['wall']:.3f} s on the "
+              f"never-dumped store, {h['wall']:.3f} s with plain versions "
+              f"on the CPU; launches {c['launches']}", flush=True)
+
+    try:
+        set_mesh(make_mesh(MESH_SHARDS, "cuda"))
+        kernels.reset_launches()
+        mesh_store, mesh_secs = restore_primed(blob, "cuda")
+        before = mesh_stats_snapshot()
+        mesh = run_evals(Harness(mesh_store, device="cuda"), evals, names,
+                         "cuda")
+        mesh_launches = dict(kernels.LAUNCHES)
+        after = mesh_stats_snapshot()
+        mesh_tot = cold_store_checks(mesh_store, mesh, "cuda",
+                                     "mesh table")
+    finally:
+        set_mesh(None)
+    # the prefetch made the mesh table's upload before the first eval,
+    # whose dispatch found it resident; a later upload is only the
+    # journal's wide-delta path, taken at the dispatch after an eval whose
+    # plan changed more than SPARSE_MAX_FRAC of the rows (one contiguous
+    # upload instead of a scatter of most of the table), never a per-eval
+    # re-put
+    wide = [m["label"] for m in mesh
+            if m["rows"] > SPARSE_MAX_FRAC * len(nodes)]
+    if before["reshard_uploads"] != 1 or mesh[0]["mesh_uploads"] != 0 \
+            or after["journal_gaps"] != 0 or any(
+                m["mesh_uploads"] > (p["label"] in wide)
+                for p, m in zip(mesh, mesh[1:])):
+        fail(f"cold start on the mesh: {before['reshard_uploads']} mesh "
+             f"table uploads before the first eval, then "
+             f"{[(m['label'], m['mesh_uploads']) for m in mesh]} (wide "
+             f"deltas: {wide}), {after['journal_gaps']} journal gaps")
+    for name in ("scan_cluster", "kway_sharded"):
+        if mesh_launches[name] < 1:
+            fail(f"cold start on the mesh never launched {name}")
+    solo = {k: mesh_launches[k] for k in SELECT_ARMS + BATCHED
+            if mesh_launches[k]}
+    if solo:
+        fail(f"cold start on the mesh launched {solo}")
+    same_placements(mesh, cold, "the mesh's and the single card's "
+                    "placements")
+    for m, c in zip(mesh, cold):
+        print(f"cold start mesh {m['label']} {m['job']}: {m['wall']:.3f} s "
+              f"on the card over {MESH_SHARDS} shards after the restore, "
+              f"{c['wall']:.3f} s on the single card; launches "
+              f"{m['launches']}", flush=True)
+    print(f"cold start: snapshot {len(blob)} bytes ({held[0]} nodes, "
+          f"{held[1]} allocs, {held[2]} evals); dump_columnar "
+          f"{dump_s:.3f} s, msgpack "
+          f"pack {pack_s:.3f} s, unpack {secs['unpack']:.3f} s, restore "
+          f"{secs['restore']:.3f} s, prime {secs['prime']:.3f} s, "
+          f"prefetch_device {secs['prefetch_device']:.3f} s (on the mesh: "
+          f"restore {mesh_secs['restore']:.3f} s, prime "
+          f"{mesh_secs['prime']:.3f} s, prefetch_device "
+          f"{mesh_secs['prefetch_device']:.3f} s); first eval after the "
+          f"restore {cold[0]['wall']:.3f} s against the never-dumped "
+          f"store's {warm_run[0]['wall']:.3f} s (by stage, s: "
+          f"{cold[0]['stages']} against {warm_run[0]['stages']}); "
+          f"{tot['dispatches']:.0f} "
+          f"dispatches all resident ({mesh_tot['dispatches']:.0f} on the "
+          f"mesh), no full table build, one mirror upload, the mesh "
+          f"table's first upload the prefetch's ("
+          f"{after['reshard_uploads']} in all, "
+          f"{after['reshard_uploads'] - 1} by wide deltas: {wide}); card: "
+          f"{info['raw']}", flush=True)
+    print(f"cold start: placements identical (restored, never-dumped, CPU, "
+          f"mesh); launches {launches}; mesh launches "
+          f"{ {k: v for k, v in mesh_launches.items() if v} }; mesh table "
+          f"{json.dumps(after)}", flush=True)
+    return launches, mesh_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2504,7 +2755,8 @@ def main():
     jobs = main_path_jobs(mock, models)
     kernels.reset_launches()
     # Harness(device=None): the entry point's own default is the card
-    gpu_places, gpu_walls, gpu_launched = run_main_path(None, jobs, nodes)
+    gpu_places, gpu_walls, gpu_launched, main_h = run_main_path(
+        None, jobs, nodes)
     main_launches = dict(kernels.LAUNCHES)
     for (_kind, job, arm), got in zip(jobs, gpu_launched):
         if got[arm] < 1:
@@ -2512,7 +2764,7 @@ def main():
     for arm in SELECT_ARMS:
         if main_launches[arm] < 1:
             fail(f"main path never launched the {arm} kernel")
-    cpu_places, cpu_walls, _ = run_main_path("cpu", jobs, nodes)
+    cpu_places, cpu_walls, _, _ = run_main_path("cpu", jobs, nodes)
     for (_kind, job, _arm), g, c in zip(jobs, gpu_places, cpu_places):
         if g != c:
             diff = [p for p in g if p not in c][:3]
@@ -2533,6 +2785,8 @@ def main():
                                steady_gpu)
     bs_rows = batched_sharded_kernel_phase("cuda")
     mesh_gw_launches = mesh_gateway_phase(nodes, mock, models, gateway_gpu)
+    cold_launches, cold_mesh_launches = cold_start_phase(
+        main_h, nodes, jobs, steady_state_steps(mock, models, nodes), info)
     # each sharded kernel's launches on its main path: the grid route's
     # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
     grid = ("scan_sharded",) + GRID_ROUTE
@@ -2545,6 +2799,7 @@ def main():
             name=arm, route="cuda", source=SOURCE[arm],
             replaces=REPLACES[arm],
             launches=main_launches[arm],
+            cold_start_launches=cold_launches[arm],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
@@ -2563,6 +2818,7 @@ def main():
         record.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name], launches=steady_launches[name],
+            cold_start_launches=cold_launches[name],
             max_abs_err=0.0, ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=top["library_ms"], kernel_ms=top["kernel_ms"],
@@ -2597,6 +2853,7 @@ def main():
             name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name],
             launches=mesh_launches[name in grid][name],
+            cold_start_launches=cold_mesh_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],

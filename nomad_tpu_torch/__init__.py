@@ -40,19 +40,28 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   utils/layermap.py, utils/stages.py, utils/metrics.py, utils/cron.py,
   plugins/psstructs.py,
   ops/__init__.py, ops/targets.py, ops/versions.py,
-  state/__init__.py, state/alloc_index.py,
-  scheduler/__init__.py, scheduler/context.py, scheduler/devices.py,
-  scheduler/reconcile.py, scheduler/reconcile_util.py,
-  scheduler/scheduler.py, scheduler/util.py.
+  state/__init__.py, state/alloc_index.py, state/columnar.py,
+  state/store.py (the snapshots' dump, dump_columnar, restore and
+  pop_cold_columns included),
+  scheduler/__init__.py, scheduler/annotate.py, scheduler/context.py,
+  scheduler/devices.py, scheduler/reconcile.py,
+  scheduler/reconcile_util.py, scheduler/scheduler.py, scheduler/util.py.
 
 Copies changed only where they reached modules this package does not
 carry, or to carry the device:
   utils/locks.py        without the race-sanitizer hook;
-  ops/tables.py         NodeTableCache without prefetch_device (no
-                        cold-start restore) and without the
-                        NOMAD_TPU_TABLE_DELTA switch; fold_mesh and
-                        mesh_reshard_debt read the mesh set by set_mesh;
-  state/store.py        without the snapshot dump/restore persistence;
+  ops/tables.py         NodeTableCache without the NOMAD_TPU_TABLE_DELTA
+                        switch; fold_mesh and mesh_reshard_debt read the
+                        mesh set by set_mesh; prefetch_device(device)
+                        takes the device it uploads to and raises where
+                        the JAX package's swallows a failed upload, and
+                        PrefetchThread runs it on a thread whose join()
+                        re-raises;
+  acl/acl.py, server/event_sink.py, server/vault.py   the records the
+                        store holds and a snapshot carries (AclPolicy,
+                        AclToken, EventSink, VaultAccessor) only, not the
+                        policy engine, the sink manager or the token
+                        authority beside them;
   scheduler/stack.py    SelectKernel(device); feasibility tokens parked
                         on the kernel's device;
   scheduler/generic.py, scheduler/system.py   pass the planner's device;

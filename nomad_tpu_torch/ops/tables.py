@@ -14,6 +14,7 @@ index epoch; the scheduler calls `NodeTable.build` once per eval at most
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -326,7 +327,7 @@ class NodeTable:
         per UNIQUE pool entry instead of once per alloc. Produces a
         table identical to build_all(snapshot) on the same state
         (liveness, row lists, port bits — parity-tested in
-        tests/test_cold_start.py)."""
+        tests/test_torch_cold_start.py)."""
         nodes = sorted(snapshot.nodes(), key=lambda n: n.id)
         BUILD_STATS["column_builds"] = \
             BUILD_STATS.get("column_builds", 0) + 1
@@ -706,7 +707,10 @@ class NodeTableCache:
     def prime(self, snapshot, cold=None) -> None:
         """Cold-start install: build the resident table ONCE at the
         restored index, from decoded alloc columns when available
-        (NodeTable.build_from_columns)."""
+        (NodeTable.build_from_columns, fed by StateStore.pop_cold_columns),
+        so the first eval after recovery takes the delta path instead of
+        paying a dense rebuild inside its latency budget. Pair with
+        prefetch_device() to upload the device mirror before that eval."""
         from ..utils import stages
         t0 = time.perf_counter() if stages.enabled else 0.0
         t = (NodeTable.build_from_columns(snapshot, cold)
@@ -717,6 +721,37 @@ class NodeTableCache:
             self.stats["primes"] = self.stats.get("primes", 0) + 1
         if stages.enabled:
             stages.add("table_build", time.perf_counter() - t0)
+
+    def prefetch_device(self, device) -> None:
+        """Materialize the device mirror of the primed table on `device`
+        (one full upload of capacity, used and free_ports) and, while
+        set_mesh holds a mesh, the mesh-resident table too (one upload at
+        the mesh's padding), so the first eval after a restore dispatches
+        resident. Run it on a thread beside the rest of recovery
+        (PrefetchThread, whose join() re-raises what it raised). A no-op
+        when nothing is primed. A failed upload raises: nothing falls back
+        to shipping the dense columns. The cache's lock is held through
+        the uploads, so an eval that wants the table meanwhile waits for
+        them instead of seeing a half-made mirror."""
+        from .select import get_shared_sharded, resolve_device
+        dev = resolve_device(device)
+        sh = get_shared_sharded()
+        if sh is not None and not sh.mesh.on(dev):
+            raise ValueError(f"the mesh lives on {sh.mesh.device}, the "
+                             f"prefetch asks for {dev}")
+        with self._lock:
+            t = self._table
+            if t is None:
+                return
+            if self.device.arrays_for(t, dev) is None:
+                raise RuntimeError(
+                    f"prefetch: the device mirror (version "
+                    f"{self.device.version} on {self.device.device}) did "
+                    f"not take table version {t.device_version} on {dev}")
+            if sh is not None and sh.resident.arrays_for(t, dev) is None:
+                raise RuntimeError(
+                    f"prefetch: the mesh-resident table did not take "
+                    f"table version {t.device_version} on {dev}")
 
     def get(self, snapshot, build: bool = True) -> Optional[NodeTable]:
         from ..utils import stages
@@ -831,6 +866,30 @@ class NodeTableCache:
         from ..scheduler.preemption import PREEMPT_STATS
         PREEMPT_STATS["cache_clears"] += 1
         return {"dropped": dropped}
+
+
+class PrefetchThread(threading.Thread):
+    """NodeTableCache.prefetch_device(device) on a thread of its own, for
+    the cold-start pipeline: restore -> prime -> prefetch, overlapped with
+    the rest of recovery. join() re-raises the prefetch's exception in
+    the caller, so a failed upload cannot pass unseen."""
+
+    def __init__(self, cache: NodeTableCache, device):
+        super().__init__(name="node-table-prefetch", daemon=True)
+        self._cache = cache
+        self._device = device
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        try:
+            self._cache.prefetch_device(self._device)
+        except BaseException as exc:    # re-raised by join()
+            self.error = exc
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        super().join(timeout)
+        if self.error is not None:
+            raise self.error
 
 
 class ProposedIndex:

@@ -380,6 +380,24 @@ class StateSnapshot:
         self._dump_small(root, plain)
         return out
 
+    def dump_columnar(self) -> dict:
+        """Format-2 snapshot: the three big tables (allocs/evals/nodes)
+        as struct-of-arrays (state/columnar.py — numpy buffers framed
+        in msgpack, dedup pools for nested values), everything else in
+        the legacy wire shape. Encode/decode is O(columns + unique
+        nested values) instead of O(objects)."""
+        from .columnar import SNAPSHOT_FORMAT, encode_table
+        root = self._root
+        out = {"format": SNAPSHOT_FORMAT,
+               "indexes": dict(root.indexes.items()),
+               "tables": {}, "columnar": {}}
+        self._dump_small(root, out["tables"])
+        cal = out["columnar"]
+        cal["nodes"] = encode_table(list(root.table("nodes").values()))
+        cal["evals"] = encode_table(list(root.table("evals").values()))
+        cal["allocs"] = encode_table(list(root.table("allocs").values()))
+        return out
+
     def _dump_small(self, root: _Root, plain: dict) -> None:
         """Every table EXCEPT the big three — shared by the legacy and
         columnar dump formats."""
@@ -454,6 +472,9 @@ class StateStore(StateSnapshot):
         # write-through by every node mutation below
         from .node_attr_index import NodeAttrIndexCache
         self.attr_index = NodeAttrIndexCache()
+        # decoded alloc columns left behind by a columnar restore for
+        # the resident table's vectorized cold build (pop_cold_columns)
+        self._cold_columns = None
 
     # -- changelog -----------------------------------------------------
     def _log_change(self, index: int, kind: str, key: str) -> None:
@@ -1966,6 +1987,280 @@ class StateStore(StateSnapshot):
             self._publish(root)
 
     # -- checkpoint / restore (fsm.go Snapshot:1360 / Restore:1374) ----
+    def restore(self, data: dict) -> None:
+        """Rebuild the database from a dump. Replaces all state. Both
+        formats restore here: legacy object snapshots (format 1 — one
+        wire dict per row) and columnar format-2 snapshots
+        (state/columnar.py struct-of-arrays).
+
+        The big three tables land through the same grouped bulk-index
+        path a plan apply uses (one sub-table build per key instead of
+        one HAMT write per row), the per-job columnar alloc index is
+        rebuilt EAGERLY from the loaded rows — a wholesale invalidate
+        would make the first eval after recovery pay a dense O(allocs)
+        rebuild inside its latency budget — and a columnar
+        snapshot leaves its decoded alloc columns on `_cold_columns`
+        for the resident NodeTable's vectorized cold build
+        (ops/tables.py NodeTable.build_from_columns via
+        pop_cold_columns)."""
+        from ..models import SchedulerConfiguration
+        from ..utils.codec import from_wire
+        fmt = int(data.get("format", 1))
+        tables = data.get("tables", {})
+        cold = None
+        if fmt >= 2:
+            from .columnar import cold_alloc_columns, decode_table
+            cal = data.get("columnar", {})
+            dec_allocs = decode_table(Allocation, cal.get("allocs"))
+            nodes = decode_table(Node, cal.get("nodes")).objs
+            evals = decode_table(Evaluation, cal.get("evals")).objs
+            allocs = dec_allocs.objs
+            cold = cold_alloc_columns(dec_allocs)
+        else:
+            nodes = [from_wire(Node, w) for w in tables.get("nodes", [])]
+            evals = [from_wire(Evaluation, w)
+                     for w in tables.get("evals", [])]
+            allocs = [from_wire(Allocation, w)
+                      for w in tables.get("allocs", [])]
+        with self._lock:
+            # invalidate the changelog AND the resident table cache:
+            # restore replaces state wholesale, so a cached table at the
+            # same numeric index would silently serve pre-restore rows
+            self._changes.clear()
+            self._change_indexes.clear()
+            self._change_floor = max(
+                [0] + [int(i) for i in data.get("indexes", {}).values()])
+            from ..ops.tables import NodeTableCache
+            self.table_cache = NodeTableCache()
+            from .alloc_index import AllocIndexCache
+            old_ai = self.alloc_index
+            self.alloc_index = AllocIndexCache(
+                max_jobs=old_ai.max_jobs, delta_max=old_ai.delta_max,
+                enabled=old_ai.enabled)
+            from .node_attr_index import NodeAttrIndexCache
+            self.attr_index = NodeAttrIndexCache(
+                enabled=self.attr_index.enabled,
+                delta_max=self.attr_index.delta_max)
+            root = _Root(_Table(), _Table()).edit()
+            if nodes:
+                root = root.with_table(
+                    "nodes", root.table("nodes").update(
+                        [(n.id, n) for n in nodes]))
+
+            t = root.table("jobs")
+            for w in tables.get("jobs", []):
+                job = from_wire(Job, w)
+                t = t.set(job.namespaced_id(), job)
+            root = root.with_table("jobs", t)
+
+            t = root.table("job_versions")
+            for entry in tables.get("job_versions", []):
+                key = tuple(entry["key"])
+                versions = _Table()
+                for v, w in entry["versions"].items():
+                    versions = versions.set(int(v), from_wire(Job, w))
+                t = t.set(key, versions)
+            root = root.with_table("job_versions", t)
+
+            root = self._bulk_install_evals(root, evals)
+            root = self._bulk_install_allocs(root, allocs)
+
+            t = root.table("deployments")
+            for w in data["tables"].get("deployments", []):
+                d = from_wire(Deployment, w)
+                t = t.set(d.id, d)
+                root = root.with_table("deployments", t)
+                root = self._index_add(root, "deployments_by_job",
+                                       (d.namespace, d.job_id), d.id)
+                t = root.table("deployments")
+
+            t = root.table("job_summaries")
+            for w in data["tables"].get("job_summaries", []):
+                s = from_wire(JobSummary, w)
+                t = t.set((s.namespace, s.job_id), s)
+            root = root.with_table("job_summaries", t)
+
+            t = root.table("periodic_launches")
+            for entry in data["tables"].get("periodic_launches", []):
+                t = t.set(tuple(entry["key"]), entry["launch_time"])
+            root = root.with_table("periodic_launches", t)
+
+            t = root.table("scaling_policies")
+            for w in data["tables"].get("scaling_policies", []):
+                p = from_wire(ScalingPolicy, w)
+                t = t.set(p.id, p)
+                root = root.with_table("scaling_policies", t)
+                root = self._index_add(
+                    root, "scaling_policies_by_job",
+                    (p.target.get("Namespace", p.namespace),
+                     p.target.get("Job", "")), p.id)
+                t = root.table("scaling_policies")
+            root = root.with_table("scaling_policies", t)
+
+            members = data["tables"].get("server_members") or []
+            if members:
+                root = root.with_table(
+                    "server_members",
+                    root.table("server_members").set("members",
+                                                     list(members)))
+
+            from ..server.event_sink import EventSink
+            t = root.table("event_sinks")
+            for w in data["tables"].get("event_sinks", []):
+                s = from_wire(EventSink, w)
+                t = t.set(s.id, s)
+            root = root.with_table("event_sinks", t)
+
+            t = root.table("scaling_events")
+            for entry in data["tables"].get("scaling_events", []):
+                t = t.set(tuple(entry["key"]), list(entry["events"]))
+            root = root.with_table("scaling_events", t)
+
+            cfg = data["tables"].get("scheduler_config")
+            if cfg:
+                root = root.with_table(
+                    "scheduler_config",
+                    root.table("scheduler_config").set(
+                        "config", from_wire(SchedulerConfiguration, cfg)))
+
+            from ..models.csi import CSIVolume
+            t = root.table("csi_volumes")
+            for w in data["tables"].get("csi_volumes", []):
+                v = from_wire(CSIVolume, w)
+                t = t.set((v.namespace, v.id), v)
+            root = root.with_table("csi_volumes", t)
+
+            from ..models.namespace import Namespace
+            t = root.table("namespaces")
+            for w in data["tables"].get("namespaces", []):
+                ns = from_wire(Namespace, w)
+                t = t.set(ns.name, ns)
+            root = root.with_table("namespaces", t)
+
+            from ..server.vault import VaultAccessor
+            t = root.table("vault_accessors")
+            for w in data["tables"].get("vault_accessors", []):
+                a = from_wire(VaultAccessor, w)
+                t = t.set(a.accessor, a)
+                root = self._index_add(root, "vault_accessors_by_alloc",
+                                       a.alloc_id, a.accessor)
+                root = self._index_add(root, "vault_accessors_by_token",
+                                       a.token, a.accessor)
+            root = root.with_table("vault_accessors", t)
+
+            from ..models.services import ServiceRegistration
+            t = root.table("service_registrations")
+            for w in data["tables"].get("service_registrations", []):
+                s = from_wire(ServiceRegistration, w)
+                t = t.set(s.id, s)
+                root = root.with_table("service_registrations", t)
+                root = self._index_add(root, "services_by_name",
+                                       (s.namespace, s.service_name),
+                                       s.id)
+                root = self._index_add(root, "services_by_alloc",
+                                       s.alloc_id, s.id)
+                t = root.table("service_registrations")
+            root = root.with_table("service_registrations", t)
+
+            from ..acl import AclPolicy, AclToken
+            t = root.table("acl_policies")
+            for w in data["tables"].get("acl_policies", []):
+                p = from_wire(AclPolicy, w)
+                t = t.set(p.name, p)
+            root = root.with_table("acl_policies", t)
+            t = root.table("acl_tokens")
+            for w in data["tables"].get("acl_tokens", []):
+                tok = from_wire(AclToken, w)
+                t = t.set(tok.accessor_id, tok)
+                root = root.with_table("acl_tokens", t)
+                root = self._index_add(root, "acl_tokens_by_secret",
+                                       tok.secret_id, tok.accessor_id)
+                t = root.table("acl_tokens")
+
+            for table, index in data.get("indexes", {}).items():
+                root = root.with_index(table, index)
+            self._publish(root)
+            # eager per-job columnar index: the eval that follows
+            # recovery reads warm columns, zero dense rebuilds
+            if allocs:
+                self._prime_alloc_index(allocs, self.index("allocs"))
+            self._cold_columns = cold
+
+    def _bulk_install_evals(self, root: _Root, evals: List[Evaluation]
+                            ) -> _Root:
+        """Restore-grade bulk insert: one outer batch write per table,
+        one sub-table build per (namespace, job) — same nested-map
+        shape `_index_add` produces row by row."""
+        if not evals:
+            return root
+        root = root.with_table(
+            "evals",
+            root.table("evals").update([(e.id, e) for e in evals]))
+        groups: Dict[Tuple[str, str], List[str]] = {}
+        for e in evals:
+            groups.setdefault((e.namespace, e.job_id), []).append(e.id)
+        t = root.table("evals_by_job")
+        pairs = []
+        for key, ids in groups.items():
+            members = (t.get(key) or _Table()).with_ctx(root._ctx)
+            pairs.append((key, members.update(
+                [(i, True) for i in ids]).frozen()))
+        return root.with_table("evals_by_job", t.update(pairs))
+
+    def _bulk_install_allocs(self, root: _Root,
+                             allocs: List[Allocation]) -> _Root:
+        """Restore-grade alloc insert: grouped secondary-index builds
+        (by node / job / eval) instead of three HAMT writes per row."""
+        if not allocs:
+            return root
+        root = root.with_table(
+            "allocs",
+            root.table("allocs").update([(a.id, a) for a in allocs]))
+        for table, keyfn in (
+                ("allocs_by_node", lambda a: a.node_id),
+                ("allocs_by_job", lambda a: (a.namespace, a.job_id)),
+                ("allocs_by_eval", lambda a: a.eval_id)):
+            groups: Dict = {}
+            for a in allocs:
+                groups.setdefault(keyfn(a), []).append(a.id)
+            t = root.table(table)
+            pairs = []
+            for key, ids in groups.items():
+                members = (t.get(key) or _Table()).with_ctx(root._ctx)
+                pairs.append((key, members.update(
+                    [(i, True) for i in ids]).frozen()))
+            root = root.with_table(table, t.update(pairs))
+        return root
+
+    def _prime_alloc_index(self, allocs: List[Allocation],
+                           index: int) -> None:
+        """Rebuild the per-job columnar alloc index eagerly from
+        freshly loaded rows (a wholesale invalidate would make the
+        eval after recovery pay a dense O(allocs) rebuild —
+        `alloc_index.stats["rebuilds"]` must stay 0 after a restore).
+        Bounded by the cache's max_jobs, largest
+        jobs first: the entries most expensive to rebuild are the ones
+        kept warm."""
+        ai = self.alloc_index
+        if not ai.enabled:
+            return
+        from .alloc_index import JobAllocColumns
+        groups: Dict[Tuple[str, str], List[Allocation]] = {}
+        for a in allocs:
+            groups.setdefault((a.namespace, a.job_id), []).append(a)
+        keys = sorted(groups, key=lambda k: -len(groups[k]))
+        for key in keys[:ai.max_jobs]:
+            ai.install(key, JobAllocColumns.build(groups[key]), index)
+
+    def pop_cold_columns(self):
+        """One-shot handoff of the last restore's decoded alloc columns
+        to the resident-table prime (NodeTableCache.prime; None after a
+        legacy-format restore)."""
+        cold = getattr(self, "_cold_columns", None)
+        self._cold_columns = None
+        return cold
+
+    # -- job status reconciliation (fsm setJobStatus analog) ----------
     def set_job_status(self, index: int, namespace: str, job_id: str,
                        status: str, description: str = "") -> None:
         with self._lock:

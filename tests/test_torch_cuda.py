@@ -983,3 +983,141 @@ def test_chunked_sharded_wrapper_makes_no_synchronising_call(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# -- the golden scheduler scenarios and the cold start on the card ------
+
+GOLDEN_ON_CARD = [
+    ("test_torch_generic_golden", "test_job_register"),
+    ("test_torch_generic_golden", "test_job_register_distinct_hosts"),
+    ("test_torch_generic_golden", "test_job_modify_destructive"),
+    ("test_torch_generic_golden",
+     "test_job_register_feasible_and_infeasible_tg"),
+    ("test_torch_generic_golden", "test_node_drain"),
+    ("test_torch_system_golden", "test_SystemSched_ExhaustResources"),
+]
+
+
+def _golden_run(monkeypatch, module_name, test_name, on_card):
+    """One port golden test with every id drawn from one seeded stream;
+    its harnesses on the card (Harness() with no device) or, as the test
+    is written, on the CPU. Returns the harnesses it made."""
+    import importlib
+    import os
+    import random
+    mod = importlib.import_module(module_name)
+    made = []
+    base = mod.Harness
+
+    class Recording(base):
+        def __init__(self, store=None, device=None):
+            super().__init__(store, device=None if on_card else device)
+            made.append(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(mod, "Harness", Recording)
+        m.setattr(os, "urandom", random.Random(20260417).randbytes)
+        getattr(mod, test_name)()
+    return made
+
+
+@pytest.mark.parametrize("module_name,test_name", GOLDEN_ON_CARD,
+                         ids=[t for _m, t in GOLDEN_ON_CARD])
+def test_golden_scenario_places_on_card_as_on_cpu(cuda, monkeypatch,
+                                                  module_name, test_name):
+    """A golden scheduler scenario through Harness() on the card, its
+    assertions included, places as the same scenario on the CPU: per
+    alloc name the same node and statuses, the scores within 1e-6, the
+    same evals and plans; and the card's kernels ran (each of these
+    scenarios dispatches at least one placement; the system scheduler's
+    other golden scenarios place none)."""
+    from nomad_tpu_torch.utils.codec import to_wire
+    from test_torch_golden_parity import _placements
+    arms = ("chunked", "kway", "scan")
+    before = sum(kernels.LAUNCHES[k] for k in arms)
+    card = _golden_run(monkeypatch, module_name, test_name, True)
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES[k] for k in arms) > before
+    cpu = _golden_run(monkeypatch, module_name, test_name, False)
+    assert len(card) == len(cpu) >= 1
+    for ch, hh in zip(card, cpu):
+        assert ch.device is None and hh.device == "cpu"
+        got, want = _placements(ch, to_wire), _placements(hh, to_wire)
+        for key in ("nodes", "jobs", "evals", "created", "plans"):
+            assert got[key] == want[key], key
+        assert got["allocs"].keys() == want["allocs"].keys()
+        for key, rows in want["allocs"].items():
+            mine = got["allocs"][key]
+            assert [r[:4] for r in mine] == [r[:4] for r in rows], key
+            for (*_t, ts), (*_w, ws) in zip(mine, rows):
+                assert [(n, k) for n, k, _v in ts] == \
+                    [(n, k) for n, k, _v in ws], key
+                for (_n, _k, tv), (_n2, _k2, wv) in zip(ts, ws):
+                    np.testing.assert_allclose(tv, wv, rtol=1e-6, atol=1e-6)
+
+
+def test_cold_start_eval_is_resident_on_card(cuda):
+    """restore -> prime -> prefetch_device(cuda) on a thread -> one eval:
+    the mirror's one upload is the prefetch's, the table is the prime's,
+    the eval's dispatch is served by the mirror and places as the same
+    pipeline on the CPU."""
+    import copy
+    import msgpack
+    from nomad_tpu_torch import mock, models
+    from nomad_tpu_torch.ops.tables import PrefetchThread
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.state import StateStore
+    from nomad_tpu_torch.utils import metrics
+    with mock.seeded_mock_ids(7):
+        nodes = []
+        for i in range(200):
+            node = mock.node()
+            node.name = f"node-{i}"
+            nodes.append(node)
+        first, job = mock.job(), mock.job()
+    src = Harness(device="cpu")
+    for node in nodes:
+        src.store.upsert_node(src.next_index(), node)
+    src.store.upsert_job(src.next_index(), first)
+    src.process("service", models.Evaluation(
+        job_id=first.id, namespace=first.namespace, type=first.type,
+        priority=first.priority, triggered_by=models.TRIGGER_JOB_REGISTER))
+    blob = msgpack.packb(src.store.dump_columnar(), use_bin_type=True)
+    placed = {}
+    for device in ("cuda", "cpu"):
+        store = StateStore()
+        store.restore(msgpack.unpackb(blob, raw=False,
+                                      strict_map_key=False))
+        cache = store.table_cache
+        cache.prime(store.snapshot(), store.pop_cold_columns())
+        thread = PrefetchThread(cache, device)
+        thread.start()
+        thread.join(timeout=120)
+        assert not thread.is_alive()
+        assert cache.device.stats["uploads"] == 1
+        h = Harness(store, device=device)
+        h.store.upsert_job(h.next_index(), copy.deepcopy(job))
+        c0 = metrics.counter_totals()
+        l0 = kernels.LAUNCHES["chunked"]
+        h.process("service", models.Evaluation(
+            job_id=job.id, namespace=job.namespace, type=job.type,
+            priority=job.priority,
+            triggered_by=models.TRIGGER_JOB_REGISTER))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["chunked"] > l0
+            assert cache.device.device == torch.device("cuda")
+        c1 = metrics.counter_totals()
+        delta = {k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in (
+            "nomad.select.dispatches", "nomad.select.resident_dispatch",
+            "nomad.select.resident_fallback")}
+        assert delta["nomad.select.resident_fallback"] == 0
+        assert delta["nomad.select.resident_dispatch"] == \
+            delta["nomad.select.dispatches"] > 0
+        assert cache.stats["full_builds"] == 0
+        assert cache.device.stats["uploads"] == 1
+        assert h.evals[-1].status == "complete"
+        placed[device] = sorted((a.name, a.node_id) for a in
+                                store.allocs_by_job(job.namespace, job.id))
+    assert len(placed["cuda"]) == job.task_groups[0].count
+    assert placed["cuda"] == placed["cpu"]
