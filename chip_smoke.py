@@ -190,6 +190,33 @@ Phases (each raises on failure, so the process exits non-zero):
      and fallbacks, launches and the per-stage seconds; and the phase's
      seconds. The kernels line's `server_launches` sums the card runs'
      launches.
+ 12. the server's restart: a server on the card with a data directory
+     (server/persistence.py) takes phase 11's 70 jobs in its first life —
+     the 10,000 nodes seeded into its store and a first (columnar)
+     snapshot of them, the warm job, half the jobs, a second snapshot,
+     the other half, then every placed alloc marked running in client
+     updates of 100 allocs a WAL entry — and shuts down. Two copies of
+     its directory restart a server each, on the card and with
+     device="cpu", each from an empty dispatch cost model: the snapshot
+     restored, the node table primed, the mirror uploaded on a
+     PrefetchThread beside the WAL tail's replay and joined, the cost
+     model loaded from its file. Fails unless each restored store equals
+     the first life's at shutdown (jobs, allocs by id with node and
+     statuses, eval statuses, the latest index), the cost model holds the
+     saved shapes, and then, for a service job of count 10, the main
+     path's spread job and a batch job of count 2,500 registered one
+     after another: no full table build (the first eval takes the delta
+     path from the snapshot's index and scatters the replayed rows onto
+     the mirror, whose version moves and which equals the host table
+     row for row), one mirror upload (the prefetch's), the chunked,
+     K-way, scan and scatter_set kernels launched (counts set to 0 just
+     before the jobs), every job placed to its count with no node over
+     capacity, and placements identical on the card and the CPU. Printed:
+     the WAL's entries by kind and bytes, the snapshot's bytes,
+     cold_start_stats (prefetch_join_s among them), each eval's wall, the
+     first eval's wall and stages against the first life's first eval,
+     the cost model's shapes restored, sampled since, or live only, and
+     the launches. The kernels line's `restart_launches` holds them.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -3043,6 +3070,322 @@ def print_server_run(r, n_jobs):
           f"{json.dumps(r['stages'])}", flush=True)
 
 
+# the restart phase: WAL entries between automatic snapshots, set above
+# the phase's whole first life so that only its two explicit snapshots
+# are taken; client updates a WAL entry
+RESTART_SNAPSHOT_EVERY = 1_000_000
+RESTART_UPDATE_GROUP = 100
+RESTART_CFG = dict(num_schedulers=1, eval_batch_size=1, gateway_window_us=0,
+                   heartbeat_ttl_s=3600.0, snapshot_background=False,
+                   snapshot_every=RESTART_SNAPSHOT_EVERY)
+# the kernels the first evals after the restart must launch: rows 1, 3, 5
+# (placements) and 7 (the replayed tail's rows reaching the mirror)
+RESTART_KERNELS = ("chunked", "kway", "scan", "scatter_set")
+MIRROR_KEYS = ("version", "uploads", "folds", "scatters", "scatter_rows")
+
+
+def restart_jobs(mock, models):
+    """The jobs registered after the restart, first eval first: a service
+    job of count 10 (the server phase's shape), the main path's spread job
+    (count 200) and a batch job of count 2,500."""
+    with mock.seeded_mock_ids(SEED + 5):
+        service, spread, batch = mock.job(), mock.job(), mock.batch_job()
+    service.id = service.name = "restart-service"
+    tg = service.task_groups[0]
+    tg.count = 10
+    for t in tg.tasks:
+        t.resources.networks = []
+    tg.networks = []
+    tg.affinities = [models.Affinity(
+        ltarget="${meta.rack}", rtarget="r3", operand="=", weight=50)]
+    spread.id = spread.name = "restart-spread"
+    spread.spreads = [models.Spread(
+        attribute="${meta.rack}", weight=60,
+        spread_target=[models.SpreadTarget(value="r1", percent=30),
+                       models.SpreadTarget(value="r2", percent=20)])]
+    spread.affinities = [models.Affinity(
+        ltarget="${meta.rack}", rtarget="r3", operand="=", weight=40)]
+    spread.task_groups[0].count = 200
+    batch.id = batch.name = "restart-batch"
+    batch.task_groups[0].count = 2500
+    return [service, spread, batch]
+
+
+def server_state(s):
+    """What a restart must bring back: jobs, allocs by id with their
+    node's name and statuses, eval statuses and the latest index."""
+    names = {n.id: n.name for n in s.store.nodes()}
+    return dict(
+        jobs=sorted((j.id, j.version, j.status, j.stop)
+                    for j in s.store.jobs()),
+        allocs=sorted((a.id, a.name, names.get(a.node_id), a.client_status,
+                       a.desired_status) for a in s.store.allocs()),
+        evals=sorted((e.id, e.status) for e in s.store.evals()),
+        index=s.store.latest_index())
+
+
+def _idle(s, what):
+    """Wait until the broker holds no ready or unacked eval: every entry
+    of the placed jobs is applied."""
+    deadline = time.perf_counter() + 60
+    while s.eval_broker.stats.total_ready or \
+            s.eval_broker.stats.total_unacked:
+        if time.perf_counter() > deadline:
+            fail(f"{what}: the broker did not drain")
+        time.sleep(0.005)
+
+
+def restart_first_life(data_dir, nodes, warm, jobs):
+    """The first life on the card: the nodes seeded into the store and a
+    first snapshot of them, the warm job (the first eval of a fresh
+    server: a full table build and the mirror's upload), half the jobs,
+    a second snapshot, the other half, then every placed alloc marked
+    running in client updates of RESTART_UPDATE_GROUP allocs an entry.
+    Returns the state at shutdown, the warm eval's wall and stages, and
+    the snapshots' seconds."""
+    import copy
+    from dataclasses import replace
+    from nomad_tpu_torch.ops import select as S
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.utils import stages
+    what = "restart phase, first life"
+    s = Server(ServerConfig(data_dir=data_dir, **RESTART_CFG))
+    s.start()
+    try:
+        _pause(s, True)
+        idx = s._raft_index
+        for node in nodes:
+            idx += 1
+            s.store.upsert_node(idx, copy.deepcopy(node))
+        s._raft_index = idx
+        snaps = []
+        t0 = time.perf_counter()
+        with s._raft_l:
+            s.persistence.snapshot(s.store)
+        snaps.append(time.perf_counter() - t0)
+        S.cost_model.clear()
+        S.calibrate_cost_model(len(nodes), count=10, lanes=1,
+                               kernel=S.SelectKernel(s.device))
+        s.register_job(copy.deepcopy(warm))
+        stages.enable()
+        t0 = time.perf_counter()
+        _pause(s, False)
+        if not _wait_placed(s, [warm], SERVER_WAIT_S):
+            fail(f"{what}: the warm job was not placed")
+        warm_wall = time.perf_counter() - t0
+        _idle(s, what)
+        warm_stages = {k: v["seconds"] for k, v in stages.snapshot().items()
+                       if v["calls"]}
+        stages.disable()
+        half = len(jobs) // 2
+        for part, last in ((jobs[:half], False), (jobs[half:], True)):
+            _pause(s, True)
+            for job in part:
+                s.register_job(copy.deepcopy(job))
+            _pause(s, False)
+            if not _wait_placed(s, part, SERVER_WAIT_S):
+                fail(f"{what}: not every job placed in {SERVER_WAIT_S} s")
+            _idle(s, what)
+            if not last:
+                t0 = time.perf_counter()
+                with s._raft_l:
+                    s.persistence.snapshot(s.store)
+                snaps.append(time.perf_counter() - t0)
+        allocs = [replace(a, client_status="running")
+                  for job in [warm] + jobs
+                  for a in s.store.allocs_by_job(job.namespace, job.id)]
+        s.update_alloc_status_from_client_batch(
+            [allocs[i:i + RESTART_UPDATE_GROUP]
+             for i in range(0, len(allocs), RESTART_UPDATE_GROUP)])
+        if s.store.table_cache.stats["full_builds"] != 1:
+            fail(f"{what}: table cache {s.store.table_cache.stats}")
+        state = server_state(s)
+        running = sum(a[3] == "running" for a in state["allocs"])
+        if running != len(allocs) or running != len(state["allocs"]):
+            fail(f"{what}: {running} of {len(state['allocs'])} allocs "
+                 f"running")
+    finally:
+        stages.disable()
+        s.shutdown()
+    return state, warm_wall, warm_stages, snaps
+
+
+def restart_life(data_dir, device, want, saved_model, nodes, jobs):
+    """A server restarted from `data_dir` on `device` (None: the card)
+    from an empty cost model: its restored state held against `want`, the
+    cost model's shapes against the saved file's, then the restart's jobs
+    placed one after another. Returns the run's record."""
+    import copy
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.ops import select as S
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.utils import stages
+    where = "the card" if device is None else device
+    what = f"restart phase on {where}"
+    S.cost_model.clear()
+    t0 = time.perf_counter()
+    s = Server(ServerConfig(data_dir=data_dir, **RESTART_CFG), device=device)
+    construct_s = time.perf_counter() - t0
+    print(f"{what}: constructed in {construct_s:.3f} s", flush=True)
+    try:
+        got = server_state(s)
+        if got != want:
+            diff = {k: (len(got[k]) if isinstance(got[k], list) else got[k],
+                        len(want[k]) if isinstance(want[k], list)
+                        else want[k])
+                    for k in want if got[k] != want[k]}
+            fail(f"{what}: the restored store differs from the first "
+                 f"life's at shutdown (restored, first life): {diff}")
+        restored = S.cost_model.snapshot()
+        missing = sorted(set(saved_model) - set(restored))
+        if not saved_model or missing:
+            fail(f"{what}: the cost model lacks the saved shapes {missing} "
+                 f"(saved {sorted(saved_model)})")
+        cache = s.store.table_cache
+        mirror = cache.device
+        dev = torch.device("cuda" if device is None else device)
+        if cache.stats.get("primes") != 1 or cache.stats["full_builds"] \
+                or mirror.stats["uploads"] != 1 or mirror.device != dev:
+            fail(f"{what}: after the construction the table cache "
+                 f"{cache.stats}, the mirror {mirror.snapshot()} on "
+                 f"{mirror.device}")
+        version0 = mirror.version
+        t0 = time.perf_counter()
+        s.start()
+        start_s = time.perf_counter() - t0
+        print(f"{what}: started in {start_s:.3f} s", flush=True)
+        names = {n.id: n.name for n in nodes}
+        if device is None:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        walls, first_stages, placements = [], None, []
+        for i, job in enumerate(jobs):
+            if i == 0:
+                stages.enable()
+            s.register_job(copy.deepcopy(job))
+            t0 = time.perf_counter()
+            if not _wait_placed(s, [job], SERVER_WAIT_S):
+                fail(f"{what}: {job.id} was not placed")
+            walls.append(time.perf_counter() - t0)
+            _idle(s, what)
+            if i == 0:
+                first_stages = {k: v["seconds"]
+                                for k, v in stages.snapshot().items()
+                                if v["calls"]}
+                stages.disable()
+                if cache.stats["full_builds"] or \
+                        mirror.version == version0:
+                    fail(f"{what}: the first eval's table: cache "
+                         f"{cache.stats}, mirror version {mirror.version} "
+                         f"(primed {version0})")
+                served_table_matches(s.store, what + ", first eval",
+                                     "mirror")
+            allocs = s.store.allocs_by_job(job.namespace, job.id)
+            evals = s.store.evals_by_job(job.namespace, job.id)
+            if len(allocs) != job.task_groups[0].count or any(
+                    e.status != "complete" for e in evals):
+                fail(f"{what}: {job.id} {len(allocs)} placed, evals "
+                     f"{[e.status for e in evals]}")
+            placements.append(sorted((a.name, names[a.node_id])
+                                     for a in allocs))
+        if device is None:
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if cache.stats["full_builds"] or mirror.stats["uploads"] != 1:
+            fail(f"{what}: after the restart's jobs the table cache "
+                 f"{cache.stats}, the mirror {mirror.snapshot()}")
+        served_table_matches(s.store, what, "mirror")
+        server_capacity_check(s, names, what)
+        model = S.cost_model.snapshot()
+        return dict(cold=dict(s.cold_start_stats), construct_s=construct_s,
+                    start_s=start_s, walls=walls, stages=first_stages,
+                    placements=placements, launches=launches,
+                    table=dict(cache.stats), mirror=mirror.snapshot(),
+                    seeded=sorted(k for k in saved_model
+                                  if model[k]["samples"]
+                                  == S.DispatchCostModel.MIN_SAMPLES),
+                    sampled=sorted(k for k in saved_model
+                                   if model[k]["samples"]
+                                   > S.DispatchCostModel.MIN_SAMPLES),
+                    live=sorted(set(model) - set(saved_model)))
+    finally:
+        stages.disable()
+        s.shutdown()
+
+
+def restart_phase(nodes, mock, models, info):
+    """Phase 12 (see the module's docstring). Returns the card server's
+    launches during the restart's jobs."""
+    import os
+    import shutil
+    import tempfile
+    from nomad_tpu_torch.server.persistence import Persistence, RaftLog
+    t_phase = time.perf_counter()
+    warm, jobs = server_jobs(mock, models)
+    after = restart_jobs(mock, models)
+    base = tempfile.mkdtemp(prefix="nomad-torch-restart-")
+    try:
+        life = os.path.join(base, "life")
+        want, warm_wall, warm_stages, snaps = restart_first_life(
+            life, nodes, warm, jobs)
+        log = os.path.join(life, Persistence.WAL)
+        snap = os.path.join(life, Persistence.SNAPSHOT)
+        entries = RaftLog(log).replay()
+        kinds = {}
+        for _i, kind, _p, _ts in entries:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        with open(os.path.join(life, Persistence.COST_MODEL)) as f:
+            saved_model = json.load(f)
+        print(f"restart phase: first life {len(want['allocs'])} allocs of "
+              f"{len(want['jobs'])} jobs at index {want['index']}; WAL tail "
+              f"{len(entries)} entries {kinds}, {os.path.getsize(log)} "
+              f"bytes; snapshot {os.path.getsize(snap)} bytes (columnar; "
+              f"taken in {snaps[0]:.3f} s with the nodes alone, "
+              f"{snaps[1]:.3f} s after {len(jobs) // 2 + 1} jobs); cost "
+              f"model saved with {len(saved_model)} shapes", flush=True)
+        dirs = {dev: shutil.copytree(life, os.path.join(base, str(dev)))
+                for dev in (None, "cpu")}
+        card = restart_life(dirs[None], None, want, saved_model, nodes,
+                            after)
+        cpu = restart_life(dirs["cpu"], "cpu", want, saved_model, nodes,
+                           after)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    for job, g, c in zip(after, card["placements"], cpu["placements"]):
+        if g != c:
+            diff = [p for p in g if p not in c][:3]
+            fail(f"restart phase: {job.id} placed differently on the card "
+                 f"and the CPU, e.g. {diff}")
+    for name in RESTART_KERNELS:
+        if card["launches"].get(name, 0) < 1:
+            fail(f"restart phase: the restart's jobs never launched the "
+                 f"{name} kernel ({card['launches']})")
+    for r, where in ((card, "the card"), (cpu, "the CPU")):
+        cold = {k: round(v, 6) for k, v in r["cold"].items()}
+        walls = ", ".join(f"{j.id} {w:.3f} s"
+                          for j, w in zip(after, r["walls"]))
+        print(f"restart phase on {where}: construction "
+              f"{r['construct_s']:.3f} s, cold_start_stats "
+              f"{json.dumps(cold)}; start {r['start_s']:.3f} s; evals "
+              f"{walls}; table cache {r['table']}; mirror "
+              f"{json.dumps({k: r['mirror'][k] for k in MIRROR_KEYS})}; "
+              f"cost model: restored "
+              f"with no live sample counted since (a restored shape drops "
+              f"its first) {r['seeded']}, restored then sampled live "
+              f"{r['sampled']}, live only {r['live']}", flush=True)
+    print(f"restart phase: first eval after the restart "
+          f"{card['walls'][0]:.3f} s on the card (by stage, s: "
+          f"{json.dumps(card['stages'])}) against the first life's first "
+          f"eval {warm_wall:.3f} s ({json.dumps(warm_stages)}); restored "
+          f"state equal to the first life's on the card and the CPU; "
+          f"placements identical; no full table build; one mirror upload "
+          f"(the prefetch's); launches {card['launches']}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({info['raw']})",
+          flush=True)
+    return card["launches"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3102,6 +3445,7 @@ def main():
     cold_launches, cold_mesh_launches = cold_start_phase(
         main_h, nodes, jobs, steady_state_steps(mock, models, nodes), info)
     server_launches = server_phase(nodes, mock, models, info)
+    restart_launches = restart_phase(nodes, mock, models, info)
     # each sharded kernel's launches on its main path: the grid route's
     # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
     grid = ("scan_sharded",) + GRID_ROUTE
@@ -3199,6 +3543,7 @@ def main():
                 "bound_by", "max_abs_err") if k in r} for r in mine]))
     for rec in record:
         rec["server_launches"] = server_launches.get(rec["name"], 0)
+        rec["restart_launches"] = restart_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,11 @@ evals in the EvalBroker, and its Workers dequeue them, drain ready evals
 into batches and run the schedulers; plans go through the PlanQueue to the
 group-committing PlanApplier, which writes the store. Every kernel it owns
 (each Worker's, each EvalLane's planner device, the server-wide
-MicroBatchGateway's, the start-up calibration) runs on its device.
+MicroBatchGateway's, the start-up calibration) runs on its device. With
+`ServerConfig(data_dir=...)` it logs every applied entry to a WAL and
+takes snapshots (server/persistence.py), and a new Server on the same
+directory restores: snapshot, primed node table, the mirror uploaded to
+its device beside the WAL tail's replay, and the dispatch cost model.
 
 Concurrent evals' dispatches can meet in a gateway (server/worker.py):
 `BatchGateway` (one lane an eval of a drained batch) or `MicroBatchGateway`
@@ -57,7 +61,7 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   server/eval_broker.py, server/blocked_evals.py, server/plan_queue.py,
   server/event_broker.py, server/core_sched.py, server/periodic.py,
   server/deployment_watcher.py, server/drainer.py, utils/timetable.py,
-  utils/gcsafe.py.
+  utils/gcsafe.py, server/persistence.py, server/connect_hook.py.
 
 Copies changed only where they reached modules this package does not
 carry, or to carry the device:
@@ -120,19 +124,34 @@ Written for the port:
                         switches; BatchGateway gains `partition` and
                         `stats`;
   server/core.py        the single-server half: ServerConfig (the fields
-                        the ported modules read, without worker_pipeline,
-                        reconcile_index_max_jobs / _delta_max and
-                        governor_gateway_depth_high, which are the
-                        constants they default to), Server(config, device)
-                        with start / shutdown (which joins every thread
-                        it started) / establish_leadership, raft_apply on
-                        the inline dev path, the FSM appliers and the
-                        job, node, alloc, eval and deployment endpoints;
-                        not raft, persistence, replication, SWIM,
-                        membership, federation, ACL resolution, the Vault
-                        token authority, the volume watcher, ingest, the
-                        connect hooks, the event-sink manager or the
-                        governor, tracer and telemetry;
+                        the ported modules, tests and chip_smoke.py set,
+                        without worker_pipeline, reconcile_index_max_jobs /
+                        _delta_max and governor_gateway_depth_high, which
+                        are the constants they default to), Server(config,
+                        device) with start / shutdown (which joins every
+                        thread it started, then flushes and closes the WAL
+                        and saves the cost model, raising a failure there
+                        after the rest of the teardown) /
+                        establish_leadership, raft_apply on the inline dev
+                        path with the WAL's record / commit_barrier /
+                        maybe_snapshot, the restore at construction (the
+                        mirror's prefetch a PrefetchThread joined before
+                        the constructor returns), _replay_entries(entries,
+                        highest, batch=True) in place of the
+                        NOMAD_TPU_WAL_REPLAY_BATCH switch, the FSM
+                        appliers, the connect and expose-check admission
+                        hooks, and the job, node, alloc, eval, deployment,
+                        namespace, service-catalog and CSI endpoints with
+                        the volume watcher (its pass a second, ended at
+                        once by shutdown's event; without the Vault reap);
+                        not raft (install_snapshot, apply_replicated),
+                        replication, SWIM, membership, federation, ACL
+                        resolution, the Vault token authority, ingest, the
+                        event-sink manager or the governor (the persistence
+                        gauges among them), tracer and telemetry;
+  server/heartbeat.py   HeartbeatTimers: every node's heartbeat TTL on one
+                        thread (a heap of deadlines), where the JAX package
+                        arms a threading.Timer thread per node;
   ops/device_table.py   the resident node table on torch tensors, without
                         the NOMAD_TPU_TABLE_DELTA switch, the sanitizer
                         calls, the row-bucket padding and the mesh's row

@@ -8,12 +8,14 @@ ready evals into batches and run the schedulers, whose kernel dispatches
 go solo, through the server-wide MicroBatchGateway or through a per-drain
 BatchGateway; plans go through the PlanQueue to the group-committing
 PlanApplier, which writes the store. `device=None` is the CUDA card,
-`device="cpu"` the kernels' plain versions.
+`device="cpu"` the kernels' plain versions. With `data_dir` set the
+server is durable (persistence.py: the WAL, snapshots and the cost
+model's file) and restores from the directory at construction;
+connect_hook.py injects connect sidecars at registration.
 
-Not ported yet: raft, persistence, replication, SWIM, follower
-scheduling, ingest, the connect hooks, the event-sink manager and the
-Vault token authority (server/event_sink.py and server/vault.py carry
-only the records a snapshot holds).
+Not ported yet: raft, replication, SWIM, follower scheduling, ingest, the
+event-sink manager and the Vault token authority (server/event_sink.py
+and server/vault.py carry only the records a snapshot holds).
 """
 
 from .eval_broker import EvalBroker

@@ -6,7 +6,8 @@ nomad/fsm.go (the ~45 log-type dispatch collapses to the raft_apply
 switch here), nomad/leader.go (establishLeadership:222 — broker/blocked/
 plan-queue enablement, restoreEvals:496, reapFailedEvaluations:766),
 nomad/heartbeat.go (TTL timers -> node down -> createNodeEvals,
-node_endpoint.go:1318).
+node_endpoint.go:1318; every node's TTL on one thread, server/heartbeat.py,
+where the JAX package starts a thread per node).
 
 `Server(config, device=None)` schedules on the CUDA card; `device="cpu"`
 runs the kernels' plain versions. The device reaches every kernel the
@@ -14,13 +15,21 @@ server owns: each Worker's SelectKernel, each EvalLane (the schedulers
 build their PlacementEngine on the lane's device), the server-wide
 MicroBatchGateway and the start-up cost-model calibration.
 
+With `ServerConfig(data_dir=...)` the server is durable
+(server/persistence.py): every applied entry goes to a write-ahead log
+before the FSM applies it, snapshots drop the log's covered prefix, and
+construction restores from the directory — the snapshot (columnar or
+legacy), the resident node table primed at the restored index, the
+device mirror uploaded on a PrefetchThread while the WAL tail replays,
+and the dispatch cost model saved beside the log.
+
 This is the single-server half of the JAX package's server/core.py.
-Not carried: attach_raft and the replicated log, persistence (WAL,
-snapshots, the cost model's snapshot), replication, SWIM, membership and
-autopilot, follower scheduling and its lease table, federation
-(multiregion registration and stop), ACL resolution, the Vault token
-authority, the CSI volume watcher, batched write ingest, the connect
-hooks, the event-sink manager, and the governor, tracer and telemetry.
+Not carried: attach_raft and the replicated log (install_snapshot,
+apply_replicated), replication, SWIM, membership and autopilot, follower
+scheduling and its lease table, federation (multiregion registration and
+stop), ACL resolution, the Vault token authority (and the volume
+watcher's Vault reap), batched write ingest, the event-sink manager, and
+the governor (the persistence gauges among them), tracer and telemetry.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from .deployment_watcher import (
 from .drainer import NodeDrainer, drain_allocs
 from .eval_broker import EvalBroker, FAILED_QUEUE
 from .event_broker import EventBroker, events_from_apply
+from .heartbeat import HeartbeatTimers
 from .periodic import PeriodicDispatch
 from .plan_applier import PlanApplier
 from .plan_queue import PlanQueue
@@ -79,6 +89,10 @@ class ServerConfig:
     # max READY evals one worker drains into concurrent lanes (1
     # disables batching)
     eval_batch_size: int = 1
+    # driver/config for injected connect proxy tasks (the reference
+    # hardcodes docker+envoy, job_endpoint_hook_connect.go:23)
+    connect_sidecar_driver: str = "docker"
+    connect_sidecar_config: Optional[dict] = None
     # GC safepoints (server/worker.py): disable automatic CPython
     # collection and collect young gens between evals, keeping
     # collector pauses out of scheduling latency. Process-wide side
@@ -86,6 +100,19 @@ class ServerConfig:
     gc_safepoints: bool = False
     heartbeat_ttl_s: float = 10.0
     failed_eval_unblock_delay_s: float = 60.0
+    data_dir: str = ""              # empty == in-memory only
+    snapshot_every: int = 1024      # WAL entries between snapshots
+    # write format-2 columnar snapshots (state/columnar.py) instead of
+    # the legacy per-object dump; restore reads both formats, so
+    # flipping this is always safe
+    snapshot_columnar: bool = True
+    # serialize snapshots on a background thread off an O(1) MVCC
+    # store snapshot, so the applier never blocks on a dump
+    snapshot_background: bool = True
+    # WAL durability: fsync appends at all, and whether a committed
+    # entry batch pays ONE fsync (group) or one per frame
+    wal_fsync: bool = False
+    wal_group_fsync: bool = True
     # GC cadence + retention (nomad/config.go *GCInterval/*GCThreshold)
     gc_interval_s: float = 60.0
     eval_gc_threshold_s: float = 3600.0
@@ -150,16 +177,99 @@ class Server:
                 depth_fn=lambda: self.eval_broker.stats.total_ready,
                 depth_high=GATEWAY_DEPTH_HIGH)
         self.workers: List[Worker] = []
-        self._heartbeat_timers: Dict[str, threading.Timer] = {}
-        self._hb_lock = make_lock()
+        # every node's heartbeat TTL on one thread (server/heartbeat.py)
+        self._heartbeats = HeartbeatTimers(self.config.heartbeat_ttl_s,
+                                           self._invalidate_heartbeat)
         self._leader = False
         # serializes enforced (-check-index) registrations: the CAS
         # check and the apply must not interleave across threads
         self._register_l = make_lock()
         self._shutdown_ev = threading.Event()
         self._threads: List[threading.Thread] = []
-        # event history starts HERE
+        # restore persisted state after every subsystem exists: WAL
+        # replay drives the same FSM appliers (broker and blocked evals
+        # stay disabled until leadership, so replay schedules nothing,
+        # and it publishes no change events: replay is not new history)
+        self.persistence = None
+        self.cold_start_stats: Dict[str, float] = {}
+        if self.config.data_dir:
+            try:
+                self._restore_from_disk()
+            except BaseException:
+                if self.persistence is not None:
+                    self.persistence.log.close()
+                raise
+        # event history starts HERE: restore and replay publish no
+        # events, so history at or below this floor has a proven gap
         self.events.epoch_floor = self._raft_index
+        if self.persistence is not None:
+            # measured per-(arm, n_pad) dispatch costs persist beside the
+            # WAL: a restarted server batches off its last life's
+            # measurements (the first live sample per restored shape is
+            # dropped, since it may pay this process's kernel build)
+            from ..ops.select import cost_model
+            seeds = self.persistence.load_cost_model()
+            if seeds:
+                loaded = cost_model.load_snapshot(seeds)
+                LOG.info("cost model restored: %d measured shapes",
+                         loaded)
+            self.persistence.cost_model_provider = cost_model.snapshot
+
+    def _restore_from_disk(self) -> None:
+        """The cold start: load the snapshot, prime the resident node
+        table ONCE at the restored index (from the snapshot's decoded
+        columns when the format has them), upload the device mirror on
+        a PrefetchThread while the WAL tail replays, then join it. The
+        first eval after the restart takes the table's delta path from
+        the snapshot's index to the replayed one, which scatters the
+        rows the replayed plans changed onto the mirror. On the CPU
+        route the prefetch builds the same mirror as CPU tensors. A
+        failed or refused upload raises from here."""
+        from ..ops.tables import PrefetchThread
+        from .persistence import Persistence
+        self.persistence = Persistence(
+            self.config.data_dir, self.config.snapshot_every,
+            columnar=self.config.snapshot_columnar,
+            background=self.config.snapshot_background,
+            wal_fsync=self.config.wal_fsync,
+            wal_group_fsync=self.config.wal_group_fsync)
+        self.persistence.extra_provider = lambda: {
+            "time_table": self.time_table.dump()}
+        t0 = time.perf_counter()
+        highest, entries = self.persistence.restore_into(self.store)
+        restore_s = time.perf_counter() - t0
+        self.time_table.restore(
+            self.persistence.restored_extra.get("time_table", []))
+        self._raft_index = max(self._raft_index, highest)
+        table_build_s = 0.0
+        prefetch = None
+        if highest > 0:
+            t0 = time.perf_counter()
+            self.store.table_cache.prime(self.store.snapshot(),
+                                         self.store.pop_cold_columns())
+            table_build_s = time.perf_counter() - t0
+            prefetch = PrefetchThread(self.store.table_cache, self.device)
+            prefetch.start()
+        t0 = time.perf_counter()
+        try:
+            replayed = self._replay_entries(entries, highest)
+        finally:
+            wal_replay_s = time.perf_counter() - t0
+            # joined before any worker exists: no eval can reach the
+            # table cache while the upload holds its lock
+            t0 = time.perf_counter()
+            if prefetch is not None:
+                prefetch.join()
+            prefetch_join_s = time.perf_counter() - t0
+        self.cold_start_stats = {
+            "restore_s": restore_s,
+            "table_build_s": table_build_s,
+            "wal_replay_s": wal_replay_s,
+            "wal_entries_replayed": float(replayed),
+            "snapshot_format": float(
+                self.persistence.stats["restore_format"]),
+            "prefetch_join_s": prefetch_join_s,
+        }
 
     # -- lifecycle -----------------------------------------------------
     def start(self) -> None:
@@ -171,7 +281,8 @@ class Server:
             self.workers.append(w)
             w.start()
         for target, name in ((self._reap_failed_evals, "eval-reaper"),
-                             (self._schedule_periodic_gc, "gc-ticker")):
+                             (self._schedule_periodic_gc, "gc-ticker"),
+                             (self._watch_volumes, "volume-watcher")):
             t = threading.Thread(target=target, daemon=True, name=name)
             self._threads.append(t)
             t.start()
@@ -190,9 +301,12 @@ class Server:
     def shutdown(self) -> None:
         """Stop every service and join every thread this server
         started: the workers (and their finishers), the applier, the
-        reaper, the GC ticker, the periodic
+        reaper, the GC ticker, the volume watcher, the periodic
         dispatcher, the deployments watcher, the drainer and the
-        heartbeat timers."""
+        heartbeat timers' thread. With a data directory it then waits
+        out an in-flight snapshot writer, flushes the WAL's fsync-pending
+        bytes, closes the log and saves the cost model; a failure there
+        raises once the rest of the teardown is done."""
         self._shutdown_ev.set()
         self._leader = False
         self.deployments_watcher.set_enabled(False)
@@ -206,17 +320,22 @@ class Server:
         self.eval_broker.set_enabled(False)
         self.blocked_evals.set_enabled(False)
         self.plan_queue.set_enabled(False)
-        with self._hb_lock:
-            timers = list(self._heartbeat_timers.values())
-            self._heartbeat_timers.clear()
-        for t in timers:
-            t.cancel()
-        for t in timers + self._threads + [
+        self._heartbeats.stop(JOIN_S)
+        for t in self._threads + [
                 self.deployments_watcher._thread,
                 self.node_drainer._thread, self.periodic._thread]:
             if t is not None and t is not threading.current_thread():
                 t.join(timeout=JOIN_S)
         self._threads = []
+        if self.persistence is not None:
+            # after the applier and workers stopped: nothing appends
+            # to the log any more, and the cost model holds every sample
+            self.persistence.wait_idle()
+            try:
+                self.persistence.commit_barrier()
+            finally:
+                self.persistence.log.close()
+            self.persistence.save_cost_model()
 
     def establish_leadership(self) -> None:
         """leader.go establishLeadership:222."""
@@ -298,16 +417,140 @@ class Server:
             elif ev.should_block():
                 self.blocked_evals.block(ev)
 
+    # -- WAL replay (cold start) ----------------------------------------
+    # entry types whose replay batches through the store's bulk paths;
+    # a batch flushes when the incoming entry shares a (namespace, job)
+    # with one already pending, so the grouped transaction is EXACTLY
+    # state-equivalent to sequential per-entry replay (the per-entry
+    # side-effect loops only ever read/write their own job's rows)
+    _REPLAY_BATCH_TYPES = ("eval_update", "alloc_client_update")
+
+    def _replay_entries(self, entries, highest: int,
+                        batch: bool = True) -> int:
+        """Replay the WAL tail into the FSM. Event publication is
+        suppressed throughout (replay is not new history — the epoch
+        floor is raised after), and with `batch` runs of eval and
+        alloc-update entries group into single store transactions
+        (`batch=False` replays entry by entry, for bisection)."""
+        from ..utils import stages
+        t0 = time.perf_counter() if stages.enabled else 0.0
+        pending: List = []          # one same-type run
+        pending_jobs: set = set()
+        applied = 0
+
+        def job_keys(msg_type: str, p: dict) -> set:
+            keys = {(e.namespace, e.job_id) for e in p.get("evals", [])}
+            if msg_type == "alloc_client_update":
+                keys |= {(a.namespace, a.job_id)
+                         for a in p.get("allocs", [])}
+            return keys
+
+        def flush() -> None:
+            if not pending:
+                return
+            if len(pending) == 1:
+                self._replay_one(*pending[0])
+            else:
+                try:
+                    if pending[0][1] == "eval_update":
+                        self._replay_eval_updates(pending)
+                    else:
+                        self._replay_alloc_client_updates(pending)
+                    for index, _mt, _p, ts in pending:
+                        self._raft_index = max(self._raft_index, index)
+                        if ts:
+                            self.time_table.witness(index, ts)
+                except Exception:
+                    LOG.exception("batched WAL replay failed "
+                                  "(%d %s entries)", len(pending),
+                                  pending[0][1])
+            pending.clear()
+            pending_jobs.clear()
+
+        for index, msg_type, payload, ts in entries:
+            if index <= highest:
+                continue
+            applied += 1
+            if batch and msg_type in self._REPLAY_BATCH_TYPES:
+                keys = job_keys(msg_type, payload)
+                if pending and (pending[0][1] != msg_type
+                                or keys & pending_jobs):
+                    flush()
+                pending.append((index, msg_type, payload, ts))
+                pending_jobs.update(keys)
+                continue
+            flush()
+            self._replay_one(index, msg_type, payload, ts)
+        flush()
+        if stages.enabled:
+            stages.add("wal_replay", time.perf_counter() - t0)
+        return applied
+
+    def _replay_one(self, index: int, msg_type: str, payload: dict,
+                    ts: float) -> None:
+        try:
+            getattr(self, f"_apply_{msg_type}")(index, payload)
+            self._raft_index = max(self._raft_index, index)
+            if ts:
+                self.time_table.witness(index, ts)
+        except Exception:
+            LOG.exception("WAL replay failed at %d/%s", index, msg_type)
+
+    def _replay_eval_updates(self, pending: List) -> None:
+        """N job-disjoint eval_update entries as ONE store transaction;
+        the per-eval side effects run per entry exactly as
+        _apply_eval_update would (broker/blocked are disabled during
+        replay, so enqueue is a no-op; reconcile writes are real)."""
+        self.store.upsert_evals_batch(
+            [(index, p["evals"]) for index, _mt, p, _ts in pending])
+        for index, _mt, p, _ts in pending:
+            for ev in p["evals"]:
+                self.enqueue_eval(ev)
+                if ev.job_id and ev.type != JOB_TYPE_CORE:
+                    self.store.reconcile_job_status(index, ev.namespace,
+                                                    ev.job_id)
+
+    def _replay_alloc_client_updates(self, pending: List) -> None:
+        """N job-disjoint alloc_client_update entries: one batched
+        store transaction for the alloc merges, then each entry's
+        unblock/eval/status side effects in order (job-disjointness
+        makes this exactly sequential-equivalent)."""
+        self.store.update_allocs_from_client_batch(
+            [(index, p["allocs"]) for index, _mt, p, _ts in pending])
+        for index, _mt, p, _ts in pending:
+            for stub in p["allocs"]:
+                alloc = self.store.alloc_by_id(stub.id)
+                if alloc is None or not alloc.client_terminal_status():
+                    continue
+                node = self.store.node_by_id(alloc.node_id)
+                if node is not None:
+                    self.blocked_evals.unblock(node.computed_class,
+                                               index)
+            for ev in p.get("evals", []):
+                self.store.upsert_evals(index, [ev])
+                self.enqueue_eval(ev)
+            self._reconcile_job_statuses(index,
+                                         {"allocs_placed": p["allocs"]})
+
     # -- the FSM -------------------------------------------------------
     def raft_apply(self, msg_type: str, payload: dict) -> int:
         """Serialized FSM apply (fsm.go Apply:210-300). Returns the
-        index. Dev mode: apply runs inline under the raft lock."""
+        index. Dev mode: record, apply and snapshot run inline under the
+        raft lock, so WAL order == apply order; WAL replay bypasses
+        raft_apply, so a restore does not replay the event history."""
         with self._raft_l:
             index = self._raft_index + 1
             self._raft_index = index
+            if self.persistence is not None:
+                self.persistence.record(index, msg_type, payload)
             fn = getattr(self, f"_apply_{msg_type}")
             fn(index, payload)
             self.time_table.witness(index)
+            if self.persistence is not None:
+                # the entry IS the commit unit: the group-fsync barrier
+                # sits right here
+                self.persistence.commit_barrier()
+                self.persistence.maybe_snapshot(self.store)
             try:
                 self.events.publish(events_from_apply(
                     msg_type, payload, index))
@@ -625,27 +868,28 @@ class Server:
 
     def _validate_register(self, job: Job) -> None:
         """Post-canonicalize admission checks for one register —
-        namespace existence, implied constraints, spec validation.
-        Raises ValueError. A job that needs the connect or expose-check
-        hooks (sidecar injection) raises NotImplementedError: those
-        hooks are not carried here."""
+        namespace existence, connect/expose hooks, implied constraints,
+        spec validation. Raises ValueError."""
         # the requested namespace must exist (job_endpoint.go Register:
         # "non-existent namespace"); "default" exists implicitly
         if self.store.namespace_by_name(job.namespace) is None:
             raise ValueError(
                 f"job {job.id!r} is in nonexistent namespace "
                 f"{job.namespace!r}")
-        for tg in job.task_groups:
-            services = list(tg.services) + [s for t in tg.tasks
-                                            for s in t.services]
-            if any(s.connect is not None or any(c.expose
-                                                for c in s.checks)
-                   for s in services):
-                raise NotImplementedError(
-                    f"group {tg.name!r} uses connect or exposed checks: "
-                    "their admission hooks are not carried here")
+        # connect + expose-check hooks (job_endpoint_hook_connect.go,
+        # job_endpoint_hook_expose_check.go): inject sidecar/gateway
+        # proxy tasks and check expose paths before implied
+        # constraints and validation
+        from .connect_hook import (connect_mutate, connect_validate,
+                                   expose_check_mutate,
+                                   expose_check_validate)
+        connect_mutate(job, self.config.connect_sidecar_driver,
+                       self.config.connect_sidecar_config)
+        errs = expose_check_validate(job)
+        if not errs:
+            expose_check_mutate(job)
         self._implied_constraints(job)
-        errs = job.validate()
+        errs = errs + connect_validate(job) + job.validate()
         if errs:
             raise ValueError("; ".join(errs))
 
@@ -1023,19 +1267,117 @@ class Server:
                     rtarget=",".join(sorted(signals)),
                     operand="set_contains"))
 
+    # -- namespaces (nomad/namespace_endpoint.go) ----------------------
+    def upsert_namespaces(self, namespaces: list) -> int:
+        errs = []
+        for ns in namespaces:
+            errs.extend(ns.validate())
+        if errs:
+            raise ValueError("; ".join(errs))
+        return self.raft_apply("namespace_upsert",
+                               dict(namespaces=list(namespaces)))
+
+    def delete_namespaces(self, names: list) -> int:
+        """DeleteNamespaces:66 — "default" is undeletable and occupied
+        namespaces (non-terminal jobs) refuse deletion."""
+        from ..models.namespace import DEFAULT_NAMESPACE
+        for name in names:
+            if name == DEFAULT_NAMESPACE:
+                raise ValueError("default namespace can not be deleted")
+            if self.store.namespace_by_name(name) is None:
+                raise KeyError(f"namespace {name} not found")
+            occupied = [j.id for j in self.store.jobs()
+                        if j.namespace == name
+                        and j.status != "dead"]
+            if occupied:
+                raise ValueError(
+                    f"namespace {name!r} has non-terminal jobs: "
+                    f"{sorted(occupied)[:5]}")
+        return self.raft_apply("namespace_delete", dict(names=names))
+
+    # -- service registry (built-in catalog) ---------------------------
+    def update_service_registrations(self, upserts=None,
+                                     delete_alloc_ids=None,
+                                     delete_ids=None) -> int:
+        """Client-driven catalog sync: register live services, drop the
+        rows of stopped allocs (the reference's Consul sync loop,
+        command/agent/consul/service_client.go sync)."""
+        index = 0
+        if upserts:
+            index = self.raft_apply("service_registration_upsert",
+                                    dict(services=list(upserts)))
+        if delete_alloc_ids or delete_ids:
+            index = self.raft_apply(
+                "service_registration_delete",
+                dict(ids=list(delete_ids or []),
+                     alloc_ids=list(delete_alloc_ids or [])))
+        return index
+
+    def list_services(self, namespace: str = "default") -> list:
+        """Per-service summary (nomad service list analog): name, tags,
+        live instance count."""
+        summary: Dict[str, dict] = {}
+        for s in self.store.service_registrations(namespace):
+            row = summary.setdefault(
+                s.service_name,
+                {"ServiceName": s.service_name, "Namespace": s.namespace,
+                 "Tags": set(), "Instances": 0})
+            row["Tags"].update(s.tags)
+            row["Instances"] += 1
+        out = []
+        for name in sorted(summary):
+            row = summary[name]
+            row["Tags"] = sorted(row["Tags"])
+            out.append(row)
+        return out
+
+    def get_service(self, namespace: str, name: str) -> list:
+        return self.store.service_by_name(namespace, name)
+
+    # -- CSI volumes (nomad/csi_endpoint.go; volumewatcher/) -----------
+    def register_csi_volume(self, volume) -> int:
+        if not volume.id or not volume.plugin_id:
+            raise ValueError("volume requires id and plugin_id")
+        return self.raft_apply("csi_volume_register",
+                               dict(volumes=[volume]))
+
+    def deregister_csi_volume(self, namespace: str, volume_id: str,
+                              force: bool = False) -> int:
+        v = self.store.csi_volume(namespace, volume_id)
+        if v is None:
+            raise KeyError(f"volume {volume_id} not found")
+        if not force and (v.read_allocs or v.write_allocs):
+            raise ValueError(
+                f"volume {volume_id} has active claims (use force)")
+        return self.raft_apply("csi_volume_deregister",
+                               dict(namespace=namespace,
+                                    volume_id=volume_id))
+
+    def _watch_volumes(self) -> None:
+        """Volume watcher (nomad/volumewatcher): release claims held by
+        terminal allocations so volumes become schedulable again. One
+        pass a second; shutdown's event ends the wait at once."""
+        while not self._shutdown_ev.wait(1.0):
+            if not self._leader:
+                continue
+            try:
+                for v in self.store.csi_volumes():
+                    for aid in (list(v.read_allocs)
+                                + list(v.write_allocs)):
+                        alloc = self.store.alloc_by_id(aid)
+                        if alloc is None or alloc.terminal_status():
+                            self.raft_apply(
+                                "csi_volume_release",
+                                dict(namespace=v.namespace,
+                                     volume_id=v.id, alloc_id=aid))
+            except Exception:     # pragma: no cover — best effort
+                LOG.exception("volume watcher pass failed")
+
     # -- heartbeats (nomad/heartbeat.go) -------------------------------
     def reset_heartbeat_timer(self, node_id: str) -> None:
-        with self._hb_lock:
-            if self._shutdown_ev.is_set():
-                return
-            existing = self._heartbeat_timers.pop(node_id, None)
-            if existing is not None:
-                existing.cancel()
-            t = threading.Timer(self.config.heartbeat_ttl_s,
-                                self._invalidate_heartbeat, args=(node_id,))
-            t.daemon = True
-            self._heartbeat_timers[node_id] = t
-            t.start()
+        if self._shutdown_ev.is_set():
+            return
+        self._heartbeats.reset(node_id)
 
     def _invalidate_heartbeat(self, node_id: str) -> None:
         node = self.store.node_by_id(node_id)

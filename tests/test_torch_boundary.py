@@ -179,6 +179,56 @@ def test_port_server_runs_without_jax_or_nomad_tpu():
     assert "served 6" in res.stdout
 
 
+RESTART_JOBS = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+import shutil
+import tempfile
+import time
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.server import Server, ServerConfig
+d = tempfile.mkdtemp()
+cfg = dict(num_schedulers=1, heartbeat_ttl_s=3600.0, data_dir=d)
+s = Server(ServerConfig(**cfg), device="cpu")
+s.start()
+try:
+    for i in range(8):
+        s.register_node(mock.node())
+    job = mock.job()
+    job.task_groups[0].count = 3
+    s.register_job(job)
+    deadline = time.time() + 60
+    while time.time() < deadline and \
+            len(s.store.allocs_by_job(job.namespace, job.id)) < 3:
+        time.sleep(0.02)
+finally:
+    s.shutdown()
+s = Server(ServerConfig(**cfg), device="cpu")
+try:
+    restored = len(s.store.allocs_by_job(job.namespace, job.id))
+finally:
+    s.shutdown()
+    shutil.rmtree(d)
+bad = [m for m, mod in sys.modules.items() if mod is not None and (
+       m == "jax" or m.startswith("jax.") or m == "nomad_tpu"
+       or m.startswith("nomad_tpu."))]
+assert not bad, bad
+print("restored", restored)
+"""
+
+
+def test_port_server_restarts_without_jax_or_nomad_tpu():
+    """The durable server's WAL, snapshot codec and restore reach nothing
+    of JAX or of the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", RESTART_JOBS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "restored 3" in res.stdout
+
+
 def test_select_kernel_without_device_needs_cuda():
     from nomad_tpu_torch.ops.select import SelectKernel
     if torch.cuda.is_available():

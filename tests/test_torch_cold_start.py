@@ -4,8 +4,10 @@ The state-level tests of tests/test_cold_start.py and
 tests/test_persistence.py over nomad_tpu_torch, their assertions
 unchanged: columnar and legacy round trips over every dumped table, the
 codec's pools and defaults, the vectorized cold table build, the warm
-alloc index. The tests there that need Server, Persistence or RaftLog
-wait for the port of server/.
+alloc index, the legacy snapshot upgraded through Persistence and a
+restarted Server, and a restarted Server that rebuilds nothing. The
+Server / Persistence / RaftLog tests of WAL replay and snapshot writing
+are in tests/test_torch_persistence.py.
 
 Then the port's own: snapshots cross the package boundary in both
 directions and in both formats (the JAX package's dump, packed with
@@ -39,6 +41,8 @@ from nomad_tpu_torch.models import alloc as talloc
 from nomad_tpu_torch.models import namespace as tnamespace
 from nomad_tpu_torch.ops.tables import NodeTable, PrefetchThread
 from nomad_tpu_torch.scheduler.harness import Harness as TorchHarness
+from nomad_tpu_torch.server import Server, ServerConfig
+from nomad_tpu_torch.server.persistence import Persistence
 from nomad_tpu_torch.state import StateStore
 from nomad_tpu_torch.state.columnar import decode_table, encode_table
 from nomad_tpu_torch.utils import metrics as tmetrics
@@ -188,24 +192,32 @@ class TestColumnarRoundTrip:
             again.restore(_pack_cycle(s_col.dump_columnar()))
             assert _canon(again.dump()) == _canon(legacy)
 
-    def test_legacy_snapshot_upgrades_to_columnar(self):
-        """Old→new migration through restore alone: a legacy-format
-        snapshot restores, the restored store's next snapshot is format
-        2, and it restores identically."""
+    def test_legacy_snapshot_upgrades_to_columnar(self, tmp_path):
+        """Old→new migration: a legacy-format snapshot file restores
+        into a columnar-writing server, whose next snapshot is format
+        2 and restores identically."""
         rng = random.Random(99)
         s = _seeded_store(rng)
-        legacy = _pack_cycle(s.dump())
-        assert "format" not in legacy
-        s1 = StateStore()
-        s1.restore(legacy)
-        assert s1.pop_cold_columns() is None
-        assert _canon(s1.dump()) == _canon(s.dump())
-        col = _pack_cycle(s1.dump_columnar())
-        assert col["format"] == 2
-        s2 = StateStore()
-        s2.restore(col)
-        assert s2.pop_cold_columns() is not None
-        assert _canon(s2.dump()) == _canon(s.dump())
+        legacy_dir = str(tmp_path / "legacy")
+        p = Persistence(legacy_dir, columnar=False, background=False)
+        p.snapshot(s)
+        srv = Server(ServerConfig(num_schedulers=0,
+                                  data_dir=legacy_dir,
+                                  snapshot_background=False),
+                     device="cpu")
+        try:
+            assert srv.persistence.stats["restore_format"] == 1
+            assert _canon(srv.store.dump()) == _canon(s.dump())
+            srv.persistence.snapshot(srv.store)     # now columnar
+        finally:
+            srv.shutdown()
+        srv2 = Server(ServerConfig(num_schedulers=0,
+                                   data_dir=legacy_dir), device="cpu")
+        try:
+            assert srv2.persistence.stats["restore_format"] == 2
+            assert _canon(srv2.store.dump()) == _canon(s.dump())
+        finally:
+            srv2.shutdown()
 
     def test_pool_sharing_and_empty_containers(self):
         """Shared flyweights stay shared through the codec; empty
@@ -267,25 +279,32 @@ class TestNodeTableColdBuild:
 
 
 class TestRecoveryInvariants:
-    def test_no_rebuilds_after_restore(self):
-        """After a restore from a columnar snapshot and the prime: the
-        first columnar read per job pays ZERO dense index rebuilds, and
-        the first node_table() read pays ZERO full NodeTable builds (the
+    def test_no_rebuilds_after_restore(self, tmp_path):
+        """After a cold boot from a columnar snapshot: the first
+        columnar read per job pays ZERO dense index rebuilds, and the
+        first node_table() read pays ZERO full NodeTable builds (the
         primed table serves it)."""
-        s = _seeded_store(random.Random(7))
-        s2 = StateStore()
-        s2.restore(_pack_cycle(s.dump_columnar()))
-        s2.table_cache.prime(s2.snapshot(), s2.pop_cold_columns())
-        snap = s2.snapshot()
-        jobs = {(a.namespace, a.job_id) for a in s2.allocs()}
-        for ns, job_id in jobs:
-            cols = snap.job_alloc_columns(ns, job_id)
-            assert cols is not None
-            assert cols.n == len(snap.allocs_by_job(ns, job_id))
-        assert s2.alloc_index.stats["rebuilds"] == 0
-        assert snap.node_table() is not None
-        assert s2.table_cache.stats["full_builds"] == 0
-        assert s2.table_cache.stats.get("primes") == 1
+        rng = random.Random(7)
+        s = _seeded_store(rng)
+        data_dir = str(tmp_path / "inv")
+        p = Persistence(data_dir, background=False)
+        p.snapshot(s)
+        srv = Server(ServerConfig(num_schedulers=0, data_dir=data_dir),
+                     device="cpu")
+        try:
+            snap = srv.store.snapshot()
+            jobs = {(a.namespace, a.job_id)
+                    for a in srv.store.allocs()}
+            for ns, job_id in jobs:
+                cols = snap.job_alloc_columns(ns, job_id)
+                assert cols is not None
+                assert cols.n == len(snap.allocs_by_job(ns, job_id))
+            assert srv.store.alloc_index.stats["rebuilds"] == 0
+            assert snap.node_table() is not None
+            assert srv.store.table_cache.stats["full_builds"] == 0
+            assert srv.store.table_cache.stats.get("primes") == 1
+        finally:
+            srv.shutdown()
 
     def test_bulk_load_keeps_index_warm(self):
         """bulk_load_allocs no longer invalidates the columnar index:

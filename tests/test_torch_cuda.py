@@ -1246,3 +1246,107 @@ def test_server_calibrates_on_card(cuda):
         assert f"chunked_batched@{n_pad}" in snap
     finally:
         s.shutdown()
+
+
+def _restart_jobs(tag, seed):
+    """A service job (count 10, chunked), a spread job (count 20, scan)
+    and a batch job (count 600, K-way)."""
+    from nomad_tpu_torch import mock, models
+    with mock.seeded_mock_ids(seed):
+        service, spread, batch = mock.job(), mock.job(), mock.batch_job()
+    for kind, job in (("svc", service), ("spread", spread),
+                      ("batch", batch)):
+        job.id = job.name = f"{tag}-{kind}"
+    spread.spreads = [models.Spread(
+        attribute="${meta.rack}", weight=60,
+        spread_target=[models.SpreadTarget(value="r1", percent=40)])]
+    spread.task_groups[0].count = 20
+    batch.task_groups[0].count = 600
+    return [service, spread, batch]
+
+
+def _restart_place(s, jobs, names):
+    import time
+    placed = {}
+    for job in jobs:
+        s.register_job(job)
+        deadline = time.time() + 120
+        want = job.task_groups[0].count
+        while time.time() < deadline and len(
+                s.store.allocs_by_job("default", job.id)) < want:
+            time.sleep(0.01)
+        placed[job.id] = sorted(
+            (a.name, names[a.node_id])
+            for a in s.store.allocs_by_job("default", job.id))
+        assert len(placed[job.id]) == want, job.id
+    return placed
+
+
+def test_server_restart_restores_onto_card(cuda, tmp_path):
+    """A 200-node Server with a data directory on the card places a
+    spread and a batch job, snapshots, places a service job, shuts down
+    and restarts on the card: the prefetch has joined at construction
+    (the mirror uploaded on the card, no prefetch thread left), the first
+    eval builds no full table and launches scatter_set for the replayed
+    rows, and the next jobs place as on a CPU restart of a copy of the
+    same directory."""
+    import shutil
+    import threading
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server, ServerConfig
+    cfg = dict(num_schedulers=1, eval_batch_size=1, gateway_window_us=0,
+               heartbeat_ttl_s=3600.0, snapshot_background=False)
+    with mock.seeded_mock_ids(11):
+        nodes = [mock.node() for _ in range(200)]
+    for i, node in enumerate(nodes):
+        node.name = f"node-{i}"
+        node.meta["rack"] = f"r{i % 4}"
+        node.compute_class()
+    names = {n.id: n.name for n in nodes}
+    life = str(tmp_path / "life")
+    s = Server(ServerConfig(data_dir=life, **cfg))
+    s.start()
+    try:
+        idx = s._raft_index
+        for node in nodes:
+            idx += 1
+            s.store.upsert_node(idx, node)
+        s._raft_index = idx
+        first = _restart_jobs("first", 12)
+        _restart_place(s, first[1:], names)
+        # the WAL tail past this snapshot is the service job's plan: the
+        # first eval after the restart scatters its few rows (a delta of
+        # more than half the table would re-upload the mirror instead)
+        with s._raft_l:
+            s.persistence.snapshot(s.store)
+        _restart_place(s, first[:1], names)
+    finally:
+        s.shutdown()
+    cpu_dir = shutil.copytree(life, str(tmp_path / "cpu"))
+    after = {}
+    for device, data_dir in ((None, life), ("cpu", cpu_dir)):
+        s = Server(ServerConfig(data_dir=data_dir, **cfg), device=device)
+        try:
+            cache = s.store.table_cache
+            assert not any(t.name == "node-table-prefetch" and t.is_alive()
+                           for t in threading.enumerate())
+            assert cache.stats["primes"] == 1
+            assert cache.device.stats["uploads"] == 1
+            assert cache.device.device.type == ("cuda" if device is None
+                                                else "cpu")
+            s.start()
+            jobs = _restart_jobs("next", 13)
+            kernels.reset_launches()
+            first = _restart_place(s, jobs[:1], names)
+            if device is None:
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["scatter_set"] > 0, \
+                    dict(kernels.LAUNCHES)
+                assert kernels.LAUNCHES["chunked"] > 0
+            assert cache.stats["full_builds"] == 0
+            first.update(_restart_place(s, jobs[1:], names))
+            assert cache.stats["full_builds"] == 0
+            after[device] = first
+        finally:
+            s.shutdown()
+    assert after[None] == after["cpu"]

@@ -3,8 +3,9 @@ dispatch cost model, on the CPU.
 
 The port's versions of the JAX package's gateway tests
 (tests/test_batch_worker.py, the deterministic tests of
-tests/test_microbatch.py and its DispatchCostModel tests that need no
-Server), each on SelectKernel("cpu"); a concurrent-gateway parity test over
+tests/test_microbatch.py and its DispatchCostModel tests, the cost
+model's file beside a Server's WAL among them), each on
+SelectKernel("cpu"); a concurrent-gateway parity test over
 100 seeds against the JAX package's solo select (node choices identical,
 scores within rtol=atol=1e-6 as in tests/test_torch_select.py); and the
 slice end to end: three groups of evals on one snapshot of a 200-node
@@ -378,6 +379,35 @@ def test_seeded_cost_model_engages_lanes_without_probe(monkeypatch):
     assert not k.batch_dispatch_profitable(n)
     fresh2._stats[("chunked_batched@cpu", n_pad)][0] = 0.0025
     assert k.batch_dispatch_profitable(n, tolerance=1.5)
+
+
+def test_server_persists_cost_model_next_to_wal(tmp_path, monkeypatch):
+    import json
+    import os
+
+    from nomad_tpu_torch.server import Server, ServerConfig
+    fresh = DispatchCostModel()
+    monkeypatch.setattr(select_mod, "cost_model", fresh)
+    data_dir = str(tmp_path)
+    s = Server(ServerConfig(data_dir=data_dir), device="cpu")
+    try:
+        for _ in range(4):
+            fresh.observe("chunked", 512, 0.003)
+    finally:
+        s.shutdown()
+    path = os.path.join(data_dir, "cost_model.json")
+    assert os.path.exists(path)
+    with open(path) as f:
+        data = json.load(f)
+    assert data["chunked@512"]["ewma_s"] == pytest.approx(0.003)
+    # a restarted server restores the measurements at engagement weight
+    fresh2 = DispatchCostModel()
+    monkeypatch.setattr(select_mod, "cost_model", fresh2)
+    s2 = Server(ServerConfig(data_dir=data_dir), device="cpu")
+    try:
+        assert fresh2.estimate("chunked", 512) == pytest.approx(0.003)
+    finally:
+        s2.shutdown()
 
 
 def test_unmeasured_profitability_is_no_on_the_host(monkeypatch):

@@ -5,12 +5,11 @@ applier must drop the snapshot copy of any alloc whose ID appears in
 plan.node_allocation before fit-checking, plan_apply.go:674-678) and the
 group-commit cases of tests/test_plan_group.py: group apply against
 one-at-a-time apply over 1,000 randomized plans, the intra-group
-conflict, the queue-driven drain, the `plan_group_max=1` escape hatch and
-the cross-eval engine reuse.
+conflict, the queue-driven drain, the `plan_group_max=1` escape hatch,
+the cross-eval engine reuse and the plan group's WAL round trip.
 
 Left out of tests/test_plan_group.py: the env kill switch (the port reads
-no environment variable), the WAL round trip (persistence is not ported)
-and the two governor cases (no governor).
+no environment variable) and the two governor cases (no governor).
 
 Every server is the port's on the CPU (`device="cpu"`), shut down when
 its test ends, whether it passed or not.
@@ -443,3 +442,21 @@ def test_engine_state_reuse_across_evals():
     e.feasibility(e.job.task_groups[0])
     final = dict(ENGINE_CACHE_STATS)
     assert final["entry_misses"] > after["entry_misses"]
+
+
+def test_group_entry_survives_wal_roundtrip():
+    """The plan_group_results payload must encode/decode through the
+    WAL schema (clustered replication + replay share it)."""
+    from nomad_tpu_torch.server.persistence import (decode_payload,
+                                                    encode_payload)
+    job = mock.batch_job()
+    a = _make_alloc(job, "n1", 500, 400)
+    payload = dict(groups=[dict(allocs_stopped=[], allocs_placed=[a],
+                                allocs_preempted=[], deployment=None,
+                                deployment_updates=[], evals=[])])
+    enc = encode_payload("plan_group_results", payload)
+    dec = decode_payload("plan_group_results", enc)
+    assert len(dec["groups"]) == 1
+    back = dec["groups"][0]["allocs_placed"][0]
+    assert back.id == a.id
+    assert back.node_id == "n1"
