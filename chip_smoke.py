@@ -217,6 +217,36 @@ Phases (each raises on failure, so the process exits non-zero):
      first eval's wall and stages against the first life's first eval,
      the cost model's shapes restored, sampled since, or live only, and
      the launches. The kernels line's `restart_launches` holds them.
+ 13. the 3-server ring: three Servers (one worker each, the follower
+     plane at its defaults, raft_multiplier 5) in this process on the card,
+     each with an RpcServer on a loopback port, joined by attach_raft with
+     the full peer list. One leader elected; the 10,000 nodes registered
+     through the leader's raft (32 threads); the leader's log compacted
+     and one follower's needs_snapshot set, so the leader reseeds it by
+     InstallSnapshot; phase 11's 70 jobs (after one warm job) registered
+     through register_jobs_bulk, both followers dequeuing evals over RPC
+     and scheduling on the card against their own replicas; then the
+     leader's RpcServer and Server shut down and, once a new leader is
+     elected, a service job of count 10 and the main path's spread job
+     registered through it. Fails unless a leader is elected, every job
+     is placed to its count with no node over capacity, every eval chain
+     ends complete, the survivors' stores are equal (jobs, allocs by id
+     with node and statuses, eval statuses, the latest index), each
+     follower made remote dequeues and plans, the reseeded follower's
+     store equals the leader's with its table primed and its mirror equal
+     to its host table row for row, the reseed's frame fits MAX_FRAME,
+     the alloc-name manifest equals phase 11's single card server's (A),
+     the chunked, K-way, scan and scatter_set kernels launched (counts set
+     to 0 just before the 70 jobs, read after the failover's jobs), and
+     one heartbeat timers thread runs (the new leader's). Printed: the
+     election, seeding seconds, log entries and AppendEntries calls, the
+     reseed's bytes and seconds, the ring's wall, placements/s and
+     evals/s, remote dequeues and plans, fence-wait p99 and fence
+     timeouts by follower, applier commits and mean group, rejected
+     placements, ingest batches and mean size, failed evals whose work
+     went on in another, the stage split, the re-election's seconds after
+     the kill and the launches. The kernels line's `ring_launches` holds
+     them.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -3031,7 +3061,11 @@ def server_phase(nodes, mock, models, info):
     for r in runs:
         for k, v in r["launches"].items():
             total[k] = total.get(k, 0) + v
-    return total
+    # the single card server's alloc-name manifest of (A), per job: what
+    # the ring phase must land too
+    manifest = {f"default/{job.id}": sorted(name for name, _node in placed)
+                for job, placed in zip(jobs, runs[0]["placements"])}
+    return total, manifest
 
 
 def check_batched_reached(r):
@@ -3386,6 +3420,427 @@ def restart_phase(nodes, mock, models, info):
     return card["launches"]
 
 
+# the ring phase: three servers on the card, one worker each and the
+# follower scheduling plane at its defaults (follower_max_remote 2). The
+# three share one process and its interpreter lock: a peer stalled by
+# another's host work (a full garbage collection of the replicas' heap
+# takes seconds) must not read as dead, so the failure timers scale as
+# Nomad's raft_multiplier scales raft's (its documented maximum is 10)
+RING_RAFT_MULTIPLIER = 5
+# five schedulers on three replicas collide on the same best nodes: an
+# eval whose plans two (batch) or five (service) rounds in a row place
+# nothing is blocked until the leader's timer requeues it, and one nacked
+# past the broker's delivery limit (a fence timed out on a stalled
+# replica) is failed with a follow-up eval; both wait Nomad's 60 s,
+# shortened to fit the phase
+RING_UNBLOCK_S = 5.0
+RING_CFG = dict(num_schedulers=1, heartbeat_ttl_s=3600.0,
+                dead_server_cleanup_s=0.0, gc_safepoints=True,
+                raft_multiplier=RING_RAFT_MULTIPLIER,
+                failed_eval_unblock_delay_s=RING_UNBLOCK_S)
+RING_WAIT_S = 240
+# threads that register the nodes through the leader's raft at once, so
+# the log's entries ride AppendEntries in batches
+RING_SEEDERS = 32
+# the kernels the ring must launch: rows 1, 3, 5 (each replica's
+# placements) and 7 (each replica's table deltas reaching its mirror)
+RING_KERNELS = ("chunked", "kway", "scan", "scatter_set")
+
+
+def _ring_leader(servers, what, timeout_s=30.0):
+    """The ring's one leader, waited for; fails if none is elected."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        leaders = [s for s in servers if s.raft.is_leader()]
+        if len(leaders) == 1:
+            return leaders[0]
+        time.sleep(0.005)
+    fail(f"{what}: no single leader elected in {timeout_s:.0f} s "
+         f"({[s.raft.role for s in servers]})")
+
+
+def _ring_call(servers, what, fn):
+    """fn(leader) through the ring's current leader, again through the
+    next one while a leadership move refuses it (RpcRefused and the
+    raft's "not the leader" / term-moved errors are RuntimeErrors), as a
+    client rehomes."""
+    deadline = time.perf_counter() + 60
+    while True:
+        try:
+            return fn(_ring_leader(servers, what))
+        except RuntimeError:
+            if time.perf_counter() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def _ring_register(servers, what, jobs):
+    """Every job through the leader's register_jobs_bulk; slots a
+    leadership move refused go again through the next leader."""
+    import copy
+    pending = list(jobs)
+    deadline = time.perf_counter() + 60
+    while pending:
+        out = _ring_call(servers, what, lambda lead: lead.register_jobs_bulk(
+            [copy.deepcopy(j) for j in pending]))
+        bad = [(j, r) for j, r in zip(pending, out)
+               if isinstance(r, Exception)]
+        other = [(j.id, r) for j, r in bad
+                 if not isinstance(r, RuntimeError)]
+        if other or (bad and time.perf_counter() > deadline):
+            fail(f"{what}: registers failed: {(other or bad)[:3]}")
+        pending = [j for j, _r in bad]
+
+
+def _evals_done(store, job):
+    """Every eval of the job complete, or failed with the eval it left
+    done in turn: the blocked eval of an eval out of plan attempts
+    (`blocked_eval`, requeued by the leader's timer) or the reaper's
+    follow-up of an eval past the broker's delivery limit (`next_eval`).
+    The chain each eval started ends complete."""
+    evs = {e.id: e for e in store.evals_by_job(job.namespace, job.id)}
+
+    def done(e, depth=0):
+        if e.status == "complete":
+            return True
+        if e.status != "failed" or depth >= 16:
+            return False
+        nxt = evs.get(e.blocked_eval or e.next_eval)
+        return nxt is not None and done(nxt, depth + 1)
+    return all(done(e) for e in evs.values())
+
+
+def _failed_evals(store, jobs):
+    """The jobs' evals that failed, by what took their work on: out of
+    plan attempts (a blocked eval) and past the broker's delivery limit
+    (the reaper's follow-up)."""
+    evs = [e for j in jobs for e in store.evals_by_job(j.namespace, j.id)
+           if e.status == "failed"]
+    return dict(max_plans=sum(1 for e in evs if e.blocked_eval),
+                delivery_limit=sum(1 for e in evs if not e.blocked_eval))
+
+
+def _ring_settled(servers, jobs, what):
+    """Every job placed to its count on the leader, every eval chain of
+    them ended complete (_evals_done), the leader's broker idle, and
+    every replica at the leader's applied index."""
+    deadline = time.perf_counter() + RING_WAIT_S
+    while time.perf_counter() < deadline:
+        lead = _ring_leader(servers, what)
+        if all(len(lead.store.allocs_by_job(j.namespace, j.id))
+               >= j.task_groups[0].count for j in jobs) and all(
+                _evals_done(lead.store, j) for j in jobs) \
+                and not lead.eval_broker.stats.total_ready \
+                and not lead.eval_broker.stats.total_unacked \
+                and all(s._raft_index == lead._raft_index
+                        for s in servers):
+            return lead
+        time.sleep(0.01)
+    lead = _ring_leader(servers, what)
+    short = [(j.id, len(lead.store.allocs_by_job(j.namespace, j.id)),
+              j.task_groups[0].count,
+              [(e.status, e.triggered_by) for e in
+               lead.store.evals_by_job(j.namespace, j.id)])
+             for j in jobs
+             if len(lead.store.allocs_by_job(j.namespace, j.id))
+             < j.task_groups[0].count or not _evals_done(lead.store, j)]
+    fail(f"{what}: not settled in {RING_WAIT_S} s: "
+         f"{sum(len(lead.store.allocs_by_job(j.namespace, j.id)) for j in jobs)}"
+         f" allocs, broker {lead.eval_broker.stats.as_dict()}, blocked "
+         f"{lead.blocked_evals.blocked_count()}, applied "
+         f"{[s._raft_index for s in servers]}; jobs short or with evals "
+         f"not complete (id, allocs, count, evals) {short[:4]}")
+
+
+def ring_phase(nodes, mock, models, single_manifest, info):
+    """Phase 13 (see the module's docstring). Returns the phase's
+    launches."""
+    import copy
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.ops import select as S
+    from nomad_tpu_torch.rpc import RpcServer
+    from nomad_tpu_torch.rpc.codec import MAX_FRAME, dumps
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.utils import gcsafe, metrics, stages
+    what = "ring phase"
+    t_phase = time.perf_counter()
+    warm, jobs = server_jobs(mock, models)
+    after = restart_jobs(mock, models)[:2]
+    for job in after:
+        job.id = job.name = job.id.replace("restart", "failover")
+    names = {n.id: n.name for n in nodes}
+    # the process-wide dispatch cost model as a fresh server starts it,
+    # calibrated at the phase's table shape (phase 11's idiom)
+    S.cost_model.clear()
+    S.calibrate_cost_model(len(nodes), count=10, lanes=1,
+                           kernel=S.SelectKernel(None))
+    servers, rpcs = [], []
+    for _ in range(3):
+        s = Server(ServerConfig(**RING_CFG), device=None)
+        if s.device.type != "cuda":
+            fail(f"{what}: a server runs on {s.device}, not the card")
+        servers.append(s)
+        rpcs.append(RpcServer(s, port=0))
+    addrs = [r.addr for r in rpcs]
+    alive = list(zip(servers, rpcs))
+    try:
+        for s, r in alive:
+            s.attach_raft(r, addrs)
+            r.start()
+            s.start()
+        t0 = time.perf_counter()
+        lead = _ring_leader(servers, what)
+        elect_s = time.perf_counter() - t0
+        index0 = lead.raft.last_log()[0]
+
+        def raft_totals():
+            return {k: sum(s.raft.stats[k] for s in servers)
+                    for k in ("append_entries", "entries_sent")}
+        raft0 = raft_totals()
+
+        # 1. the nodes through the leader's raft
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(RING_SEEDERS) as pool:
+            list(pool.map(lambda n: _ring_call(
+                servers, what, lambda ld: ld.register_node(
+                    copy.deepcopy(n))), nodes))
+        seed_s = time.perf_counter() - t0
+        deadline = time.perf_counter() + 60
+        while any(s.store.node_count() != len(nodes) for s in servers):
+            if time.perf_counter() > deadline:
+                fail(f"{what}: nodes did not replicate "
+                     f"({[s.store.node_count() for s in servers]})")
+            time.sleep(0.01)
+        lead = _ring_leader(servers, what)
+        seeded_entries = lead.raft.last_log()[0] - index0
+        seed_raft = {k: v - raft0[k] for k, v in raft_totals().items()}
+
+        # 2. a follower reseeded by InstallSnapshot from the compacted log
+        follower = next(s for s in servers if s is not lead)
+        fi = servers.index(follower)
+        while any(s._raft_index != lead._raft_index for s in servers):
+            time.sleep(0.005)
+        lead.raft.compact(keep=0)
+        base = lead.raft.base_index
+        snaps0 = lead.raft.stats["snapshots_sent"]
+        t0 = time.perf_counter()
+        follower.raft.needs_snapshot = True
+        deadline = time.perf_counter() + 120
+        while follower.raft.needs_snapshot or \
+                follower.raft.base_index < base or \
+                lead.raft.stats["snapshots_sent"] == snaps0:
+            if time.perf_counter() > deadline:
+                fail(f"{what}: the follower was not reseeded")
+            time.sleep(0.002)
+        reseed_s = time.perf_counter() - t0
+        frame = len(dumps([0, "Raft.InstallSnapshot", dict(
+            term=lead.raft.term, leader=lead.raft.self_addr,
+            snapshot=lead.store.snapshot().dump(),
+            base_index=follower.raft.base_index,
+            base_term=follower.raft.base_term)]))
+        if frame > MAX_FRAME:
+            fail(f"{what}: the reseed's frame {frame} bytes is past "
+                 f"MAX_FRAME {MAX_FRAME}")
+        if server_state(follower) != server_state(lead):
+            fail(f"{what}: the reseeded follower's store differs from the "
+                 f"leader's")
+        cache = follower.store.table_cache
+        if cache.stats.get("primes") != 1 or cache.stats["full_builds"] \
+                or cache.device.stats["uploads"] != 1 \
+                or cache.device.device.type != "cuda":
+            fail(f"{what}: the reseeded follower's table cache "
+                 f"{cache.stats}, mirror {cache.device.snapshot()} on "
+                 f"{cache.device.device}")
+        served_table_matches(follower.store, f"{what}, reseeded follower",
+                             "mirror")
+        # the three replicas' nodes are the long-lived heap: out of every
+        # later collection (the servers' gc_safepoints collect the young
+        # generations between evals, a full pass every 10 s)
+        gcsafe.freeze_steady_state()
+        print(f"{what}: 3 servers on the card, leader elected in "
+              f"{elect_s:.3f} s; {len(nodes)} nodes registered through "
+              f"the leader's raft in {seed_s:.3f} s ({RING_SEEDERS} "
+              f"threads): {seeded_entries} log entries in "
+              f"{seed_raft['append_entries']} AppendEntries calls "
+              f"({seed_raft['entries_sent']} entries sent); reseed by "
+              f"InstallSnapshot of the compacted log (base index {base}) "
+              f"in {reseed_s:.3f} s, frame {frame} bytes against MAX_FRAME "
+              f"{MAX_FRAME}; the follower's store equals the leader's, its "
+              f"table primed (no full build) and its mirror on the card "
+              f"equal to its host table row for row", flush=True)
+
+        # 3. the warm job, then the 70 jobs through register_jobs_bulk
+        _ring_register(servers, what, [warm])
+        lead = _ring_settled(servers, [warm], what + ", warm job")
+        stats0 = {s.raft.self_addr: dict(s.follower_sched.snapshot_stats())
+                  for s in servers}
+        timeouts0 = {s.raft.self_addr: sum(
+            w.stats["fence_timeouts"] for w in s.follower_sched.workers)
+            for s in servers}
+        # summed over the three servers: only the leader's applier,
+        # ingest gateway and replication pumps run, whichever it is
+        def totals():
+            return dict(
+                applier={k: sum(s.plan_applier.stats[k] for s in servers)
+                         for k in ("groups", "plans", "conflict_retries")},
+                ingest={k: sum(s.ingest.stats[k] for s in servers)
+                        for k in ("requests", "batches", "entries_sum")},
+                raft={k: sum(s.raft.stats[k] for s in servers)
+                      for k in ("append_entries", "entries_sent")})
+        before = totals()
+        term0 = lead.raft.term
+        index0 = lead.raft.last_log()[0]
+        c0 = metrics.counter_totals()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        stages.enable()
+        t0 = time.perf_counter()
+        _ring_register(servers, what, jobs)
+        lead = _ring_settled(servers, jobs, what)
+        wall = time.perf_counter() - t0
+        split = {k: v["seconds"] for k, v in stages.snapshot().items()
+                 if v["calls"]}
+        stages.disable()
+        c1 = metrics.counter_totals()
+        placed = sum(len(lead.store.allocs_by_job(j.namespace, j.id))
+                     for j in jobs)
+        n_evals = sum(len(lead.store.evals_by_job(j.namespace, j.id))
+                      for j in jobs)
+        for job in jobs:
+            allocs = lead.store.allocs_by_job(job.namespace, job.id)
+            if len(allocs) != job.task_groups[0].count:
+                fail(f"{what}: {job.id} {len(allocs)}/"
+                     f"{job.task_groups[0].count} placed")
+        server_capacity_check(lead, names, what)
+        manifest = {k: v for k, v in
+                    lead.store.scheduler_parity_manifest().items()
+                    if k in single_manifest}
+        if manifest != single_manifest:
+            diff = sorted(k for k in single_manifest
+                          if manifest.get(k) != single_manifest[k])
+            fail(f"{what}: the alloc-name manifest differs from the single "
+                 f"server's for {diff[:5]}")
+        plane = {}
+        for s in servers:
+            if s is lead:
+                continue
+            st = s.follower_sched.snapshot_stats()
+            a = s.raft.self_addr
+            plane[a] = dict(
+                remote_dequeues=st["remote_dequeues"]
+                - stats0[a]["remote_dequeues"],
+                remote_plans=st["remote_plans"] - stats0[a]["remote_plans"],
+                demoted_plans=st["demoted_plans"]
+                - stats0[a]["demoted_plans"],
+                fence_wait_p99_ms=st["fence_wait_p99_ms"],
+                fence_timeouts=sum(w.stats["fence_timeouts"]
+                                   for w in s.follower_sched.workers)
+                - timeouts0[a])
+            if plane[a]["remote_dequeues"] < 1 or \
+                    plane[a]["remote_plans"] < 1:
+                fail(f"{what}: follower {a} did not schedule remotely "
+                     f"({plane[a]})")
+        after_ = totals()
+        ap, ing, raft = ({k: after_[part][k] - before[part][k]
+                          for k in before[part]}
+                         for part in ("applier", "ingest", "raft"))
+        rejected = c1.get("nomad.plan.node_rejected", 0.0) - c0.get(
+            "nomad.plan.node_rejected", 0.0)
+        entries = lead.raft.last_log()[0] - index0
+        print(f"{what}: {len(jobs)} jobs through register_jobs_bulk, "
+              f"{placed} placements, {n_evals} evals in {wall:.3f} s: "
+              f"{placed / wall:.1f} placements/s, {n_evals / wall:.2f} "
+              f"evals/s; by follower (remote dequeues, plans, demoted "
+              f"plans, fence-wait p99 ms, fence timeouts) "
+              f"{json.dumps(plane)}; applier commits {ap['groups']} of "
+              f"{ap['plans']} plans (mean group "
+              f"{ap['plans'] / max(ap['groups'], 1):.2f}), rejected "
+              f"placements {rejected:.0f}, conflict retries "
+              f"{ap['conflict_retries']}; leader terms {term0}-"
+              f"{lead.raft.term}; ingest {ing['requests']} writes "
+              f"in {ing['batches']} batches (mean "
+              f"{ing['entries_sum'] / max(ing['batches'], 1):.2f}); raft "
+              f"{entries} entries in {raft['append_entries']} AppendEntries "
+              f"calls; failed evals whose work went on in another (out of "
+              f"plan attempts, requeued on the leader's "
+              f"{RING_UNBLOCK_S:.0f} s timer; past the delivery limit, "
+              f"followed up after {RING_UNBLOCK_S:.0f} s) "
+              f"{json.dumps(_failed_evals(lead.store, jobs))}; manifest "
+              f"equal to the "
+              f"single card server's; no node over capacity; stage seconds summed over the three servers' "
+              f"evals {json.dumps(split)}", flush=True)
+
+        # 4. the leader killed; the survivors elect and keep placing
+        li = servers.index(lead)
+        t0 = time.perf_counter()
+        rpcs[li].shutdown()
+        lead.shutdown()
+        killed = time.perf_counter() - t0
+        alive = [(s, r) for s, r in alive if s is not lead]
+        rest = [s for s, _r in alive]
+        t0 = time.perf_counter()
+        new = _ring_leader(rest, what + " after the kill")
+        reelect_s = time.perf_counter() - t0
+        _ring_register(rest, what + " after the kill", after)
+        new = _ring_settled(rest, after, what + " after the kill")
+        server_capacity_check(new, names, what + " after the kill")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        # writes may still trickle in (SWIM's removal of the killed
+        # server rides the log): compare once both replicas applied the
+        # same index
+        deadline = time.perf_counter() + 60
+        while True:
+            applied = [s._raft_index for s in rest]
+            states = [server_state(s) for s in rest]
+            if applied[0] == applied[1] and states[0] == states[1]:
+                break
+            if time.perf_counter() > deadline:
+                diff = {k: (states[0][k], states[1][k])
+                        if k == "index" else len(states[0][k])
+                        for k in states[0] if states[0][k] != states[1][k]}
+                fail(f"{what}: the surviving replicas' stores differ "
+                     f"(applied {applied}): {diff}")
+            time.sleep(0.05)
+        for name in RING_KERNELS:
+            if launches.get(name, 0) < 1:
+                fail(f"{what}: the {name} kernel was never launched "
+                     f"({launches})")
+        end_frame = len(dumps(new.store.snapshot().dump()))
+        print(f"{what}: leader stopped in {killed:.3f} s; new leader "
+              f"elected {reelect_s:.3f} s after; {', '.join(j.id for j in after)} "
+              f"placed through it; the survivors' stores equal (jobs, "
+              f"allocs by id with node and statuses, eval statuses, index "
+              f"{states[0]['index']}); a snapshot of the whole store would "
+              f"be {end_frame} bytes against MAX_FRAME {MAX_FRAME}; "
+              f"launches {launches}; the reseeded follower "
+              f"{'survived as the new leader' if servers[fi] is new else 'survived as a follower' if servers[fi] in rest else 'was the killed leader'}"
+              f"; phase {time.perf_counter() - t_phase:.1f} s "
+              f"({info['raw']})", flush=True)
+        # one heartbeat timers thread, the new leader's, for every node
+        deadline = time.perf_counter() + 5
+        while True:
+            timers = [t for t in threading.enumerate()
+                      if t.name == "heartbeat-timers" and t.is_alive()]
+            if timers == [new._heartbeats._thread]:
+                break
+            if time.perf_counter() > deadline:
+                fail(f"{what}: {len(timers)} heartbeat timers threads "
+                     f"alive, the new leader's "
+                     f"{new._heartbeats._thread is not None}")
+            time.sleep(0.01)
+        return launches
+    finally:
+        stages.disable()
+        for s, r in alive:
+            r.shutdown()
+            s.shutdown()
+        gcsafe.unfreeze_steady_state()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3444,8 +3899,10 @@ def main():
     mesh_gw_launches = mesh_gateway_phase(nodes, mock, models, gateway_gpu)
     cold_launches, cold_mesh_launches = cold_start_phase(
         main_h, nodes, jobs, steady_state_steps(mock, models, nodes), info)
-    server_launches = server_phase(nodes, mock, models, info)
+    server_launches, single_manifest = server_phase(nodes, mock, models,
+                                                    info)
     restart_launches = restart_phase(nodes, mock, models, info)
+    ring_launches = ring_phase(nodes, mock, models, single_manifest, info)
     # each sharded kernel's launches on its main path: the grid route's
     # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
     grid = ("scan_sharded",) + GRID_ROUTE
@@ -3544,6 +4001,7 @@ def main():
     for rec in record:
         rec["server_launches"] = server_launches.get(rec["name"], 0)
         rec["restart_launches"] = restart_launches.get(rec["name"], 0)
+        rec["ring_launches"] = ring_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ package's jitted device programs. `Harness(device=...)` and
 `SelectKernel(device=...)` run on the CUDA card by default; `device="cpu"`
 runs the kernels' plain PyTorch versions instead.
 
-`server.Server(ServerConfig(...), device=None)` is the dev-mode server
-(one process, one leader, no raft): it registers nodes and jobs, enqueues
+`server.Server(ServerConfig(...), device=None)` is the server: alone it
+runs in dev mode (one process, one leader, no raft); it registers nodes
+and jobs, enqueues
 evals in the EvalBroker, and its Workers dequeue them, drain ready evals
 into batches and run the schedulers; plans go through the PlanQueue to the
 group-committing PlanApplier, which writes the store. Every kernel it owns
@@ -19,6 +20,13 @@ MicroBatchGateway's, the start-up calibration) runs on its device. With
 takes snapshots (server/persistence.py), and a new Server on the same
 directory restores: snapshot, primed node table, the mirror uploaded to
 its device beside the WAL tail's replay, and the dispatch cost model.
+With `RpcServer(server, port=0)` (rpc/) and `server.attach_raft(rpc,
+peers)` servers form a cluster: raft (server/raft.py) replicates every
+write and applies it at commit on each replica, a lagging follower is
+reseeded by snapshot onto its device, SWIM and autopilot keep the member
+set, and followers schedule on their own devices against their own
+replicas, dequeuing from the leader's broker and submitting plans to its
+applier over RPC (server/follower_sched.py).
 
 Concurrent evals' dispatches can meet in a gateway (server/worker.py):
 `BatchGateway` (one lane an eval of a drained batch) or `MicroBatchGateway`
@@ -58,7 +66,7 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   scheduler/__init__.py, scheduler/annotate.py, scheduler/context.py,
   scheduler/devices.py, scheduler/reconcile.py,
   scheduler/reconcile_util.py, scheduler/scheduler.py, scheduler/util.py,
-  server/eval_broker.py, server/blocked_evals.py, server/plan_queue.py,
+  server/eval_broker.py, server/plan_queue.py,
   server/event_broker.py, server/core_sched.py, server/periodic.py,
   server/deployment_watcher.py, server/drainer.py, utils/timetable.py,
   utils/gcsafe.py, server/persistence.py, server/connect_hook.py.
@@ -78,15 +86,39 @@ carry, or to carry the device:
                         AclToken, EventSink, VaultAccessor) only, not the
                         policy engine, the sink manager or the token
                         authority beside them;
-  rpc/codec.py          the error records RpcError and RpcRefused only,
-                        not the frame codec;
+  rpc/codec.py          FrameCodec on python-msgpack only (no native
+                        codec slot), its reads linear in a frame's size;
+  rpc/client.py, rpc/__init__.py   verbatim;
+  rpc/server.py         the Vault verbs raise RpcError (no token
+                        authority), Node.Heartbeat drops its host-stats
+                        payload (no cluster rollup), and shutdown closes
+                        the live connections and joins the listener;
+  rpc/transport.py      InProcTransport without the Vault verbs, its
+                        heartbeat without the stats payload;
   server/plan_applier.py  without the NOMAD_TPU_PLAN_GROUP switch, the
                         flight-recorder spans, the chaos fault hooks,
-                        the process-wide GROUP_STATS, the governor's
-                        conflict-window shrink of the group bound, and
-                        the committer thread and overlay of submitted
-                        but unapplied plans (every entry applies inline,
-                        so the applier resolves each future itself);
+                        the process-wide GROUP_STATS and the governor's
+                        conflict-window shrink of the group bound (the
+                        committer thread, the overlay of submitted but
+                        unapplied plans, apply_sync and fail_futures as
+                        in the JAX package);
+  server/raft.py        without the chaos hooks; append_entry encodes
+                        before it takes the lock; a new leader
+                        establishes leadership only after its term's
+                        no-op is applied (the Barrier of nomad/leader.go);
+                        no election while a snapshot installs; the
+                        election timeout scales with raft_multiplier;
+                        stop() joins the ticker and the FSM applier;
+                        replication counters (`stats`);
+  server/swim.py        without the chaos hooks; stop() joins its thread;
+  server/blocked_evals.py  with unblock_failed (blocked_evals.go
+                        UnblockFailed), which the leader runs on a timer;
+  server/follower_sched.py  without the NOMAD_TPU_FOLLOWER_SCHED switch
+                        and the chaos hook; Eval.Dequeue answers with a
+                        wait index (nomad/eval_endpoint.go getWaitIndex)
+                        that the follower's worker fences on;
+  server/ingest.py      without the NOMAD_TPU_INGEST_BATCH switch and the
+                        process-wide INGEST_STATS;
   scheduler/stack.py    SelectKernel(device); feasibility tokens parked
                         on the kernel's device;
   scheduler/generic.py, scheduler/system.py   pass the planner's device;
@@ -122,19 +154,33 @@ Written for the port:
                         setting and the JAX package's
                         NOMAD_TPU_EVAL_BATCH / NOMAD_TPU_MICROBATCH
                         switches; BatchGateway gains `partition` and
-                        `stats`;
-  server/core.py        the single-server half: ServerConfig (the fields
-                        the ported modules, tests and chip_smoke.py set,
-                        without worker_pipeline, reconcile_index_max_jobs /
-                        _delta_max and governor_gateway_depth_high, which
-                        are the constants they default to), Server(config,
+                        `stats`; the Worker's seams for the follower plane
+                        (_make_lane, _note_fence, _effective_batch_size),
+                        its snapshot fence also waiting for a remote
+                        dequeue's wait index;
+  server/core.py        ServerConfig (the fields the ported modules, tests
+                        and chip_smoke.py set, without worker_pipeline,
+                        reconcile_index_max_jobs / _delta_max and
+                        governor_gateway_depth_high, which are the
+                        constants they default to; with raft_multiplier,
+                        which also scales SWIM's timers), Server(config,
                         device) with start / shutdown (which joins every
-                        thread it started, then flushes and closes the WAL
+                        thread it started, the raft and scheduler-plane
+                        threads first, then flushes and closes the WAL
                         and saves the cost model, raising a failure there
                         after the rest of the teardown) /
-                        establish_leadership, raft_apply on the inline dev
-                        path with the WAL's record / commit_barrier /
-                        maybe_snapshot, the restore at construction (the
+                        establish_leadership / revoke_leadership (which
+                        stops the heartbeat timers' thread), attach_raft,
+                        raft_apply / raft_apply_async (the nested-apply
+                        path), apply_replicated, install_snapshot (the
+                        node table primed and its mirror uploaded to the
+                        server's device), the membership endpoints,
+                        autopilot and scheduler_plane_status,
+                        register_jobs_bulk and the ingest appliers, the
+                        reaper and the GC ticker idling while not leader,
+                        raft_apply on the inline dev path with the WAL's
+                        record / commit_barrier / maybe_snapshot, the
+                        restore at construction (the
                         mirror's prefetch a PrefetchThread joined before
                         the constructor returns), _replay_entries(entries,
                         highest, batch=True) in place of the
@@ -144,10 +190,10 @@ Written for the port:
                         namespace, service-catalog and CSI endpoints with
                         the volume watcher (its pass a second, ended at
                         once by shutdown's event; without the Vault reap);
-                        not raft (install_snapshot, apply_replicated),
-                        replication, SWIM, membership, federation, ACL
-                        resolution, the Vault token authority, ingest, the
-                        event-sink manager or the governor (the persistence
+                        not ACL / namespace replication, federation, ACL
+                        resolution, the Vault token authority, the
+                        event-sink manager, the heartbeats' host-stats
+                        rollup or the governor (the persistence and ingest
                         gauges among them), tracer and telemetry;
   server/heartbeat.py   HeartbeatTimers: every node's heartbeat TTL on one
                         thread (a heap of deadlines), where the JAX package

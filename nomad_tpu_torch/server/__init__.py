@@ -1,6 +1,5 @@
-"""The server's scheduling plane in dev mode: the PyTorch + CUDA
-counterpart of the JAX package's nomad_tpu/server/ for one process and
-one leader with no raft.
+"""The server: the PyTorch + CUDA counterpart of the JAX package's
+nomad_tpu/server/.
 
 `Server(ServerConfig(...), device=None)` registers nodes and jobs,
 enqueues evals in the EvalBroker and has its Workers dequeue them, drain
@@ -11,11 +10,18 @@ PlanApplier, which writes the store. `device=None` is the CUDA card,
 `device="cpu"` the kernels' plain versions. With `data_dir` set the
 server is durable (persistence.py: the WAL, snapshots and the cost
 model's file) and restores from the directory at construction;
-connect_hook.py injects connect sidecars at registration.
+connect_hook.py injects connect sidecars at registration; ingest.py
+coalesces concurrent writes into one log entry.
 
-Not ported yet: raft, replication, SWIM, follower scheduling, ingest, the
-event-sink manager and the Vault token authority (server/event_sink.py
-and server/vault.py carry only the records a snapshot holds).
+Clustered (`attach_raft` over an rpc.RpcServer): raft.py replicates the
+log and applies each entry at commit on every replica, swim.py detects
+failed peers, and follower_sched.py lets followers schedule on their own
+devices against their own replicas, dequeuing from the leader's broker
+and submitting plans to its applier over RPC.
+
+Not ported yet: ACL and namespace replication, the event-sink manager
+and the Vault token authority (server/event_sink.py and server/vault.py
+carry only the records a snapshot holds).
 """
 
 from .eval_broker import EvalBroker

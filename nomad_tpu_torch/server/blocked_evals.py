@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
-from ..models import Evaluation
+from ..models import Evaluation, TRIGGER_MAX_PLANS
 from ..utils.locks import make_lock
 
 UNBLOCK_CH_SIZE = 256
@@ -166,6 +166,32 @@ class BlockedEvals:
                 self._job_evals.pop((ev.namespace, ev.job_id), None)
                 self.stats.total_blocked -= 1
                 self._enqueue(ev)
+
+    def unblock_failed(self) -> int:
+        """Requeue the evals blocked because their scheduler ran out of
+        plan attempts (blocked_evals.go UnblockFailed, which the leader
+        runs on a timer): plan conflicts blocked them, not capacity, so
+        no capacity change need ever come to wake them. The enqueue runs
+        outside the lock: on a clustered leader it waits for its write's
+        commit, and the FSM may need this lock to apply entries before
+        that. Returns how many were requeued."""
+        with self._l:
+            if not self._enabled:
+                return 0
+            woken = []
+            for store in (self._captured, self._escaped):
+                for eid, ev in list(store.items()):
+                    if ev.triggered_by == TRIGGER_MAX_PLANS:
+                        woken.append(ev)
+                        del store[eid]
+                        if store is self._escaped:
+                            self.stats.total_escaped -= 1
+            for ev in woken:
+                self._job_evals.pop((ev.namespace, ev.job_id), None)
+                self.stats.total_blocked -= 1
+        for ev in woken:
+            self._enqueue(ev)
+        return len(woken)
 
     def get_duplicates(self) -> List[Evaluation]:
         with self._l:

@@ -23,13 +23,24 @@ legacy), the resident node table primed at the restored index, the
 device mirror uploaded on a PrefetchThread while the WAL tail replays,
 and the dispatch cost model saved beside the log.
 
-This is the single-server half of the JAX package's server/core.py.
-Not carried: attach_raft and the replicated log (install_snapshot,
-apply_replicated), replication, SWIM, membership and autopilot, follower
-scheduling and its lease table, federation (multiregion registration and
-stop), ACL resolution, the Vault token authority (and the volume
-watcher's Vault reap), batched write ingest, the event-sink manager, and
-the governor (the persistence gauges among them), tracer and telemetry.
+With `attach_raft(rpc_server, peers)` the server joins a cluster of
+servers over rpc/ (server/raft.py): the leader appends every write to a
+replicated log and the FSM applies an entry once a majority holds it, on
+leader and followers alike (apply_replicated); a lagging follower is
+reseeded by snapshot (install_snapshot, which primes its resident node
+table and uploads the mirror to its device); membership rides the log
+(join_member / leave_member, autopilot, SWIM failure reports); and each
+follower schedules remotely (server/follower_sched.py): its workers
+dequeue from the leader's broker over RPC, select on its own device
+against its own replicated store, and submit plans to the leader's
+applier. Writes that arrive while an apply is in flight coalesce into
+one entry (server/ingest.py, register_jobs_bulk).
+
+Not carried: ACL and namespace replication (server/replication.py),
+federation (multiregion registration and stop), ACL resolution, the
+Vault token authority (and the volume watcher's Vault reap), the
+event-sink manager, a heartbeat's host-stats rollup, and the governor
+(the persistence and ingest gauges among them), tracer and telemetry.
 """
 
 from __future__ import annotations
@@ -64,7 +75,9 @@ from .deployment_watcher import (
 from .drainer import NodeDrainer, drain_allocs
 from .eval_broker import EvalBroker, FAILED_QUEUE
 from .event_broker import EventBroker, events_from_apply
+from .follower_sched import EvalLeaseTable
 from .heartbeat import HeartbeatTimers
+from .ingest import IngestGateway
 from .periodic import PeriodicDispatch
 from .plan_applier import PlanApplier
 from .plan_queue import PlanQueue
@@ -99,6 +112,10 @@ class ServerConfig:
     # effect, so off by default.
     gc_safepoints: bool = False
     heartbeat_ttl_s: float = 10.0
+    # how long a failed eval's work waits to run again: the reaper's
+    # follow-up delay for an eval past the broker's delivery limit, and
+    # the leader's interval for requeueing evals blocked on exhausted
+    # plan attempts (nomad/leader.go: both 1 minute)
     failed_eval_unblock_delay_s: float = 60.0
     data_dir: str = ""              # empty == in-memory only
     snapshot_every: int = 1024      # WAL entries between snapshots
@@ -141,6 +158,47 @@ class ServerConfig:
     # shape and seed the dispatch cost model before traffic. Pays the
     # kernels' build at start, so off by default
     dispatch_calibration: bool = False
+    # autopilot dead-server cleanup (nomad/autopilot.go): a voter with
+    # no replication contact for this long is removed from the member
+    # set; 0 disables
+    dead_server_cleanup_s: float = 60.0
+    # scales the cluster's failure timers (nomad/config.go
+    # RaftMultiplier): raft's election timeout and SWIM's probe timeout
+    # and suspicion. 1 keeps the reference's timings; servers that share
+    # one process (and its interpreter lock) under load need more, or a
+    # busy peer reads as a dead one
+    raft_multiplier: float = 1.0
+    # distributed scheduler plane (server/follower_sched.py): when
+    # clustered, followers run worker pools against their LOCAL
+    # replicated store, dequeuing evals from the leader's broker over
+    # RPC and submitting plans back for leader-only verify/commit.
+    # Off = the leader schedules alone
+    follower_sched: bool = True
+    # leader-side lease on a remotely dequeued eval: a dead follower's
+    # evals return to READY after this long (with zero re-enqueue
+    # delay — the follower failed, not the eval), instead of waiting
+    # out the broker's full 60 s unack timer
+    follower_lease_s: float = 30.0
+    # follower-side snapshot fence budget: how long a follower worker
+    # waits for local raft catch-up to reach the eval's modify index
+    # before NACKing it back (a lagging replica must not schedule from
+    # the past, and must not silently drop the eval either)
+    follower_fence_timeout_s: float = 5.0
+    # remote worker pool size per follower
+    follower_max_remote: int = 2
+    # batched write ingest (server/ingest.py): job registers, client
+    # alloc-status updates and desired-transition writes that arrive
+    # while a raft apply is in flight park and land as ONE
+    # `ingest_batch` entry / store transaction / event flush. Entries
+    # per batch cap:
+    ingest_batch_max: int = 64
+    # coalescing window (microseconds) a lone streaming write waits for
+    # companions. <0 builds no gateway at all (the one-entry-per-write
+    # path)
+    ingest_window_us: float = 200.0
+    # queued-write depth at which check_admission sheds new writes (the
+    # byte watermark derives from this: depth x 64 KiB)
+    ingest_queue_high: int = 256
 
 
 class Server:
@@ -159,6 +217,12 @@ class Server:
         self.blocked_evals = BlockedEvals(self._unblock_enqueue)
         self.plan_queue = PlanQueue()
         self.plan_applier = PlanApplier(self.plan_queue, self)
+        # distributed scheduler plane: the lease table is the
+        # leader-side half (remote-dequeue leases + counters, empty on
+        # non-leaders); the follower half is built in attach_raft — a
+        # dev-mode server never constructs one
+        self.eval_leases = EvalLeaseTable(self)
+        self.follower_sched = None
         self.time_table = TimeTable()
         self.periodic = PeriodicDispatch(self)
         self.deployments_watcher = DeploymentsWatcher(self)
@@ -176,11 +240,32 @@ class Server:
                 min_batch=self.config.gateway_min_batch,
                 depth_fn=lambda: self.eval_broker.stats.total_ready,
                 depth_high=GATEWAY_DEPTH_HIGH)
+        # batched write ingest: the write-side twin of the gateway
+        # above — no object under ingest_window_us < 0, so every write
+        # takes the one-raft-entry-per-object path
+        self.ingest = None
+        if self.config.ingest_window_us >= 0:
+            self.ingest = IngestGateway(
+                self,
+                batch_max=self.config.ingest_batch_max,
+                window_us=self.config.ingest_window_us,
+                queue_high=self.config.ingest_queue_high)
         self.workers: List[Worker] = []
         # every node's heartbeat TTL on one thread (server/heartbeat.py)
         self._heartbeats = HeartbeatTimers(self.config.heartbeat_ttl_s,
                                            self._invalidate_heartbeat)
+        # timers a revoked leadership stopped without waiting; shutdown
+        # joins them
+        self._retired_heartbeats: List[HeartbeatTimers] = []
         self._leader = False
+        self._member_l = make_lock()   # join/leave RMW serialization
+        self.raft = None                # multi-server consensus (raft.py)
+        self.swim = None                # peer failure detection (swim.py)
+        # thread-local: set on the FSM applier thread while an applier
+        # runs, so nested raft_apply side effects are detected per
+        # thread — an instance-wide flag would make a concurrent client
+        # write on another thread look nested and silently drop it
+        self._apply_tl = threading.local()
         # serializes enforced (-check-index) registrations: the CAS
         # check and the apply must not interleave across threads
         self._register_l = make_lock()
@@ -272,9 +357,46 @@ class Server:
         }
 
     # -- lifecycle -----------------------------------------------------
+    def attach_raft(self, rpc_server, peers, self_addr: str = "") -> None:
+        """Join a multi-server cluster: the raft node drives leadership
+        (nomad/server.go setupRaft + leader.go monitorLeadership)."""
+        from .follower_sched import FollowerScheduler, rpc_handlers
+        from .raft import RaftNode
+        from .swim import PROBE_TIMEOUT_S, SUSPICION_S, SwimDetector
+        self.raft = RaftNode(self, self_addr or rpc_server.addr,
+                             list(peers), data_dir=self.config.data_dir,
+                             multiplier=self.config.raft_multiplier)
+        rpc_server.methods.update(self.raft.rpc_methods())
+        rpc_server.raft = self.raft
+        # reconcile REPLICATED membership over the static boot config:
+        # a restarted server must adopt the grown/shrunk voter set its
+        # WAL/snapshot recorded (and an evicted server must come back
+        # inert), or its quorum math is wrong from the first election
+        members = self.store.server_members()
+        if members:
+            self.raft.update_members(members)
+        # peer-to-peer failure detection (SWIM; nomad/serf.go): every
+        # member probes, not just the leader's replication threads
+        m = max(float(self.config.raft_multiplier), 1.0)
+        self.swim = SwimDetector(self, probe_timeout_s=m * PROBE_TIMEOUT_S,
+                                 suspicion_s=m * SUSPICION_S)
+        # distributed scheduler plane: the remote-dequeue verb surface
+        # rides the same RPC transport raft does, and the follower
+        # worker pool is built here — started by start(), inert
+        # whenever this server is (or becomes) the leader
+        rpc_server.methods.update(rpc_handlers(self))
+        self.follower_sched = FollowerScheduler(self)
+
     def start(self) -> None:
-        self.establish_leadership()
+        if self.raft is None:
+            self.establish_leadership()
+        else:
+            self.raft.start()
+            self.swim.start()
+            self.follower_sched.start()
         self.plan_applier.start()
+        if self.ingest is not None:
+            self.ingest.start()
         for i in range(self.config.num_schedulers):
             w = Worker(self, list(self.config.enabled_schedulers)
                        + [JOB_TYPE_CORE], wid=i)
@@ -300,14 +422,27 @@ class Server:
 
     def shutdown(self) -> None:
         """Stop every service and join every thread this server
-        started: the workers (and their finishers), the applier, the
-        reaper, the GC ticker, the volume watcher, the periodic
+        started: the scheduler plane first (the follower workers and
+        the lease sweeper talk to remote transports), then the raft node
+        (its ticker and FSM applier, so no entry reaches the WAL past
+        this point) and SWIM, then the workers (and their finishers),
+        the applier and its committer, the ingest gateway, the reaper,
+        the GC ticker, the volume watcher, the autopilot, the periodic
         dispatcher, the deployments watcher, the drainer and the
         heartbeat timers' thread. With a data directory it then waits
         out an in-flight snapshot writer, flushes the WAL's fsync-pending
         bytes, closes the log and saves the cost model; a failure there
         raises once the rest of the teardown is done."""
         self._shutdown_ev.set()
+        if self.follower_sched is not None:
+            self.follower_sched.stop()
+        self.eval_leases.stop()
+        # raft first: a SWIM tick blocked on a membership write (a
+        # removal awaiting quorum) then fails fast as refused
+        if self.raft is not None:
+            self.raft.stop()
+        if self.swim is not None:
+            self.swim.stop()
         self._leader = False
         self.deployments_watcher.set_enabled(False)
         self.node_drainer.set_enabled(False)
@@ -317,10 +452,14 @@ class Server:
         for w in self.workers:
             w.stop()
         self.plan_applier.stop()
+        if self.ingest is not None:
+            self.ingest.stop()
         self.eval_broker.set_enabled(False)
         self.blocked_evals.set_enabled(False)
         self.plan_queue.set_enabled(False)
-        self._heartbeats.stop(JOIN_S)
+        for timers in self._retired_heartbeats + [self._heartbeats]:
+            timers.stop(JOIN_S)
+        self._retired_heartbeats = []
         for t in self._threads + [
                 self.deployments_watcher._thread,
                 self.node_drainer._thread, self.periodic._thread]:
@@ -356,12 +495,197 @@ class Server:
                 self.periodic.add(job)
         self.deployments_watcher.set_enabled(True)
         self.node_drainer.set_enabled(True)
+        if self.raft is not None:
+            # seed the replicated member set from static boot config on
+            # first leadership (later joins/leaves mutate it), then run
+            # the autopilot reaper. Threaded: establish_leadership runs
+            # under the raft lock (same reason the election no-op is)
+            def _seed():
+                try:
+                    if not self.store.server_members():
+                        self.raft_apply(
+                            "server_membership",
+                            dict(members=[self.raft.self_addr]
+                                 + list(self.raft.peers)))
+                except Exception:
+                    LOG.exception("membership seed failed")
+            threading.Thread(target=_seed, daemon=True,
+                             name="member-seed").start()
+            # always spawned: the loop idles when the threshold is 0,
+            # so the cleanup can be enabled on a live leader
+            t = threading.Thread(target=self._autopilot_loop,
+                                 daemon=True, name="autopilot")
+            self._threads.append(t)
+            t.start()
+
+    def revoke_leadership(self) -> None:
+        """leader.go revokeLeadership:1038 — disable leader-only
+        services; workers stay up, parked on the disabled broker. The
+        heartbeat timers' thread stops (without waiting: this runs
+        under the raft lock, which an expiring node's status write
+        needs) and a fresh, unstarted set takes its place, so a
+        re-elected leader runs exactly one timers thread again."""
+        self._leader = False
+        # remote-dequeue leases are leader state: the broker flush
+        # below cancels every unack they covered, and the NEW leader
+        # re-enqueues non-terminal evals from the store — stale leases
+        # here would only nack evals we no longer own
+        self.eval_leases.flush()
+        self.eval_broker.set_enabled(False)
+        self.blocked_evals.set_enabled(False)
+        self.plan_queue.set_enabled(False)
+        self.periodic.set_enabled(False)
+        self.deployments_watcher.set_enabled(False)
+        self.node_drainer.set_enabled(False)
+        old = self._heartbeats
+        self._heartbeats = HeartbeatTimers(self.config.heartbeat_ttl_s,
+                                           self._invalidate_heartbeat)
+        old.stop(timeout_s=0)
+        self._retired_heartbeats.append(old)
+
+    def scheduler_plane_status(self) -> dict:
+        """Per-member scheduler-plane status (`nomad server members`):
+        raft role + applied index per member, fence lag (the leader's
+        last log index minus the member's applied index — exactly the
+        gap a follower's snapshot fence would wait out), leased evals
+        per follower from the leader's lease table, and this server's
+        own plane counters."""
+        raft = self.raft
+        status = {
+            "enabled": bool(self.config.follower_sched),
+            "leases": self.eval_leases.snapshot_stats(),
+            "follower": (self.follower_sched.snapshot_stats()
+                         if self.follower_sched is not None else None),
+            "members": [],
+        }
+        if raft is None:
+            return status
+        leased = self.eval_leases.by_follower()
+        rows = {raft.self_addr: raft._handle_status({})}
+        from ..rpc.client import RpcClient
+        for addr in (self.store.server_members() or []):
+            if addr in rows:
+                continue
+            try:
+                c = RpcClient(addr, dial_timeout_s=0.5)
+                try:
+                    rows[addr] = c.call("Raft.Status", {}, timeout_s=1.0)
+                finally:
+                    c.close()
+            except Exception:
+                rows[addr] = None
+        leader_last = 0
+        for st in rows.values():
+            if st and st.get("role") == "leader":
+                leader_last = int(st.get("last_log_index") or 0)
+        for addr in sorted(rows):
+            st = rows[addr]
+            if st is None:
+                status["members"].append(
+                    {"addr": addr, "role": "unreachable",
+                     "applied_index": None, "fence_lag": None,
+                     "leased_evals": leased.get(addr, 0)})
+                continue
+            applied = int(st.get("applied_index") or 0)
+            status["members"].append(
+                {"addr": addr, "role": st.get("role"),
+                 "applied_index": applied,
+                 "fence_lag": (max(0, leader_last - applied)
+                               if leader_last else 0),
+                 "leased_evals": leased.get(addr, 0)})
+        return status
+
+    def apply_replicated(self, index: int, msg_type: str,
+                         enc_payload: dict) -> None:
+        """Apply a COMMITTED log entry — leaders and followers share
+        this path (raft.py _fsm_loop calls it in log order once the
+        commit index covers the entry, so the WAL records entries in
+        index order, as raft_apply does in dev mode). Nested raft_apply
+        calls from FSM side effects append their own log entries on the
+        leader and are suppressed on followers — either way the effect
+        arrives as its own committed entry, so replicas converge.
+        Change events publish here, i.e. only for committed writes."""
+        from .persistence import decode_payload
+        payload = decode_payload(msg_type, enc_payload)
+        tl = self._apply_tl
+        with self._raft_l:
+            if index <= self._raft_index:
+                return              # duplicate delivery (batch overlap)
+            tl.in_fsm_apply = True
+            try:
+                self._raft_index = index
+                if self.persistence is not None:
+                    self.persistence.record(index, msg_type, payload)
+                fn = getattr(self, f"_apply_{msg_type}")
+                fn(index, payload)
+                self.time_table.witness(index)
+                if self.persistence is not None:
+                    self.persistence.maybe_snapshot(self.store)
+            finally:
+                tl.in_fsm_apply = False
+            try:
+                self.events.publish(events_from_apply(msg_type, payload,
+                                                      index))
+            except Exception:
+                LOG.exception("event publish for %s", msg_type)
+
+    def install_snapshot(self, data: dict,
+                         base_index: Optional[int] = None) -> None:
+        """Full-state reseed from the leader (fsm.go Restore:1374). The
+        snapshot's raft base index is authoritative for the applied
+        index: store.latest_index() undercounts whenever the tail holds
+        entries that touch no table (election no-ops), and an applied
+        index below the log base would let this node reissue
+        already-used log indexes after winning an election.
+
+        The restore replaces the store's resident node table cache
+        (with its device mirror) wholesale, so no row from before the
+        snapshot is served; the new table is primed at the restored
+        index and its mirror uploaded to this server's device before
+        the lock is released, as the restore at construction does, so
+        the next eval takes the delta path instead of a full build."""
+        with self._raft_l:
+            self.store.restore(data)
+            floor = self.store.latest_index() if base_index is None \
+                else base_index
+            self._raft_index = max(floor, self.store.latest_index())
+            self.store.table_cache.prime(self.store.snapshot(),
+                                         self.store.pop_cold_columns())
+            self.store.table_cache.prefetch_device(self.device)
+            # snapshot-covered indexes were never published as events
+            # on this node: raise the sink gap floor accordingly
+            self.events.epoch_floor = max(self.events.epoch_floor,
+                                          self._raft_index)
+            if self.persistence is not None:
+                self.persistence.snapshot(self.store)
+        # adopt the snapshot's replicated membership
+        if self.raft is not None:
+            members = self.store.server_members()
+            if members:
+                self.raft.update_members(members)
 
     def _reap_failed_evals(self) -> None:
         """Drain the broker's failed queue: mark the eval failed and
         create a delayed failed-follow-up so the work retries after the
-        storm passes (leader.go reapFailedEvaluations:766)."""
-        while self._leader:
+        storm passes (leader.go reapFailedEvaluations:766); and every
+        `failed_eval_unblock_delay_s` requeue the evals blocked because
+        plan conflicts exhausted their scheduler's attempts, which
+        nothing else wakes while the cluster's capacity stands still
+        (leader.go periodicUnblockFailedEvals). Runs from start() to
+        shutdown and idles while this server is not the leader, so a
+        server that wins an election later reaps too."""
+        next_unblock = time.monotonic()
+        while not self._shutdown_ev.is_set():
+            if not self._leader:
+                self._shutdown_ev.wait(0.5)
+                continue
+            if time.monotonic() >= next_unblock:
+                next_unblock = time.monotonic() + \
+                    self.config.failed_eval_unblock_delay_s
+                try:
+                    self.blocked_evals.unblock_failed()
+                except RuntimeError as e:   # leadership moved mid-write
+                    LOG.warning("failed-eval unblock: %s", e)
             ev, token = self.eval_broker.dequeue([FAILED_QUEUE],
                                                  timeout_s=0.5)
             if ev is None:
@@ -385,12 +709,14 @@ class Server:
 
     def _schedule_periodic_gc(self) -> None:
         """leader.go schedulePeriodic:689 — enqueue `_core` GC evals on a
-        ticker. These evals are in-memory only (never raft-applied)."""
+        ticker. These evals are in-memory only (never raft-applied).
+        Idles while this server is not the leader, like the reaper."""
         last = time.monotonic()
-        while self._leader:
-            if self._shutdown_ev.wait(
-                    min(self.config.gc_interval_s / 4.0, 0.5)):
-                return
+        while not self._shutdown_ev.wait(
+                min(self.config.gc_interval_s / 4.0, 0.5)):
+            if not self._leader:
+                last = time.monotonic()
+                continue
             if time.monotonic() - last < self.config.gc_interval_s:
                 continue
             last = time.monotonic()
@@ -535,9 +861,67 @@ class Server:
     # -- the FSM -------------------------------------------------------
     def raft_apply(self, msg_type: str, payload: dict) -> int:
         """Serialized FSM apply (fsm.go Apply:210-300). Returns the
-        index. Dev mode: record, apply and snapshot run inline under the
-        raft lock, so WAL order == apply order; WAL replay bypasses
-        raft_apply, so a restore does not replay the event history."""
+        index. Dev mode (no raft): record, apply and snapshot run inline
+        under the raft lock, so WAL order == apply order; WAL replay
+        bypasses raft_apply, so a restore does not replay the event
+        history. Clustered: the leader appends the entry to the
+        replication log and blocks until a majority holds it AND the
+        local FSM has applied it (apply-at-commit — hashicorp/raft runs
+        the FSM only up to the commit index, nomad/server.go:1214);
+        non-leaders forward the write to the leader (rpc.go
+        forward())."""
+        index, waiter = self.raft_apply_async(msg_type, payload)
+        if waiter is not None:
+            waiter()
+        return index
+
+    def raft_apply_async(self, msg_type: str, payload: dict):
+        """The non-blocking half of raft_apply: log append now, commit
+        + FSM apply deferred. Returns (index, waiter) where waiter is
+        None (nested/forwarded/no-raft: nothing to wait for at this
+        frame) or a callable that blocks until the entry is
+        majority-replicated in the term it was stamped with and applied
+        locally, raising otherwise (after `timeout_s`, 10 s unless the
+        caller passes another; None waits while this node leads). The plan applier uses this to
+        overlap plan N's replication with plan N+1's verification
+        (plan_apply.go:44-70 pipelining). On a clustered leader NOTHING
+        is applied at this point — a caller that needs to read its own
+        write must invoke the waiter (raft_apply does); this is what
+        closes the uncommitted-read window on a partitioned leader."""
+        if self.raft is not None:
+            if getattr(self._apply_tl, "in_fsm_apply", False):
+                # nested FSM side effect during a committed apply: on
+                # the leader it becomes its own log entry (applied when
+                # it commits); on a follower the leader's equivalent
+                # entry arrives via the log — suppress. Narrow window:
+                # if leadership changes between an entry's commit and
+                # its apply, NO node re-emits the nested write (every
+                # replica applies it as a non-leader). The only such
+                # write is the blocked-eval wake (_unblock_enqueue),
+                # and the woken eval stays in state as blocked — the
+                # new leader re-tracks it on establish_leadership, the
+                # same stall-until-next-capacity-change the reference
+                # accepts across failovers (blocked_evals.go:316).
+                if self.raft.is_leader():
+                    try:
+                        idx, _term = self.raft.append_entry(
+                            msg_type, payload)
+                        return idx, None
+                    except RuntimeError:
+                        LOG.warning(
+                            "nested %s write dropped: deposed during "
+                            "FSM apply; state-derived recovery applies",
+                            msg_type)
+                        return self._raft_index, None
+                return self._raft_index, None
+            if not self.raft.is_leader():
+                return self.raft.forward_apply(msg_type, payload), None
+            # raises "not the leader" on a deposed leader — nothing
+            # recorded, nothing applied
+            index, term = self.raft.append_entry(msg_type, payload)
+            raft = self.raft
+            return index, lambda timeout_s=10.0: raft.wait_for_applied(
+                index, term, timeout_s=timeout_s)
         with self._raft_l:
             index = self._raft_index + 1
             self._raft_index = index
@@ -556,7 +940,7 @@ class Server:
                     msg_type, payload, index))
             except Exception:
                 LOG.exception("event publish for %s", msg_type)
-        return index
+        return index, None
 
     def _apply_noop(self, index: int, p: dict) -> None:
         """Leadership no-op (hashicorp/raft LogNoop): commits the new
@@ -571,6 +955,9 @@ class Server:
         self.periodic.add(self.store.job_by_id(job.namespace, job.id) or job)
         for ev in p.get("evals", []):
             if not ev.job_modify_index:
+                # ingest-embedded eval: the register and its eval share
+                # one entry, so the fence is stamped at apply time —
+                # deterministic on WAL replay too
                 ev.job_modify_index = index
             self.store.upsert_evals(index, [ev])
             self.enqueue_eval(ev)
@@ -683,6 +1070,75 @@ class Server:
         self.store.upsert_plan_group_results(index, p["groups"])
         for g in p["groups"]:
             self._reconcile_job_statuses(index, g)
+
+    def _apply_ingest_batch(self, index: int, p: dict) -> None:
+        """One committed entry carrying a whole ingest GROUP
+        (server/ingest.py): coalesced registers / client alloc updates /
+        desired transitions land in submission order, with each
+        consecutive same-kind run collapsed to ONE store transaction
+        (upsert_jobs_batch / update_allocs_from_client_batch). Per-kind
+        side effects run per entry exactly as the singleton appliers
+        would, so the final state is sequential-equivalent by
+        construction."""
+        entries = p["entries"]
+        i = 0
+        while i < len(entries):
+            kind = entries[i]["kind"]
+            j = i
+            while j < len(entries) and entries[j]["kind"] == kind:
+                j += 1
+            run = entries[i:j]
+            if kind == "job_register":
+                self._ingest_apply_registers(index, run)
+            elif kind == "alloc_client_update":
+                self._ingest_apply_client_updates(index, run)
+            else:
+                for e in run:
+                    self._apply_alloc_desired_transition(index, e)
+            i = j
+
+    def _ingest_apply_registers(self, index: int, run: List[dict]) -> None:
+        # one store transaction for the run's jobs (in order, so a
+        # same-job re-register in one batch still sees the version
+        # bump), then the singleton applier's side-effect tail per job
+        self.store.upsert_jobs_batch(index, [e["job"] for e in run])
+        evals: List[Evaluation] = []
+        for e in run:
+            job: Job = e["job"]
+            self.blocked_evals.untrack(job.namespace, job.id)
+            self.store.reconcile_job_status(index, job.namespace, job.id)
+            self.periodic.add(
+                self.store.job_by_id(job.namespace, job.id) or job)
+            for ev in e.get("evals", []):
+                if not ev.job_modify_index:
+                    ev.job_modify_index = index
+                evals.append(ev)
+        if evals:
+            self.store.upsert_evals_batch([(index, evals)])
+            for ev in evals:
+                self.enqueue_eval(ev)
+
+    def _ingest_apply_client_updates(self, index: int,
+                                     run: List[dict]) -> None:
+        # the WAL-replay batch promoted to the live path: one store
+        # transaction for the alloc merges, then each entry's
+        # unblock/eval/status side effects in submission order
+        self.store.update_allocs_from_client_batch(
+            [(index, e["allocs"]) for e in run])
+        for e in run:
+            for stub in e["allocs"]:
+                alloc = self.store.alloc_by_id(stub.id)
+                if alloc is None or not alloc.client_terminal_status():
+                    continue
+                node = self.store.node_by_id(alloc.node_id)
+                if node is not None:
+                    self.blocked_evals.unblock(node.computed_class,
+                                               index)
+            for ev in e.get("evals", []):
+                self.store.upsert_evals(index, [ev])
+                self.enqueue_eval(ev)
+            self._reconcile_job_statuses(index,
+                                         {"allocs_placed": e["allocs"]})
 
     def _apply_scheduler_config(self, index: int, p: dict) -> None:
         self.store.set_scheduler_config(index, p["config"])
@@ -858,13 +1314,17 @@ class Server:
                                 triggered_by: str
                                 ) -> Optional[Evaluation]:
         job.canonicalize()
+        self._refuse_multiregion(job)
+        self._validate_register(job)
+        return self._commit_register(job, triggered_by)
+
+    @staticmethod
+    def _refuse_multiregion(job: Job) -> None:
         if job.multiregion is not None and \
                 job.region in ("", "global"):
             raise NotImplementedError(
                 f"job {job.id!r} is multiregion: its fan-out needs the "
                 "federation layer, which this server does not carry")
-        self._validate_register(job)
-        return self._commit_register(job, triggered_by)
 
     def _validate_register(self, job: Job) -> None:
         """Post-canonicalize admission checks for one register —
@@ -895,14 +1355,26 @@ class Server:
 
     def _commit_register(self, job: Job,
                          triggered_by: str) -> Optional[Evaluation]:
-        """Land one fully validated register: the job's entry, then its
-        eval's."""
+        """Land one fully validated register. Through the ingest
+        gateway the job and its eval ride ONE coalesced entry — the
+        eval's job-modify fence is stamped at apply time so
+        WAL replay stays deterministic; without a gateway the unchanged
+        two-entry path runs."""
         ev = None
         if not (job.is_periodic() or job.is_parameterized()):
             ev = Evaluation(
                 namespace=job.namespace, priority=job.priority,
                 type=job.type, triggered_by=triggered_by, job_id=job.id,
                 status=EVAL_STATUS_PENDING)
+        if self.ingest is not None:
+            index = self.ingest.submit(
+                "job_register",
+                dict(job=job, evals=[ev] if ev is not None else []))
+            if ev is None:
+                return None
+            ev.job_modify_index = index
+            ev.modify_index = index
+            return ev
         index = self.raft_apply("job_register", dict(job=job, evals=[]))
         if ev is None:
             return None
@@ -910,6 +1382,58 @@ class Server:
         ev.modify_index = index
         self.raft_apply("eval_update", dict(evals=[ev]))
         return ev
+
+    def register_jobs_bulk(self, jobs: List[Job],
+                           triggered_by: str = TRIGGER_JOB_REGISTER
+                           ) -> List:
+        """Array-body bulk register (`PUT /v1/jobs` with a list):
+        validate each job in the caller's thread, park every
+        admitted one on the gateway, then gather — one raft entry /
+        store transaction for the whole admitted run. Returns one
+        result PER INPUT in order: an Evaluation (or None for
+        periodic/parameterized jobs) on success, the Exception
+        otherwise — a validation failure fails ONLY its own slot, a
+        batch-commit failure fails every parked slot."""
+        if self.ingest is None:
+            out = []
+            for job in jobs:
+                try:
+                    out.append(self.register_job(job, triggered_by))
+                except Exception as e:
+                    out.append(e)
+            return out
+        slots = []              # (future | None, ev, err | None)
+        for job in jobs:
+            try:
+                job.canonicalize()
+                self._refuse_multiregion(job)
+                self._validate_register(job)
+                ev = None
+                if not (job.is_periodic() or job.is_parameterized()):
+                    ev = Evaluation(
+                        namespace=job.namespace, priority=job.priority,
+                        type=job.type, triggered_by=triggered_by,
+                        job_id=job.id, status=EVAL_STATUS_PENDING)
+                fut = self.ingest.submit_async(
+                    "job_register",
+                    dict(job=job, evals=[ev] if ev is not None else []))
+                slots.append((fut, ev, None))
+            except Exception as e:
+                slots.append((None, None, e))
+        out = []
+        for fut, ev, err in slots:
+            if err is not None:
+                out.append(err)
+                continue
+            try:
+                index = fut.result()
+                if ev is not None:
+                    ev.job_modify_index = index
+                    ev.modify_index = index
+                out.append(ev)
+            except Exception as e:
+                out.append(e)
+        return out
 
     def evaluate_job(self, namespace: str, job_id: str) -> Evaluation:
         """Force a fresh evaluation of a job (job_endpoint.go
@@ -939,10 +1463,13 @@ class Server:
             type=job.type if job else "service",
             triggered_by="alloc-stop", job_id=alloc.job_id,
             status=EVAL_STATUS_PENDING)
-        self.raft_apply("alloc_desired_transition",
-                        dict(alloc_ids=[alloc_id],
-                             transition=DesiredTransition(migrate=True),
-                             evals=[ev]))
+        payload = dict(alloc_ids=[alloc_id],
+                       transition=DesiredTransition(migrate=True),
+                       evals=[ev])
+        if self.ingest is not None:
+            self.ingest.submit("alloc_desired_transition", payload)
+        else:
+            self.raft_apply("alloc_desired_transition", payload)
         return ev
 
     def dispatch_job(self, namespace: str, job_id: str,
@@ -1160,16 +1687,39 @@ class Server:
         """Node.UpdateAlloc: client pushes task states; failed allocs
         trigger alloc-failure evals (node_endpoint.go:1065)."""
         evals = self._client_update_evals(allocs)
-        self.raft_apply("alloc_client_update",
-                        dict(allocs=allocs, evals=evals))
+        payload = dict(allocs=allocs, evals=evals)
+        if self.ingest is not None:
+            self.ingest.submit("alloc_client_update", payload)
+        else:
+            self.raft_apply("alloc_client_update", payload)
         self._revoke_terminal_accessors(allocs)
 
     def update_alloc_status_from_client_batch(
             self, groups: List[List[Allocation]]) -> None:
-        """Node.UpdateAllocBatch: N clients' update pushes in one verb,
-        each group applied as its own Node.UpdateAlloc."""
+        """Node.UpdateAllocBatch: N clients' update pushes
+        in one verb. Each group keeps its own gateway entry (its evals
+        are derived from pre-batch state exactly as N concurrent
+        Node.UpdateAlloc calls would be), but all of them park together
+        and land as one coalesced raft entry / store transaction."""
+        if self.ingest is None:
+            for g in groups:
+                self.update_alloc_status_from_client(g)
+            return
+        futures = []
         for g in groups:
-            self.update_alloc_status_from_client(g)
+            evals = self._client_update_evals(g)
+            futures.append(self.ingest.submit_async(
+                "alloc_client_update", dict(allocs=g, evals=evals)))
+        err = None
+        for f in futures:
+            try:
+                f.result()
+            except Exception as e:
+                err = e
+        for g in groups:
+            self._revoke_terminal_accessors(g)
+        if err is not None:
+            raise err
 
     def _client_update_evals(self, allocs: List[Allocation]
                              ) -> List[Evaluation]:
@@ -1266,6 +1816,126 @@ class Server:
                     ltarget="${attr.os.signals}",
                     rtarget=",".join(sorted(signals)),
                     operand="set_contains"))
+
+    # -- dynamic membership (nomad/serf.go + nomad/autopilot.go) -------
+    def _apply_server_membership(self, index: int, p: dict) -> None:
+        members = list(p.get("members") or [])
+        self.store.set_server_members(index, members)
+        if self.raft is not None:
+            self.raft.update_members(members)
+
+    def join_member(self, addr: str) -> List[str]:
+        """Add a server to the voter set (Server.Join; the joiner calls
+        this through any member — writes forward to the leader).
+        Returns the post-join member list. The read-modify-write of
+        the full list is serialized per leader so concurrent joins
+        cannot overwrite each other's membership."""
+        if self.raft is None:
+            raise RuntimeError("not a clustered server")
+        with self._member_l:
+            current = self.store.server_members() or \
+                [self.raft.self_addr] + list(self.raft.peers)
+            if addr not in current:
+                self.raft_apply("server_membership",
+                                dict(members=current + [addr]))
+        return self.store.server_members()
+
+    def leave_member(self, addr: str) -> List[str]:
+        """Remove a server from the voter set (operator leave or
+        autopilot dead-server cleanup)."""
+        if self.raft is None:
+            raise RuntimeError("not a clustered server")
+        with self._member_l:
+            current = self.store.server_members() or \
+                [self.raft.self_addr] + list(self.raft.peers)
+            if addr in current:
+                self.raft_apply(
+                    "server_membership",
+                    dict(members=[m for m in current if m != addr]))
+        return self.store.server_members()
+
+    def join_cluster(self, via_addr: str) -> None:
+        """Joiner side: ask an existing member to add us, then adopt
+        the returned member list (the serf-join analog)."""
+        if self.raft is None:
+            raise RuntimeError("attach_raft first")
+        from ..rpc.client import RpcClient
+        c = RpcClient(via_addr, dial_timeout_s=3.0)
+        try:
+            res = c.call("Server.Join",
+                         {"addr": self.raft.self_addr}, timeout_s=30.0)
+        finally:
+            c.close()
+        members = list(res.get("members") or [])
+        if members:
+            self.raft.update_members(members)
+
+    def handle_peer_failure_report(self, addr: str,
+                                   reporter: str = "") -> bool:
+        """A peer's SWIM verdict arrived (Server.ReportFailed). Leader
+        only: verify the target is unreachable from HERE too (implicit
+        refutation — a live server answers and the report is dropped),
+        then remove it under the same quorum guard autopilot uses.
+        Returns True when the member was removed."""
+        raft = self.raft
+        if raft is None or not raft.is_leader():
+            from ..rpc.codec import RpcRefused
+            raise RpcRefused("not the leader")
+        if addr == raft.self_addr:
+            return False
+        members = self.store.server_members() or \
+            [raft.self_addr] + list(raft.peers)
+        if addr not in members:
+            return False                # already gone
+        if self.swim is not None and self.swim.probe_for_peer(addr):
+            LOG.info("swim report for %s from %s refuted by leader "
+                     "probe", addr, reporter)
+            return False
+        alive = len(members) - 1
+        if alive * 2 <= len(members):
+            LOG.warning("swim: not removing %s — quorum guard", addr)
+            return False
+        LOG.warning("swim: removing failed server %s (reported by %s)",
+                    addr, reporter)
+        self.leave_member(addr)
+        return True
+
+    def _autopilot_loop(self) -> None:
+        """Leader-side dead-server cleanup (nomad/autopilot.go): a
+        voter with no successful replication contact past the cleanup
+        threshold is removed from the member set, as long as a quorum
+        of the REMAINING members is intact."""
+        while self._leader and not self._shutdown_ev.is_set():
+            # re-read per tick: the threshold may change at runtime (0
+            # disables without killing the loop, so re-enabling works
+            # too)
+            threshold = self.config.dead_server_cleanup_s
+            if self._shutdown_ev.wait(max(min(threshold / 4.0, 2.0), 0.5)
+                                      if threshold > 0 else 1.0):
+                return
+            raft = self.raft
+            if raft is None or not raft.is_leader() or threshold <= 0:
+                continue
+            now = time.monotonic()
+            peers = list(raft.peers)
+            dead = [p for p in peers
+                    if now - raft.last_contact.get(p, now) > threshold]
+            if not dead:
+                continue
+            alive = len(peers) - len(dead) + 1
+            for p in dead:
+                # quorum guard: committing the removal itself needs a
+                # majority of the CURRENT cluster — without it the
+                # leave write just times out and blocks join/leave
+                if alive * 2 <= len(peers) + 1:
+                    break
+                try:
+                    LOG.warning("autopilot: removing dead server %s "
+                                "(no contact for %.0fs)", p,
+                                now - raft.last_contact.get(p, now))
+                    self.leave_member(p)
+                except Exception:
+                    LOG.exception("autopilot cleanup of %s failed", p)
 
     # -- namespaces (nomad/namespace_endpoint.go) ----------------------
     def upsert_namespaces(self, namespaces: list) -> int:
@@ -1377,6 +2047,8 @@ class Server:
     def reset_heartbeat_timer(self, node_id: str) -> None:
         if self._shutdown_ev.is_set():
             return
+        if self.raft is not None and not self._leader:
+            return              # TTL timers are leader-only (heartbeat.go)
         self._heartbeats.reset(node_id)
 
     def _invalidate_heartbeat(self, node_id: str) -> None:

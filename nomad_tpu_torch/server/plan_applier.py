@@ -3,7 +3,14 @@
 Reference semantics: nomad/plan_apply.go — planApply:71 single goroutine,
 evaluatePlan:400 (per-node feasibility against the freshest snapshot),
 partial commits set RefreshIndex to force worker state refresh,
-preemption follow-up evals:287-310. Verification batches all touched
+preemption follow-up evals:287-310. Like the reference (optimistic
+pipelining, big comment plan_apply.go:44-70), plan N's quorum
+replication overlaps plan N+1's verification: the majority-ack wait is
+handed to a committer thread that resolves plan futures in commit
+order, and — because the FSM applies only at commit on a clustered
+leader — plan N's results are overlaid onto the snapshot when
+verifying N+1 (the reference applies the result to its private
+snapshot for exactly this reason). Verification batches all touched
 nodes at once (the EvaluatePool:NumCPU/2 goroutines become one
 vectorized pass).
 
@@ -15,21 +22,17 @@ store transaction (a single LayerMap layer push instead of N), and ONE
 event-broker flush, with per-plan results demultiplexed back onto each
 submitter's future. Verification stays order-equivalent to sequential
 apply: all plans verify against one snapshot, and each later plan sees
-the earlier group members' node claims through an overlay — an
-intra-group loser demotes to a partial result exactly as a
-stale-snapshot retry would, with its refresh fence pointed at the
-group's commit index so the retry sees why it lost. `plan_group_max=1`
-reproduces the one-entry-per-plan path bit for bit (the escape hatch).
+the earlier group members' node claims through the same overlay
+mechanism the pipelined commit already uses — an intra-group loser
+demotes to a partial result exactly as a stale-snapshot retry would,
+with its refresh fence pointed at the group's commit index so the
+retry sees why it lost. `plan_group_max=1` reproduces the
+one-entry-per-plan path bit for bit (the escape hatch).
 
-The server applies every entry inline (dev mode, no raft), so the store
-shows a plan as soon as it is applied and the applier resolves each
-plan's future itself. The JAX package's copy also overlaps plan N's
-quorum wait with plan N+1's verification (a committer thread and an
-overlay of submitted-but-unapplied plans), shrinks the group bound
-under its governor's conflict watermark, reads NOMAD_TPU_PLAN_GROUP,
-reports flight-recorder spans, fires chaos fault hooks and sums every
-applier's groups in a process-wide GROUP_STATS; this one has none of
-these.
+The JAX package's copy also shrinks the group bound under its
+governor's conflict watermark, reads NOMAD_TPU_PLAN_GROUP, reports
+flight-recorder spans, fires chaos fault hooks and sums every applier's
+groups in a process-wide GROUP_STATS; this one has none of these.
 """
 
 from __future__ import annotations
@@ -44,6 +47,21 @@ from ..models import (
 )
 from ..models.evaluation import TRIGGER_PREEMPTION
 from .plan_queue import PendingPlan, PlanQueue
+from ..utils.locks import make_lock
+
+# consecutive clean batches before the ingest gateway re-widens a shrunk
+# window (server/ingest.py)
+GROUP_RECOVER_CLEAN = 32
+
+
+def fail_futures(pairs, exc: Exception) -> None:
+    """Fail every unresolved future in a demux pair list — the shared
+    abort tail of the group-commit planes (plan groups, ingest
+    batches): whatever already resolved keeps its result, everything
+    still parked sees the error."""
+    for future, _r in pairs:
+        if not future.done():
+            future.set_exception(exc)
 
 
 def _count_placements(result) -> int:
@@ -64,6 +82,26 @@ class PlanApplier:
         self.server = server      # provides .store and .raft_apply()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._committer: Optional[threading.Thread] = None
+        # (pairs, waiter, group index) handed from the verify/apply
+        # loop to the committer; pairs is [(future, result)] for one
+        # plan OR one whole group. maxsize=1 bounds the pipeline to ONE
+        # in-flight commit, matching the reference's overlap of exactly
+        # plan N's raft apply with plan N+1's verification
+        # (plan_apply.go:56-70); without the bound a partitioned leader
+        # would stack local-only applies and serve each submitter its
+        # 10s failure in series
+        self._commit_q = None
+        # submitted-but-not-yet-applied plan results (applier thread
+        # only): with apply-at-commit the store lags the log, so N+1's
+        # verification must see N's placements or two optimistic plans
+        # could double-book one node's capacity
+        self._pending: List = []        # [(raft index, PlanResult)]
+        # indexes of submitted plans whose commit FAILED — only those
+        # leave the overlay early; sibling in-flight plans may still
+        # commit and must keep occupying capacity until applied
+        self._failed_pending: set = set()
+        self._failed_l = make_lock()
         # per-applier group accounting
         self.stats: Dict[str, int] = {
             "groups": 0, "plans": 0, "conflict_retries": 0,
@@ -71,14 +109,42 @@ class PlanApplier:
         }
 
     def start(self) -> None:
+        import queue as queue_mod
+        self._commit_q = queue_mod.Queue(maxsize=1)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="plan-applier")
         self._thread.start()
+        self._committer = threading.Thread(target=self._commit_loop,
+                                           daemon=True,
+                                           name="plan-committer")
+        self._committer.start()
 
     def stop(self) -> None:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5)
+        # the applier thread is dead (or wedged past the join timeout):
+        # send the committer its shutdown sentinel, which it processes
+        # after any in-flight commit, then fail whatever remains
+        if self._commit_q is not None:
+            for _ in range(25):
+                try:
+                    self._commit_q.put(None, timeout=0.2)
+                    break
+                except Exception:
+                    continue
+        if self._committer:
+            self._committer.join(timeout=5)
+        if self._commit_q is not None:
+            while True:
+                try:
+                    item = self._commit_q.get_nowait()
+                except Exception:
+                    break
+                if item is None:
+                    continue
+                pairs, _w, _gi = item
+                fail_futures(pairs, RuntimeError("plan applier stopped"))
 
     # -- group accounting ----------------------------------------------
     def mean_group_size(self) -> float:
@@ -95,8 +161,8 @@ class PlanApplier:
 
     # -- the applier loop ----------------------------------------------
     def _run(self) -> None:
-        bound = max(1, int(self.server.config.plan_group_max))
         while not self._stop.is_set():
+            bound = max(1, int(self.server.config.plan_group_max))
             if bound > 1:
                 group = self.queue.dequeue_group(bound, timeout_s=0.2)
             else:
@@ -106,35 +172,90 @@ class PlanApplier:
                 continue
             if len(group) == 1:
                 # the escape hatch AND the idle-queue common case: one
-                # plan commits through the singleton path ("plan_results"
-                # raft entries), so plan_group_max=1 reproduces the
-                # one-entry-per-plan pipeline
+                # plan commits through the unchanged singleton path
+                # ("plan_results" raft entries), so plan_group_max=1
+                # reproduces the one-entry-per-plan pipeline
                 pending = group[0]
                 try:
-                    result = self.apply(pending.plan)
+                    result, waiter = self.apply(pending.plan)
                 except Exception as e:
                     pending.future.set_exception(e)
                     continue
                 self._note_group(1, 0, singleton=True)
-                pairs = [(pending.future, result)]
+                item = ([(pending.future, result)], waiter,
+                        result.alloc_index)
             else:
                 try:
-                    pairs, _index = self.apply_group(group)
+                    pairs, waiter, index = self.apply_group(group)
                 except Exception as e:  # pragma: no cover - defensive
                     for pending in group:
                         if not pending.future.done():
                             pending.future.set_exception(e)
                     continue
-            # demultiplex: every submitter gets ITS result off the one
-            # group commit, in submission order
-            for future, result in pairs:
-                if not future.done():
-                    future.set_result(result)
+                if not pairs:
+                    continue
+                item = (pairs, waiter, index)
+            # hand the quorum wait to the committer and move on to
+            # verifying the next group (pipelined commit); blocks while
+            # one commit is already in flight (bounded pipeline)
+            placed = False
+            while not self._stop.is_set():
+                try:
+                    self._commit_q.put(item, timeout=0.2)
+                    placed = True
+                    break
+                except Exception:
+                    continue
+            if not placed:
+                fail_futures(item[0], RuntimeError("plan applier stopped"))
+
+    def _commit_loop(self) -> None:
+        from ..utils import stages
+        while True:
+            try:
+                item = self._commit_q.get(timeout=0.2)
+            except Exception:
+                if self._stop.is_set():
+                    return
+                continue
+            if item is None:            # shutdown sentinel
+                return
+            pairs, waiter, group_index = item
+            try:
+                if waiter is not None:
+                    c0 = _time.perf_counter() if stages.enabled else 0.0
+                    # no deadline while this server leads: a group whose
+                    # wait timed out would still be in the log, free to
+                    # commit after its submitters were told it failed
+                    # and their evals re-ran without it — the same
+                    # instances placed twice (plan_apply.go waits on the
+                    # raft future the same way)
+                    waiter(timeout_s=None)
+                    if stages.enabled:
+                        # the quorum wait, pipelined behind the next
+                        # group's verification
+                        stages.add("plan_commit",
+                                   _time.perf_counter() - c0)
+                # demultiplex: every submitter gets ITS result off the
+                # one group commit, in submission order
+                for future, result in pairs:
+                    if not future.done():
+                        future.set_result(result)
+            except Exception as e:
+                # quorum unreachable / leadership lost: the submitting
+                # workers see the failure and nack their evals; THIS
+                # group's overlay must not keep rejecting capacity
+                # forever (siblings already in flight stay)
+                with self._failed_l:
+                    if group_index:
+                        self._failed_pending.add(group_index)
+                fail_futures(pairs, e)
 
     # -- the core ------------------------------------------------------
-    def apply(self, plan: Plan) -> PlanResult:
-        """Verify and apply ONE plan; returns its result once the store
-        shows it."""
+    def apply(self, plan: Plan):
+        """Verify + locally apply ONE plan. Returns (result, waiter);
+        waiter is None or a callable blocking until quorum commit. The
+        synchronous test/tool entry `apply_sync` folds the wait in."""
         from ..utils import metrics
         _t0 = _time.monotonic()
         try:
@@ -143,54 +264,69 @@ class PlanApplier:
             metrics.measure_since("nomad.plan.evaluate", _t0)
             metrics.incr_counter("nomad.plan.apply")
 
-    def _apply(self, plan: Plan) -> PlanResult:
+    def apply_sync(self, plan: Plan) -> PlanResult:
+        result, waiter = self.apply(plan)
+        if waiter is not None:
+            waiter()
+        return result
+
+    def _apply(self, plan: Plan):
         from ..utils import stages
         self._check_token(plan)
         store = self.server.store
         snapshot = store.snapshot()
+        self._retire_pending(snapshot)
         _v0 = _time.perf_counter() if stages.enabled else 0.0
         result, payload, evals, _conflicted = self._verify(snapshot,
                                                            plan, ())
         if stages.enabled:
             stages.add("plan_verify", _time.perf_counter() - _v0)
         if payload is None:
-            return result
+            return result, None
         from ..utils import metrics as _metrics
         _metrics.incr_counter("nomad.plan.placements",
                               _count_placements(result))
 
         # commit through the raft shim (FSM ApplyPlanResults)
         _c0 = _time.perf_counter() if stages.enabled else 0.0
-        index = self.server.raft_apply("plan_results", payload)
+        index, waiter = self.server.raft_apply_async(
+            "plan_results", payload)
         result.alloc_index = index
         if result.refresh_index:
             # partial commit: the accepted slots land at THIS index,
             # above the verify snapshot — the retry's refresh fence
-            # must cover them (plan_apply.go applyPlan RefreshIndex =
-            # max)
+            # must cover them or a remote worker (whose local store
+            # lags the leader's) replans from a snapshot that predates
+            # the partial commit and re-places slots that already
+            # exist (plan_apply.go applyPlan RefreshIndex = max)
             result.refresh_index = max(result.refresh_index, index)
+        if waiter is not None:
+            # apply-at-commit: the store won't show this plan until the
+            # committer's waiter resolves — overlay it for the next
+            # verification round
+            self._pending.append((index, result))
         for ev in evals:
             self.server.enqueue_eval(ev)
         if stages.enabled:
             stages.add("plan_commit", _time.perf_counter() - _c0)
-        return result
+        return result, waiter
 
     def apply_group(self, group: List[PendingPlan]):
         """Group commit: verify every plan in `group` against ONE
         snapshot — later plans see earlier members' claims through the
-        overlay, so an intra-group loser demotes to a partial result
-        exactly as a stale-snapshot retry would — then commit all
-        survivors as ONE raft entry / store transaction / event flush.
-        Returns (pairs, group_index) where pairs is [(future, result)]
-        in submission order and group_index is 0 when nothing
-        committed; the caller resolves the futures. A plan failing the
-        token fence fails only its own future and drops out of the
-        group."""
+        pending-plan overlay, so an intra-group loser demotes to a
+        partial result exactly as a stale-snapshot retry would — then
+        commit all survivors as ONE raft entry / store transaction /
+        event flush. Returns (pairs, waiter, group_index) where pairs
+        is [(future, result)] in submission order; futures are resolved
+        by the committer, not here. A plan failing the token fence
+        fails only its own future and drops out of the group."""
         from ..utils import metrics, stages
         _t0 = _time.monotonic()
         _v0 = _time.perf_counter() if stages.enabled else 0.0
         store = self.server.store
         snapshot = store.snapshot()
+        self._retire_pending(snapshot)
 
         entries: List[Tuple] = []       # (pending, result, payload, evals)
         accepted: List[PlanResult] = []
@@ -222,14 +358,16 @@ class PlanApplier:
                  for (pending, result, _p, _e) in entries]
         payloads = [p for (_pe, _r, p, _e) in entries if p is not None]
         if not payloads:
-            return pairs, 0
+            return pairs, None, 0
 
         _c0 = _time.perf_counter() if stages.enabled else 0.0
-        index = self.server.raft_apply(
+        index, waiter = self.server.raft_apply_async(
             "plan_group_results", dict(groups=payloads))
         for _pending, result, payload, _evs in entries:
             if payload is not None:
                 result.alloc_index = index
+                if waiter is not None:
+                    self._pending.append((index, result))
             if result.refresh_index:
                 # a demoted plan's missing capacity becomes visible at
                 # the GROUP's commit index, not the snapshot's — point
@@ -241,7 +379,7 @@ class PlanApplier:
                 self.server.enqueue_eval(ev)
         if stages.enabled:
             stages.add("plan_commit", _time.perf_counter() - _c0)
-        return pairs, index
+        return pairs, waiter, index
 
     # -- verification --------------------------------------------------
     def _check_token(self, plan: Plan) -> None:
@@ -261,9 +399,21 @@ class PlanApplier:
                     f"plan for eval {plan.eval_id} submitted with stale "
                     "token; evaluation was re-delivered")
 
+    def _retire_pending(self, snapshot) -> None:
+        """Retire overlay entries the FSM has applied (visible in the
+        snapshot now) or whose commit failed. The snapshot is an
+        immutable MVCC root, so an entry kept here can never ALSO be
+        visible in it — no double counting."""
+        with self._failed_l:
+            failed, self._failed_pending = self._failed_pending, set()
+        latest = snapshot.latest_index()
+        self._pending = [(i, r) for (i, r) in self._pending
+                         if i > latest and i not in failed]
+
     def _verify(self, snapshot, plan: Plan, extra):
-        """Verify one plan against `snapshot` + `extra` (accepted
-        results of earlier plans in the same group, not yet applied). Returns (result, payload,
+        """Verify one plan against `snapshot` + the submitted-but-
+        unapplied overlay (self._pending) + `extra` (accepted results
+        of earlier plans in the same group). Returns (result, payload,
         follow_up_evals, conflicted): payload is None for a no-op
         result; conflicted means a rejection touched a node an `extra`
         result claimed — an intra-group demotion the submitting worker
@@ -356,6 +506,13 @@ class PlanApplier:
                        evals=evals)
         return result, payload, evals, conflicted
 
+    def _overlay_results(self, extra) -> List[PlanResult]:
+        """Submitted-but-unapplied results PLUS earlier same-group
+        results — everything whose claims the snapshot cannot show."""
+        out = [r for _i, r in self._pending]
+        out.extend(extra)
+        return out
+
     def _enforce_csi_write_caps(self, snapshot, plan: Plan,
                                 node_allocation: Dict[str, List],
                                 extra=()) -> bool:
@@ -366,8 +523,9 @@ class PlanApplier:
         from ..models.csi import (ACCESS_MULTI_NODE_SINGLE_WRITER,
                                   ACCESS_SINGLE_NODE_WRITER)
         budgets: Dict = {}          # (ns, vol_id) -> free write slots
-        # earlier plans of this group already hold their write slots
-        for pres in extra:
+        # submitted-but-unapplied plans (and earlier plans of this
+        # group) already hold their write slots
+        for pres in self._overlay_results(extra):
             for allocs in pres.node_allocation.values():
                 for pa in allocs:
                     pjob = pa.job or snapshot.job_by_id(pa.namespace,
@@ -453,8 +611,8 @@ class PlanApplier:
         an EvaluatePool of goroutines (plan_apply.go:400); here the
         resident node table turns the common case — placements with no
         removals, ports, or devices on a ready node — into one
-        vectorized usage-delta + capacity compare instead of per-node
-        alloc summing.
+        vectorized usage-delta + capacity compare. A 10k-node plan
+        verifies in ~50 ms instead of ~10 s of per-node alloc summing.
         Nodes outside the fast shape use the scalar path unchanged.
         `extra` carries earlier same-group results (group commit)."""
         import numpy as np
@@ -478,16 +636,17 @@ class PlanApplier:
                                                    node_id, extra)
             return out
 
-        # overlay usage per node from earlier group members, kept per
-        # alloc id LAST-WRITE-WINS: an in-place update in the overlay
-        # supersedes both the snapshot's copy (subtracted below) and any
-        # earlier overlay copy of the same alloc, and a placement in
-        # THIS plan that re-uses an overlay alloc's id supersedes it too
-        # (the scalar path's placed_ids exclusion) — otherwise the node
-        # double-counts one alloc's resources across its versions
+        # overlay usage per node from submitted-but-unapplied plans
+        # AND earlier group members, kept per alloc id LAST-WRITE-WINS:
+        # an in-place update in the overlay supersedes both the
+        # snapshot's copy (subtracted below) and any earlier overlay
+        # copy of the same alloc, and a placement in THIS plan that
+        # re-uses an overlay alloc's id supersedes it too (the scalar
+        # path's placed_ids exclusion) — otherwise the node double-
+        # counts one alloc's resources across its versions
         overlay_usage: Dict[str, Dict[str, tuple]] = {}
         overlay_flags: Dict[str, bool] = {}
-        for pres in extra:
+        for pres in self._overlay_results(extra):
             for node_id, adds in pres.node_allocation.items():
                 rows = overlay_usage.setdefault(node_id, {})
                 for a in adds:
@@ -594,13 +753,14 @@ class PlanApplier:
         # node double-counts its resources (plan_apply.go:674-678).
         placements = plan.node_allocation.get(node_id, [])
         remove_ids |= {a.id for a in placements}
-        # overlay earlier same-group results (group commit): their
-        # placements occupy capacity, their stops/preemptions free it.
-        # Last write wins per alloc id IN COMMIT ORDER — an overlay
-        # in-place update supersedes the snapshot's copy and any
-        # earlier overlay copy, exactly what the FSM will do at apply
+        # overlay submitted-but-unapplied plans (pipelined commit) and
+        # earlier same-group results (group commit): their placements
+        # occupy capacity, their stops/preemptions free it. Last write
+        # wins per alloc id IN COMMIT ORDER — an overlay in-place
+        # update supersedes the snapshot's copy and any earlier overlay
+        # copy, exactly what the FSM will do at apply
         overlay_by_id: Dict[str, Optional[Allocation]] = {}
-        for pres in extra:
+        for pres in self._overlay_results(extra):
             for a in pres.node_update.get(node_id, []):
                 overlay_by_id[a.id] = None
             for a in pres.node_preemptions.get(node_id, []):

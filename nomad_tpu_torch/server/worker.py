@@ -594,7 +594,11 @@ class EvalLane:
         plan.eval_token = self.token
         plan.snapshot_index = self.snapshot_index
         future = self.server.plan_queue.enqueue(plan)
-        result: PlanResult = future.result(timeout=30)
+        # no timeout (worker.go SubmitPlan waits on the plan's future): a
+        # plan still in flight when its submitter gave up could commit
+        # after its eval re-ran without it; the applier resolves every
+        # future it takes, with a result or the error that refused it
+        result: PlanResult = future.result()
         metrics.measure_since("nomad.worker.submit_plan", t0)
         # if some placements were rejected, wait for the refresh index so
         # the next attempt sees why (worker.go:318-340)
@@ -743,11 +747,12 @@ class Worker:
             if ev is None:
                 continue
             batch = [(ev, token)]
-            if self.batch_size > 1 and ev.type != JOB_TYPE_CORE:
+            batch_size = self._effective_batch_size()
+            if batch_size > 1 and ev.type != JOB_TYPE_CORE:
                 # drain already-READY compatible evals without waiting
                 # (eval_broker.go:329 Dequeue; the queue depth IS the
                 # batching opportunity)
-                while len(batch) < self.batch_size:
+                while len(batch) < batch_size:
                     ev2, tok2 = self.broker.dequeue(
                         self.schedulers, timeout_s=0)
                     if ev2 is None:
@@ -764,6 +769,11 @@ class Worker:
             if use_safepoints:
                 gcsafe.safepoint()
 
+    def _effective_batch_size(self) -> int:
+        """The lane width of the next drain: the configured width (the
+        seam a backpressure policy narrows; FollowerWorker drains one)."""
+        return self.batch_size
+
     def _micro_gateway(self):
         """The server-wide micro-batch gateway, or None when the server
         has none (gateway_window_us=0). A gateway on another device than
@@ -774,7 +784,13 @@ class Worker:
         return gw
 
     def _make_lane(self, ev: Evaluation, token: str) -> "EvalLane":
+        """Planner-lane factory seam: FollowerWorker returns a
+        RemoteEvalLane whose plans travel over Plan.Submit."""
         return EvalLane(self.server, ev, token, device=self.device)
+
+    def _note_fence(self, seconds: float) -> None:
+        """Fence-wait observation hook (FollowerWorker feeds its
+        fence_wait_p99_ms reservoir through this)."""
 
     # -- single eval ---------------------------------------------------
     def process_eval(self, ev: Evaluation, token: str,
@@ -802,13 +818,17 @@ class Worker:
                 stages.add("queue_wait",
                            getattr(ev, "queue_wait_s", 0.0) or 0.0)
             # the snapshot fence: wait for the state store to catch up
-            # to the eval's modify index
+            # to the eval's modify index, or to the later index a remote
+            # dequeue names (follower_sched.wait_index)
             t0 = time.monotonic()
             snap = self.server.store.snapshot_min_index(
-                ev.modify_index, timeout_s=self.fence_timeout_s)
+                max(ev.modify_index, getattr(ev, "wait_index", 0)),
+                timeout_s=self.fence_timeout_s)
+            fence_dt = time.monotonic() - t0
             metrics.measure_since("nomad.worker.wait_for_index", t0)
             if stages.enabled and ev.type != JOB_TYPE_CORE:
-                stages.add("fence_wait", time.monotonic() - t0)
+                stages.add("fence_wait", fence_dt)
+            self._note_fence(fence_dt)
             lane.snapshot_index = snap.latest_index()
             if ev.type != JOB_TYPE_CORE:
                 # refresh the resident table NOW: the committed plans'

@@ -1350,3 +1350,75 @@ def test_server_restart_restores_onto_card(cuda, tmp_path):
         finally:
             s.shutdown()
     assert after[None] == after["cpu"]
+
+
+def test_ring_places_a_job_through_a_follower_on_card(cuda):
+    """Three Servers with device=None (the card) joined by raft over
+    loopback RPC: with the leader's own worker paused, a follower
+    dequeues the eval over RPC, selects on the card against its own
+    replicated store and resident table (its mirror on the card) and
+    submits the plan to the leader's applier; every replica then holds
+    the placements, and no node is over its CPU."""
+    import time
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.rpc import RpcServer
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    def wait(pred, timeout=60.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if pred():
+                return True
+            time.sleep(0.02)
+        return False
+
+    servers, rpcs = [], []
+    for _ in range(3):
+        s = Server(ServerConfig(num_schedulers=1, heartbeat_ttl_s=3600.0,
+                                dead_server_cleanup_s=0.0,
+                                follower_max_remote=1))
+        assert s.device.type == "cuda"
+        servers.append(s)
+        rpcs.append(RpcServer(s, port=0))
+    addrs = [r.addr for r in rpcs]
+    try:
+        for s, r in zip(servers, rpcs):
+            s.attach_raft(r, addrs)
+            r.start()
+            s.start()
+        assert wait(lambda: sum(s.raft.is_leader() for s in servers) == 1)
+        lead = next(s for s in servers if s.raft.is_leader())
+        for w in lead.workers:
+            w.set_pause(True)
+        time.sleep(0.6)
+        with mock.seeded_mock_ids(21):
+            nodes = [mock.node() for _ in range(64)]
+            job = mock.job()
+        for i, node in enumerate(nodes):
+            node.name = f"node-{i}"
+            lead.register_node(node)
+        job.task_groups[0].count = 10
+        kernels.reset_launches()
+        lead.register_job(job)
+        assert wait(lambda: all(
+            len(s.store.allocs_by_job("default", job.id)) == 10
+            for s in servers))
+        plans = {s.raft.self_addr: s.follower_sched.snapshot_stats()[
+            "remote_plans"] for s in servers if s is not lead}
+        assert sum(plans.values()) >= 1, plans
+        assert kernels.LAUNCHES["chunked"] >= 1
+        for s in servers:
+            if s is lead:
+                continue
+            for w in s.follower_sched.workers:
+                assert w._kernel.device.type == "cuda"
+        for node in lead.store.nodes():
+            total = node.comparable_resources()
+            cpu = sum(a.allocated_resources.comparable().cpu_shares
+                      for a in lead.store.allocs_by_node(node.id)
+                      if not a.terminal_status())
+            assert cpu <= total.cpu_shares, node.name
+    finally:
+        for s, r in zip(servers, rpcs):
+            r.shutdown()
+            s.shutdown()

@@ -18,6 +18,7 @@ import importlib
 import json
 import os
 import random
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +31,22 @@ import test_torch_select  # noqa: F401  (torch's thread cap)
 SUITES = {"generic": ("test_generic_golden", "test_torch_generic_golden"),
           "system": ("test_system_golden", "test_torch_system_golden")}
 SEED = 20260417
+
+
+class _Clock:
+    """A scenario's `time` module with time() pinned: a scenario that
+    stamps a node's status with int(time.time()) would otherwise give
+    the two packages' runs different inputs whenever they straddle a
+    second."""
+
+    def __init__(self, now: float):
+        self._now = now
+
+    def time(self) -> float:
+        return self._now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
 
 
 def _scenarios():
@@ -62,6 +79,8 @@ def _run(monkeypatch, module_name, test_name, seed):
     with monkeypatch.context() as m:
         m.setattr(mod, "Harness", _recording(mod.Harness, made))
         m.setattr(os, "urandom", rng.randbytes)
+        if hasattr(mod, "time"):
+            m.setattr(mod, "time", _Clock(float(seed)))
         getattr(mod, test_name)()
     return made
 

@@ -32,9 +32,11 @@ import test_torch_select  # noqa: F401  (torch's thread cap)
 SEEDS = (1, 2, 3)
 NODES = 40
 RACKS = 4
+# ingest_window_us < 0: neither package builds its ingest gateway, so a
+# register writes the same two entries (job, then eval) in both
 CONFIG = dict(num_schedulers=1, eval_batch_size=1, gateway_window_us=0,
               heartbeat_ttl_s=3600.0, snapshot_background=False,
-              snapshot_every=100_000)
+              snapshot_every=100_000, ingest_window_us=-1.0)
 
 
 def _packages(port: bool):
@@ -101,11 +103,12 @@ def _settle(s, jobs, timeout=60.0):
     raise AssertionError(f"jobs not placed in {timeout} s")
 
 
-def _server(port: bool, data_dir: str, columnar: bool):
+def _server(port: bool, data_dir: str, columnar: bool, **config):
     _mock, _models, Server, ServerConfig = _packages(port)
     kw = dict(device="cpu") if port else {}
     return Server(ServerConfig(data_dir=data_dir,
-                               snapshot_columnar=columnar, **CONFIG), **kw)
+                               snapshot_columnar=columnar,
+                               **{**CONFIG, **config}), **kw)
 
 
 def _first_life(port, seed, data_dir, columnar, monkeypatch):
@@ -168,9 +171,6 @@ def _placements(s, jobs):
 def test_restarts_restore_and_place_across_packages(tmp_path, monkeypatch,
                                                     seed, columnar):
     monkeypatch.setenv("JAX_PLATFORMS", "cpu")
-    # the port has no ingest gateway: the JAX package's register then
-    # writes the same two entries (job, then eval) as the port's
-    monkeypatch.setenv("NOMAD_TPU_INGEST_BATCH", "0")
     dirs = {}
     for port in (False, True):
         d = str(tmp_path / ("port" if port else "jax"))
@@ -220,7 +220,7 @@ def test_port_replays_the_jax_packages_ingest_entries(tmp_path,
     d = str(tmp_path / "jax")
     with monkeypatch.context() as m:
         m.setattr(os, "urandom", random.Random(1).randbytes)
-        s = _server(False, d, True)
+        s = _server(False, d, True, ingest_window_us=200.0)
         try:
             assert s.ingest is not None
             for job in first[:3]:

@@ -72,7 +72,7 @@ def test_inplace_update_same_id_not_double_counted():
     plan.node_allocation = {node.id: [updated]}
     plan.snapshot_index = srv.store.latest_index()
 
-    result = srv.plan_applier.apply(plan)
+    result = srv.plan_applier.apply_sync(plan)
     full, expected, actual = result.full_commit(plan)
     assert full, (
         f"in-place update rejected: committed {actual}/{expected}; "
@@ -98,7 +98,7 @@ def test_true_port_collision_still_rejected():
     plan.node_allocation = {node.id: [clash]}
     plan.snapshot_index = srv.store.latest_index()
 
-    result = srv.plan_applier.apply(plan)
+    result = srv.plan_applier.apply_sync(plan)
     full, _, _ = result.full_commit(plan)
     assert not full
     assert result.refresh_index > 0
@@ -215,7 +215,7 @@ def _apply_sequential(job, nodes, plans):
         idx += 1
     srv._raft_index = idx
     srv.store.upsert_job(idx, job)
-    results = [srv.plan_applier.apply(p) for p in plans]
+    results = [srv.plan_applier.apply_sync(p) for p in plans]
     return srv, results
 
 
@@ -233,7 +233,8 @@ def _apply_grouped(job, nodes, plans, rng):
         size = int(rng.randint(1, 7))
         chunk = [PendingPlan(p) for p in plans[i:i + size]]
         i += size
-        pairs, _gidx = srv.plan_applier.apply_group(chunk)
+        pairs, waiter, _gidx = srv.plan_applier.apply_group(chunk)
+        assert waiter is None           # dev mode applies inline
         assert len(pairs) == len(chunk)
         results.extend(r for _f, r in pairs)
     return srv, results
@@ -284,8 +285,8 @@ def test_intra_group_conflict_demotes_like_sequential():
     srv_a.store.upsert_node(100, node_a)
     srv_a.store.upsert_job(101, job_a)
     srv_a._raft_index = 101
-    r1a = srv_a.plan_applier.apply(p1a)
-    r2a = srv_a.plan_applier.apply(p2a)
+    r1a = srv_a.plan_applier.apply_sync(p1a)
+    r2a = srv_a.plan_applier.apply_sync(p2a)
     assert r1a.node_allocation and not r1a.refresh_index
     assert not r2a.node_allocation and r2a.refresh_index
 
@@ -295,8 +296,9 @@ def test_intra_group_conflict_demotes_like_sequential():
     srv_b.store.upsert_node(100, node_b)
     srv_b.store.upsert_job(101, job_b)
     srv_b._raft_index = 101
-    pairs, gidx = srv_b.plan_applier.apply_group(
+    pairs, waiter, gidx = srv_b.plan_applier.apply_group(
         [PendingPlan(p1b), PendingPlan(p2b)])
+    assert waiter is None
     (_f1, r1b), (_f2, r2b) = pairs
     assert _norm_result(r1a) == _norm_result(r1b)
     assert _norm_result(r2a) == _norm_result(r2b)
@@ -320,13 +322,13 @@ def _queue_driven(srv, plans, timeout=10.0):
 
 
 def _spy_raft(srv, types):
-    orig = srv.raft_apply
+    orig = srv.raft_apply_async
 
     def spy(msg_type, payload):
         types.append(msg_type)
         return orig(msg_type, payload)
 
-    srv.raft_apply = spy
+    srv.raft_apply_async = spy
 
 
 def _simple_plans(job, nodes, k):

@@ -210,3 +210,55 @@ class TestPlanQueue:
         q = PlanQueue()
         with pytest.raises(RuntimeError):
             q.enqueue(Plan())
+
+
+# -- the port's own: requeueing evals that ran out of plan attempts -----
+def test_unblock_failed_requeues_only_max_plan_evals():
+    """blocked_evals.go UnblockFailed: the evals blocked because their
+    scheduler ran out of plan attempts requeue; one blocked on capacity
+    stays until its class frees."""
+    from nomad_tpu_torch.models import TRIGGER_MAX_PLANS
+    woken = []
+    be = BlockedEvals(lambda ev: woken.append(ev))
+    be.set_enabled(True)
+    conflicts = _eval(job_id="a", status=EVAL_STATUS_BLOCKED,
+                      triggered_by=TRIGGER_MAX_PLANS)
+    escaped = _eval(job_id="b", status=EVAL_STATUS_BLOCKED,
+                    triggered_by=TRIGGER_MAX_PLANS)
+    escaped.escaped_computed_class = True
+    capacity = _eval(job_id="c", status=EVAL_STATUS_BLOCKED)
+    capacity.class_eligibility = {"v1:abc": True}
+    for ev in (conflicts, escaped, capacity):
+        be.block(ev)
+    assert be.unblock_failed() == 2
+    assert sorted(e.id for e in woken) == sorted([conflicts.id, escaped.id])
+    assert be.blocked_count() == 1
+    assert be.stats.total_escaped == 0
+    be.set_enabled(False)
+    assert be.unblock_failed() == 0
+
+
+def test_leader_timer_requeues_max_plan_evals():
+    """The leader's failed-eval unblocker runs on
+    `failed_eval_unblock_delay_s` and requeues a max-plan blocked eval
+    as pending through the log."""
+    from nomad_tpu_torch.models import TRIGGER_MAX_PLANS
+    from nomad_tpu_torch.server import Server, ServerConfig
+    srv = Server(ServerConfig(num_schedulers=0, heartbeat_ttl_s=300.0,
+                              failed_eval_unblock_delay_s=0.1),
+                 device="cpu")
+    try:
+        srv.start()
+        ev = _eval(job_id="mp", status=EVAL_STATUS_BLOCKED,
+                   triggered_by=TRIGGER_MAX_PLANS)
+        srv.raft_apply("eval_update", dict(evals=[ev]))
+        assert srv.blocked_evals.blocked_count() == 1
+        deadline = time.time() + 5
+        while time.time() < deadline and \
+                srv.blocked_evals.blocked_count():
+            time.sleep(0.02)
+        assert srv.blocked_evals.blocked_count() == 0
+        assert srv.store.eval_by_id(ev.id).status == "pending"
+        assert srv.eval_broker.stats.total_ready == 1
+    finally:
+        srv.shutdown()
