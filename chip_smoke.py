@@ -10,7 +10,10 @@ Phases (each raises on failure, so the process exits non-zero):
      1e-6 absolute, for every launch of SelectKernel's chunked and K-way
      loops, each continuing from the carry the previous launch left on the
      card; CUDA-event times of the first launch (and per step or K-way
-     phase) and of the plain version (median of 7 after a warm-up), and
+     phase; median of 7 after a warm-up) and of the plain version (median
+     of 5 after a warm-up, or the one call after it where the warm-up took
+     more than PLAIN_ONCE_MS; the same rule, with 3, in the later
+     phases), and
      the bound of each from the real node count and the work this run's
      outputs need (greedy_ops: one sweep a launch, the rows placed on
      rescored, the instances placed); the chunked kernel bit for bit (max
@@ -247,6 +250,34 @@ Phases (each raises on failure, so the process exits non-zero):
      went on in another, the stage split, the re-election's seconds after
      the kill and the launches. The kernels line's `ring_launches` holds
      them.
+ 14. the agent: (a) `cli.main.start_agent` in this process with `-dev
+     -clients 0 -acl-enabled -num-schedulers 1` (ephemeral HTTP and RPC
+     ports, the card); the 10,000 nodes registered over its RPC port
+     (Node.Register, 32 threads); through the port's CLI `main()`: `acl
+     bootstrap`, `acl policy-apply` of a write policy on `default` (and
+     of a read-only one), `acl token-create` of a token under each, `event
+     sink-register` of a loopback webhook receiver in this script, then
+     with the write token `job run` of three HCL files this script
+     writes: a service job of count 10 (chunked), a batch job of count
+     2,500 (K-way) and the main path's `${meta.rack}` spread job with its
+     affinity, count 200 (scan), one after another. Fails unless the
+     read-only token's register answers 403, each job is placed to its
+     count with no node over capacity (recomputed from /v1/allocations
+     and /v1/nodes), each eval ends complete, the placements by node name
+     equal an in-process Server(device="cpu") fed the same nodes and the
+     same parsed jobs in the same order, the receiver got each job's
+     registration and every alloc's PlanResult, and the chunked, K-way,
+     scan and scatter_set kernels launched (counts set to 0 just before
+     the jobs). (b) `python -m nomad_tpu_torch agent -dev -clients 0` as
+     a subprocess with no `-device`, 1,000 nodes over its RPC port,
+     `python -m nomad_tpu_torch job run` of the service file: fails
+     unless the start lines name the card, /v1/status/leader answers,
+     the job is placed to its count, /v1/metrics shows
+     nomad.select.dispatches > 0 and the agent exits 0 on SIGTERM.
+     Printed: the nodes' registration seconds, each `job run`'s wall (CLI
+     call to eval complete), a `job status`'s, the sink's delivered
+     events, the subprocess's start and `job run` seconds and the
+     launches. The kernels line's `agent_launches` holds (a)'s.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -380,6 +411,9 @@ TOKENS = ("token_survivals", "token_invalidations", "residue_rows")
 # the share of a table's rows past which a journal replay re-uploads the
 # mesh table instead of scattering (ops/device_table.py SPARSE_MAX_FRAC)
 SPARSE_MAX_FRAC = 0.5
+# a plain version whose first call takes longer is timed once more, not
+# `reps` times (time_plain)
+PLAIN_ONCE_MS = 200.0
 
 
 def fail(msg):
@@ -436,9 +470,10 @@ def request_arrays(seed, n, count, kind):
     return d
 
 
-def cuda_ms(fn, reps=7):
+def cuda_ms(fn, reps=7, warm=True):
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -450,6 +485,21 @@ def cuda_ms(fn, reps=7):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_plain(fn, reps):
+    """A plain version's time: the median of `reps` after a warm-up,
+    or, where the warm-up call took more than PLAIN_ONCE_MS, the one
+    call after it (a plain version's time is recorded, never held
+    against a bound; its repetitions on the host were most of the
+    script's wall)."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    return cuda_ms(fn, reps=1 if first > PLAIN_ONCE_MS else reps,
+                   warm=False)
 
 
 def compare(name, got, want, tol=TOL):
@@ -587,7 +637,7 @@ def kernel_phase(device):
         # the timed call is the first launch, from the request's own inputs
         steps = trail[0][0]
         ms = cuda_ms(lambda: run(**targs, **kw))
-        plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=5)
+        plain_ms = time_plain(lambda: plain(**targs, **kw), reps=5)
         got = run(**targs, **kw)
         row = dict(kind=kind, n=n, count=count, main=main, steps=steps,
                    launches_held=len(trail), max_abs_err=err, ms=ms,
@@ -756,7 +806,7 @@ def chunked_edge_checks():
                 continue
             run, plain = kernels.select_chunked, kernels.chunked_plain
             ms = cuda_ms(lambda: run(**targs, **kw))
-            plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=3)
+            plain_ms = time_plain(lambda: plain(**targs, **kw), reps=3)
             got = run(**targs, **kw)
             steps = trail[0][0]
             n_pad = targs["capacity"].shape[0]
@@ -1852,7 +1902,7 @@ def batched_kernel_phase(device):
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: run(**targs, **kw))
         solo_ms = cuda_ms(lambda: [solo(**ln, **kw) for ln in lanes])
-        plain_ms = cuda_ms(lambda: plain(**targs, **kw), reps=3)
+        plain_ms = time_plain(lambda: plain(**targs, **kw), reps=3)
         b_ms, by = bound_of(nbytes, f32, f64)
         row = dict(kind=kind, n=n, lanes=len(counts),
                    counts=[min(counts), max(counts)], main=main,
@@ -2177,8 +2227,8 @@ def sharded_kernel_phase(device):
                 err, trail = held_launches(kind, label, run, plain, targs,
                                            skw, count, single=solo)
                 row.update(launches_held=len(trail),
-                           plain_ms=cuda_ms(lambda: plain(**targs, **skw),
-                                            reps=3))
+                           plain_ms=time_plain(
+                               lambda: plain(**targs, **skw), reps=3))
             if ref is None:
                 ref, ref_pad = got, n_pad
             else:
@@ -2534,8 +2584,8 @@ def batched_sharded_kernel_phase(device):
                            solo_graph_ms=graph_ms(
                                lambda: single(**targs, **kw), launches=10))
             if main:
-                row["plain_ms"] = cuda_ms(lambda: plain(**targs, **skw),
-                                          reps=3)
+                row["plain_ms"] = time_plain(
+                    lambda: plain(**targs, **skw), reps=3)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = max(f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S) * 1e3
             row.update(steps=longest,
@@ -3841,6 +3891,447 @@ def ring_phase(nodes, mock, models, single_manifest, info):
         gcsafe.unfreeze_steady_state()
 
 
+
+# phase 14: the agent's front door (the HTTP API, the CLI, ACLs, the
+# event-sink manager) in this process through start_agent, then
+# `python -m nomad_tpu_torch agent` as a user starts it
+AGENT_SEEDERS = 32
+# the nodes part (b) registers with the subprocess agent
+AGENT_SUB_NODES = 1_000
+# no node heartbeats here: the TTL outlasts the phase
+AGENT_HEARTBEAT_TTL_S = 3600
+AGENT_WAIT_S = 120
+# (job id, type, count, the kernel its eval runs); the spread job is the
+# main path's `${meta.rack}` spread with its affinity
+AGENT_JOBS = (("agent-service", "service", 10, "chunked"),
+              ("agent-batch", "batch", 2_500, "kway"),
+              ("agent-spread", "service", 200, "scan"))
+AGENT_KERNELS = ("chunked", "kway", "scan", "scatter_set")
+# each instance's ask, as the job files say
+AGENT_CPU, AGENT_MEM = 500, 256
+WRITE_POLICY = 'namespace "default" { policy = "write" }\n'
+READ_POLICY = 'namespace "default" { policy = "read" }\n'
+
+
+def agent_hcl(job_id, kind, count, cpu=AGENT_CPU, memory=AGENT_MEM):
+    """The job file `nomad job run` reads: `count` instances of `cpu`
+    MHz and `memory` MB."""
+    spread = ""
+    if job_id.endswith("spread"):
+        spread = '''
+  spread {
+    attribute = "${meta.rack}"
+    weight    = 60
+    target "r1" { percent = 30 }
+    target "r2" { percent = 20 }
+  }
+  affinity {
+    attribute = "${meta.rack}"
+    value     = "r3"
+    weight    = 40
+  }'''
+    return f'''job "{job_id}" {{
+  datacenters = ["dc1"]
+  type        = "{kind}"{spread}
+  group "g" {{
+    count = {count}
+    task "t" {{
+      driver = "exec"
+      config {{ command = "/bin/date" }}
+      resources {{
+        cpu    = {cpu}
+        memory = {memory}
+      }}
+    }}
+  }}
+}}
+'''
+
+
+class _Receiver:
+    """A loopback webhook: collects the NDJSON events the sink POSTs."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+        self.events = []
+        self._l = threading.Lock()
+        rx = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length", 0)))
+                with rx._l:
+                    rx.events.extend(json.loads(line) for line in
+                                     body.decode().splitlines()
+                                     if line.strip())
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}/hook"
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def snapshot(self):
+        with self._l:
+            return list(self.events)
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join()
+
+
+def _cli(addr, token, *argv):
+    """One `nomad` command through the port's CLI main(), in this
+    process: (exit code, standard output, seconds)."""
+    import contextlib
+    import io
+    from nomad_tpu_torch.cli.main import main as cli_main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["-address", addr, "-token", token, *argv])
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def _secret(out):
+    for line in out.splitlines():
+        if line.startswith("Secret ID"):
+            return line.split("=", 1)[1].strip()
+    fail(f"agent phase: no secret in {out!r}")
+
+
+def _register_over_rpc(addr, nodes, threads):
+    """Node.Register for every node over the agent's RPC port, from
+    `threads` threads with a connection each; returns the seconds."""
+    import copy
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from nomad_tpu_torch.rpc.client import RpcClient
+    from nomad_tpu_torch.utils.codec import to_wire
+    local = threading.local()
+    clients = []
+
+    def register(node):
+        c = getattr(local, "c", None)
+        if c is None:
+            c = local.c = RpcClient(addr)
+            clients.append(c)
+        c.call("Node.Register", {"node": to_wire(copy.deepcopy(node))})
+
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(register, nodes))
+    finally:
+        for c in clients:
+            c.close()
+    return time.perf_counter() - t0
+
+
+def agent_placements(api, names, jobs, nodes, what):
+    """Every job placed to its count, every eval complete and no node
+    over capacity, recomputed from /v1/allocations and /v1/nodes;
+    returns ({job id: sorted (alloc name, node name)}, alloc ids)."""
+    served = {n["id"]: n for n in api.list_nodes()}
+    if len(served) != len(nodes) or any(
+            n["status"] != "ready" for n in served.values()):
+        fail(f"{what}: /v1/nodes lists {len(served)} nodes, "
+             f"{sum(n['status'] == 'ready' for n in served.values())} "
+             f"ready, of {len(nodes)}")
+    allocs = api.list_allocations()
+    by_node, places, ids = {}, {}, set()
+    for a in allocs:
+        if a["desired_status"] != "run":
+            continue
+        by_node[a["node_id"]] = by_node.get(a["node_id"], 0) + 1
+        places.setdefault(a["job_id"], []).append(
+            (a["name"], names[a["node_id"]]))
+        ids.add(a["id"])
+    for job_id, _kind, count, _arm in jobs:
+        got = len(places.get(job_id, []))
+        evals = api._request("GET", f"/v1/job/{job_id}/evaluations")
+        if got != count or not evals or any(
+                e["status"] != "complete" for e in evals):
+            fail(f"{what}: {job_id} has {got}/{count} allocs, evals "
+                 f"{[e['status'] for e in evals]}")
+    for node in nodes:
+        total = node.comparable_resources()
+        reserved = node.comparable_reserved_resources()
+        k = by_node.get(node.id, 0)
+        if reserved.cpu_shares + k * AGENT_CPU > total.cpu_shares or \
+                reserved.memory_mb + k * AGENT_MEM > total.memory_mb:
+            fail(f"{what}: node {node.name} over capacity with {k} allocs")
+    return {j: sorted(p) for j, p in places.items()}, ids
+
+
+def agent_reference(nodes, parsed, names):
+    """The same nodes and parsed jobs, in the same order, through an
+    in-process Server(device="cpu"): {job id: sorted placements}."""
+    import copy
+    from nomad_tpu_torch.server import Server, ServerConfig
+    s = Server(ServerConfig(num_schedulers=1,
+                            heartbeat_ttl_s=AGENT_HEARTBEAT_TTL_S),
+               device="cpu")
+    s.start()
+    try:
+        for node in nodes:
+            s.register_node(copy.deepcopy(node))
+        out = {}
+        for job in parsed:
+            s.register_job(copy.deepcopy(job))
+            want = sum(tg.count for tg in job.task_groups)
+            deadline = time.perf_counter() + AGENT_WAIT_S
+            while True:
+                evals = s.store.evals_by_job(job.namespace, job.id)
+                if evals and all(e.status == "complete" for e in evals):
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"agent phase: the CPU server left {job.id} "
+                         f"with evals {[e.status for e in evals]}")
+                time.sleep(0.01)
+            allocs = s.store.allocs_by_job(job.namespace, job.id)
+            if len(allocs) != want:
+                fail(f"agent phase: the CPU server placed "
+                     f"{len(allocs)}/{want} of {job.id}")
+            out[job.id] = sorted((a.name, names[a.node_id])
+                                 for a in allocs)
+        return out
+    finally:
+        s.shutdown()
+
+
+def agent_in_process(nodes, info, jobs, device, tmp):
+    """Part (a): start_agent with -dev -clients 0 -acl-enabled
+    -num-schedulers 1 on `device` (None: the card), the nodes over its
+    RPC port, ACLs, a webhook sink and the job files through the CLI.
+    Returns the launches of the jobs' run."""
+    import os
+    import torch
+    from nomad_tpu_torch.api import ApiClient, ApiError
+    from nomad_tpu_torch.cli.main import build_parser, start_agent
+    from nomad_tpu_torch.jobspec import job_to_spec, parse_job_file
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.utils import gcsafe
+    what = "agent phase (a)"
+    names = {n.id: n.name for n in nodes}
+    argv = ["agent", "-dev", "-clients", "0", "-acl-enabled",
+            "-num-schedulers", "1", "-http-port", "0", "-rpc-port", "0",
+            "-heartbeat-ttl", str(AGENT_HEARTBEAT_TTL_S)]
+    if device is not None:
+        argv += ["-device", device]
+    agent = start_agent(build_parser().parse_args(argv))
+    rx = _Receiver()
+    try:
+        if device is None and agent.server.device.type != "cuda":
+            fail(f"{what}: the agent schedules on {agent.server.device}")
+        addr = f"http://127.0.0.1:{agent.api.port}"
+        seed_s = _register_over_rpc(agent.rpc.addr, nodes, AGENT_SEEDERS)
+        # 1. ACLs through the CLI
+        rc, out, _ = _cli(addr, "", "acl", "bootstrap")
+        if rc != 0:
+            fail(f"{what}: acl bootstrap exited {rc}: {out}")
+        mgmt = _secret(out)
+        paths = {}
+        for name, text in (("write-default", WRITE_POLICY),
+                           ("read-default", READ_POLICY)):
+            paths[name] = os.path.join(tmp, f"{name}.hcl")
+            with open(paths[name], "w") as f:
+                f.write(text)
+            rc, out, _ = _cli(addr, mgmt, "acl", "policy-apply", name,
+                              paths[name])
+            if rc != 0:
+                fail(f"{what}: acl policy-apply {name} exited {rc}")
+        rc, out, _ = _cli(addr, mgmt, "acl", "token-create", "-name",
+                          "deployer", "-policy", "write-default")
+        client_tok = _secret(out)
+        rc, out, _ = _cli(addr, mgmt, "acl", "token-create", "-name",
+                          "reader", "-policy", "read-default")
+        reader_tok = _secret(out)
+        # 2. the webhook sink
+        rc, out, _ = _cli(addr, mgmt, "event", "sink-register", rx.url)
+        if rc != 0:
+            fail(f"{what}: event sink-register exited {rc}: {out}")
+        # 3. the jobs through `nomad job run`, one after another
+        files = []
+        for job_id, kind, count, _arm in jobs:
+            path = os.path.join(tmp, f"{job_id}.hcl")
+            with open(path, "w") as f:
+                f.write(agent_hcl(job_id, kind, count))
+            files.append(path)
+        parsed = [parse_job_file(p) for p in files]
+        gcsafe.freeze_steady_state()
+        if device is None:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        walls = []
+        for path, (job_id, _k, _c, _a) in zip(files, jobs):
+            rc, out, wall = _cli(addr, client_tok, "job", "run", path)
+            if rc != 0 or "finished with status \"complete\"" not in out:
+                fail(f"{what}: job run {job_id} exited {rc}: {out}")
+            walls.append(wall)
+        if device is None:
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        rc, out, status_s = _cli(addr, client_tok, "job", "status",
+                                 jobs[0][0])
+        if rc != 0 or jobs[0][0] not in out:
+            fail(f"{what}: job status exited {rc}: {out}")
+        # 4. a token that may only read default may not write there
+        try:
+            ApiClient(addr, token=reader_tok).register_job(
+                job_to_spec(parsed[0]))
+            fail(f"{what}: a read-only token registered a job")
+        except ApiError as e:
+            if e.status != 403:
+                fail(f"{what}: a read-only token's register answered "
+                     f"{e.status}, not 403")
+        api = ApiClient(addr, token=mgmt)
+        places, alloc_ids = agent_placements(api, names, jobs, nodes, what)
+        # 5. the sink delivered the jobs' registrations and allocations
+        deadline = time.perf_counter() + 30
+        while True:
+            got = rx.snapshot()
+            registered = {e["key"] for e in got
+                          if e["type"] == "JobRegistered"}
+            placed = {e["key"] for e in got if e["type"] == "PlanResult"}
+            if registered >= {j[0] for j in jobs} and placed >= alloc_ids:
+                break
+            if time.perf_counter() > deadline:
+                fail(f"{what}: the sink delivered {len(registered)} job "
+                     f"registrations and {len(placed & alloc_ids)} of "
+                     f"{len(alloc_ids)} placements")
+            time.sleep(0.05)
+        ref = agent_reference(nodes, parsed, names)
+        for job_id, *_ in jobs:
+            if places[job_id] != ref[job_id]:
+                diff = [p for p in places[job_id]
+                        if p not in ref[job_id]][:3]
+                fail(f"{what}: {job_id}'s placements differ from the CPU "
+                     f"server's, e.g. {diff}")
+        if device is None:
+            for name in AGENT_KERNELS:
+                if launches.get(name, 0) < 1:
+                    fail(f"{what}: the {name} kernel was never launched "
+                         f"({launches})")
+        print(f"{what}: {len(nodes)} nodes over RPC ({AGENT_SEEDERS} "
+              f"threads) in {seed_s:.3f} s; job run "
+              + ", ".join(f"{j[0]} (count {j[2]}, {j[3]}) {w:.3f} s"
+                          for j, w in zip(jobs, walls))
+              + f" (CLI call to eval complete, polled every 0.2 s); job "
+              f"status {status_s:.3f} s; a read-only token's register "
+              f"403; the sink delivered {len(got)} events ("
+              f"{len(registered)} job registrations, {len(placed)} "
+              f"placements); placements identical to an in-process "
+              f"Server(device=\"cpu\"); launches {launches} "
+              f"({info['raw']})", flush=True)
+        return launches
+    finally:
+        gcsafe.unfreeze_steady_state()
+        agent.shutdown()
+        rx.close()
+
+
+def agent_subprocess(nodes, info, device_args, tmp):
+    """Part (b): `python -m nomad_tpu_torch agent -dev -clients 0` as a
+    user starts it (no -device: the card), nodes over its RPC port,
+    `python -m nomad_tpu_torch job run` of the service file, SIGTERM."""
+    import os
+    import signal
+    import subprocess
+    import torch
+    from nomad_tpu_torch.api import ApiClient
+    what = "agent phase (b)"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
+         "-clients", "0", "-http-port", "0", "-rpc-port", "0",
+         "-heartbeat-ttl", str(AGENT_HEARTBEAT_TTL_S), *device_args],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        lines = []
+        while not lines or not lines[-1].startswith("    Device:"):
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"{what}: the agent exited {proc.wait()} before it "
+                     f"started: {''.join(lines)} {proc.stderr.read()}")
+            lines.append(line)
+        start_s = time.perf_counter() - t0
+        fields = {ln.split(":", 1)[0].strip(): ln.split(":", 1)[1].strip()
+                  for ln in lines if ln.startswith("    ")}
+        if not device_args and \
+                torch.cuda.get_device_name(0) not in fields["Device"]:
+            fail(f"{what}: the start lines name {fields['Device']!r}")
+        addr = fields["HTTP API"]
+        api = ApiClient(addr)
+        leader = api._request("GET", "/v1/status/leader")
+        seed_s = _register_over_rpc(fields["RPC"], nodes, AGENT_SEEDERS)
+        job_id, kind, count, _arm = AGENT_JOBS[0]
+        path = os.path.join(tmp, f"{job_id}.hcl")
+        with open(path, "w") as f:
+            f.write(agent_hcl(job_id, kind, count))
+        t1 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
+             "job", "run", path], cwd=here, env=env, capture_output=True,
+            text=True, timeout=AGENT_WAIT_S)
+        run_s = time.perf_counter() - t1
+        if run.returncode != 0:
+            fail(f"{what}: job run exited {run.returncode}: "
+                 f"{run.stdout} {run.stderr}")
+        names = {n.id: n.name for n in nodes}
+        agent_placements(api, names, AGENT_JOBS[:1], nodes, what)
+        counters = {c["Name"]: c["Sum"]
+                    for c in api._request("GET", "/v1/metrics")["Counters"]}
+        dispatches = counters.get("nomad.select.dispatches", 0)
+        if dispatches <= 0:
+            fail(f"{what}: /v1/metrics shows no nomad.select.dispatches")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            fail(f"{what}: the agent exited {rc} on SIGTERM: "
+                 f"{proc.stderr.read()[-2000:]}")
+        print(f"{what}: agent up in {start_s:.3f} s on "
+              f"{fields['Device']}, leader {leader}; {len(nodes)} nodes "
+              f"over RPC in {seed_s:.3f} s; `job run` (a process of its "
+              f"own) {run_s:.3f} s; nomad.select.dispatches "
+              f"{dispatches:.0f}; exit 0 on SIGTERM ({info['raw']})",
+              flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def agent_phase(nodes, info, device=None, sub_nodes=AGENT_SUB_NODES,
+                jobs=AGENT_JOBS):
+    """Phase 14 (see the module's docstring). Returns the launches of
+    part (a)'s jobs. `device="cpu"` rehearses it on the CPU."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="agent-phase-")
+    try:
+        launches = agent_in_process(nodes, info, jobs, device, tmp)
+        agent_subprocess(nodes[:sub_nodes], info,
+                         [] if device is None else ["-device", device],
+                         tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"agent phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3903,6 +4394,7 @@ def main():
                                                     info)
     restart_launches = restart_phase(nodes, mock, models, info)
     ring_launches = ring_phase(nodes, mock, models, single_manifest, info)
+    agent_launches = agent_phase(nodes, info)
     # each sharded kernel's launches on its main path: the grid route's
     # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
     grid = ("scan_sharded",) + GRID_ROUTE
@@ -4002,6 +4494,7 @@ def main():
         rec["server_launches"] = server_launches.get(rec["name"], 0)
         rec["restart_launches"] = restart_launches.get(rec["name"], 0)
         rec["ring_launches"] = ring_launches.get(rec["name"], 0)
+        rec["agent_launches"] = agent_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

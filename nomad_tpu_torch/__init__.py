@@ -28,6 +28,17 @@ set, and followers schedule on their own devices against their own
 replicas, dequeuing from the leader's broker and submitting plans to its
 applier over RPC (server/follower_sched.py).
 
+`python -m nomad_tpu_torch agent -dev -clients 0` is the agent as a user
+runs it (cli/main.py: `start_agent` builds the Server on `-device`, the
+card unless `-device cpu`, its RpcServer and the HTTP API of api/http.py;
+nodes join over the RPC port with Node.Register), and `python -m
+nomad_tpu_torch job run <file.hcl>` parses a jobspec (jobspec/) and
+submits it through api/client.py. With `-acl-enabled` every request
+resolves its token against the ACL engine (acl/acl.py); the leader runs
+the event-sink manager (server/event_sink.py) and, outside the
+authoritative region, ACL and namespace replication
+(server/replication.py).
+
 Concurrent evals' dispatches can meet in a gateway (server/worker.py):
 `BatchGateway` (one lane an eval of a drained batch) or `MicroBatchGateway`
 (continuous batching across lanes) set as each scheduler's
@@ -69,7 +80,10 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   server/eval_broker.py, server/plan_queue.py,
   server/event_broker.py, server/core_sched.py, server/periodic.py,
   server/deployment_watcher.py, server/drainer.py, utils/timetable.py,
-  utils/gcsafe.py, server/persistence.py, server/connect_hook.py.
+  utils/gcsafe.py, server/persistence.py, server/connect_hook.py,
+  jobspec/*.py, acl/__init__.py, acl/acl.py (its docstring's paths
+  relative), api/__init__.py, api/client.py, api/ui.py, cli/__init__.py,
+  cli/agent_config.py, utils/monitor.py, __main__.py.
 
 Copies changed only where they reached modules this package does not
 carry, or to carry the device:
@@ -81,11 +95,36 @@ carry, or to carry the device:
                         the JAX package's swallows a failed upload, and
                         PrefetchThread runs it on a thread whose join()
                         re-raises;
-  acl/acl.py, server/event_sink.py, server/vault.py   the records the
-                        store holds and a snapshot carries (AclPolicy,
-                        AclToken, EventSink, VaultAccessor) only, not the
-                        policy engine, the sink manager or the token
-                        authority beside them;
+  server/vault.py       the record the store holds and a snapshot
+                        carries (VaultAccessor) only, not the token
+                        authority beside it;
+  server/event_sink.py  the manager keeps every watcher and writer it
+                        stopped until join() waits for them (the
+                        server's shutdown), and a watcher's sleep ends
+                        when the manager is disabled;
+  server/replication.py  its long-polls on http.client connections that
+                        stop() shuts down, and join() waits for the
+                        threads (the server's shutdown and a revoked
+                        leadership's);
+  api/http.py           without the flight recorder's /v1/operator/trace
+                        route (an unknown route, 404) and the co-located
+                        alloc-dir reads of client/fs_service (the fs
+                        routes always forward to the owning client over
+                        RPC); shutdown closes the listening socket;
+  cli/main.py           `agent` split into start_agent(args), which
+                        builds and starts the Server on `-device` (the
+                        card unless `-device cpu`; no probe of the
+                        accelerator and no fallback to the CPU), its
+                        RpcServer and the HTTP API and returns them as
+                        an Agent, and the signal loop; `-heartbeat-ttl`;
+                        local clients (`-dev`'s default `-clients 1`,
+                        `-client`) exit 1, since client/ is not carried;
+                        `operator debug` bundles no chaos artifact;
+                        `dev lint` and `dev chaos` exit 1 (analysis/ and
+                        chaos/ are not carried); the environment it
+                        reads is NOMAD_TOKEN, NOMAD_REGION and
+                        NOMAD_VAR_* only;
+  cli/example_job.py, cli/__main__.py   the module named in a comment;
   rpc/codec.py          FrameCodec on python-msgpack only (no native
                         codec slot), its reads linear in a frame's size;
   rpc/client.py, rpc/__init__.py   verbatim;
@@ -189,12 +228,16 @@ Written for the port:
                         hooks, and the job, node, alloc, eval, deployment,
                         namespace, service-catalog and CSI endpoints with
                         the volume watcher (its pass a second, ended at
-                        once by shutdown's event; without the Vault reap);
-                        not ACL / namespace replication, federation, ACL
-                        resolution, the Vault token authority, the
-                        event-sink manager, the heartbeats' host-stats
-                        rollup or the governor (the persistence and ingest
-                        gauges among them), tracer and telemetry;
+                        once by shutdown's event; without the Vault reap),
+                        the ACL endpoints and resolve_token, the event-sink
+                        endpoints (the manager enabled with leadership,
+                        stopped and joined first at shutdown), replication
+                        started by a non-authoritative leader, and
+                        federation (multiregion register and
+                        deregister_job_global); not the Vault token
+                        authority, the heartbeats' host-stats rollup or
+                        the governor (the persistence and ingest gauges
+                        among them), tracer and telemetry;
   server/heartbeat.py   HeartbeatTimers: every node's heartbeat TTL on one
                         thread (a heap of deadlines), where the JAX package
                         arms a threading.Timer thread per node;

@@ -1,6 +1,6 @@
-"""The ACL records the state store holds (policies and tokens). The
-policy engine of the JAX package's acl/ is not ported yet."""
+from .acl import (ACL, ACL_MANAGEMENT, AclPolicy, AclToken, ParseError,
+                  compile_acl, new_token, parse_policy_rules)
 
-from .acl import AclPolicy, AclToken
-
-__all__ = ["AclPolicy", "AclToken"]
+__all__ = ["ACL", "ACL_MANAGEMENT", "AclPolicy", "AclToken",
+           "ParseError", "compile_acl", "new_token",
+           "parse_policy_rules"]

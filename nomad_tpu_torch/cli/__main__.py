@@ -1,0 +1,7 @@
+"""`python -m nomad_tpu_torch.cli` entry point."""
+import sys
+
+from .main import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,9 +19,13 @@ failed peers, and follower_sched.py lets followers schedule on their own
 devices against their own replicas, dequeuing from the leader's broker
 and submitting plans to its applier over RPC.
 
-Not ported yet: ACL and namespace replication, the event-sink manager
-and the Vault token authority (server/event_sink.py and server/vault.py
-carry only the records a snapshot holds).
+The leader runs the event-sink manager (event_sink.py: webhook
+delivery with progress committed through raft) and, in a region that is
+not the authoritative one, ACL and namespace replication
+(replication.py).
+
+Not ported yet: the Vault token authority (server/vault.py carries only
+the record a snapshot holds).
 """
 
 from .eval_broker import EvalBroker

@@ -36,19 +36,29 @@ against its own replicated store, and submit plans to the leader's
 applier. Writes that arrive while an apply is in flight coalesce into
 one entry (server/ingest.py, register_jobs_bulk).
 
-Not carried: ACL and namespace replication (server/replication.py),
-federation (multiregion registration and stop), ACL resolution, the
-Vault token authority (and the volume watcher's Vault reap), the
-event-sink manager, a heartbeat's host-stats rollup, and the governor
-(the persistence and ingest gauges among them), tracer and telemetry.
+ACLs (nomad/acl_endpoint.go): with `acl_enabled` every request resolves
+its token to a compiled ACL (resolve_token); bootstrap, policies and
+tokens are raft writes. The leader runs the event-sink manager
+(server/event_sink.py: one webhook writer a sink, progress committed
+through raft) and, in a region that is not the authoritative one, ACL
+and namespace replication from it (server/replication.py). Federation:
+a multiregion job fans out one localized copy a region through the
+peers' HTTP APIs, and deregister_job_global stops it in every region.
+
+Not carried: the Vault token authority (and the volume watcher's Vault
+reap), a heartbeat's host-stats rollup, and the governor (the
+persistence and ingest gauges among them), tracer and telemetry.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
 import time
-from dataclasses import dataclass
+import urllib.error
+import urllib.request
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ..models import (
@@ -75,6 +85,7 @@ from .deployment_watcher import (
 from .drainer import NodeDrainer, drain_allocs
 from .eval_broker import EvalBroker, FAILED_QUEUE
 from .event_broker import EventBroker, events_from_apply
+from .event_sink import EventSinkManager
 from .follower_sched import EvalLeaseTable
 from .heartbeat import HeartbeatTimers
 from .ingest import IngestGateway
@@ -99,6 +110,17 @@ GATEWAY_DEPTH_HIGH = 512
 class ServerConfig:
     num_schedulers: int = 2
     enabled_schedulers: tuple = ("service", "batch", "system")
+    # this server's federation region (nomad/config.go Region); requests
+    # stamped with a foreign region forward to that region's agent
+    region: str = "global"
+    # federation peers: region name -> that region's agent HTTP address
+    # (the reference discovers via WAN serf; here configured)
+    region_peers: dict = field(default_factory=dict)
+    # ACL/namespace replication source (nomad/config.go
+    # AuthoritativeRegion + ReplicationToken): non-authoritative
+    # leaders replicate policies, GLOBAL tokens, and namespaces from it
+    authoritative_region: str = ""
+    replication_token: str = ""
     # max READY evals one worker drains into concurrent lanes (1
     # disables batching)
     eval_batch_size: int = 1
@@ -136,6 +158,8 @@ class ServerConfig:
     job_gc_threshold_s: float = 4 * 3600.0
     node_gc_threshold_s: float = 24 * 3600.0
     deployment_gc_threshold_s: float = 3600.0
+    # ACL subsystem (nomad/config.go ACLEnabled)
+    acl_enabled: bool = False
     # group-commit plan applier (plan_applier.py): max queued plans
     # drained into ONE overlay-aware verify pass + ONE raft entry +
     # ONE state-store transaction + ONE event flush. 1 restores the
@@ -228,6 +252,12 @@ class Server:
         self.deployments_watcher = DeploymentsWatcher(self)
         self.node_drainer = NodeDrainer(self)
         self.events = EventBroker()
+        # durable webhook sinks, run by the leader
+        self.event_sinks = EventSinkManager(self)
+        # ACL/namespace replication from the authoritative region, run
+        # by a non-authoritative leader
+        self._replication = None
+        self._retired_replication: list = []
         # adaptive micro-batch eval dispatch: one gateway per server —
         # every worker's (and every lane thread's) kernel dispatches
         # coalesce here, on a kernel on the server's device. window=0
@@ -269,6 +299,7 @@ class Server:
         # serializes enforced (-check-index) registrations: the CAS
         # check and the apply must not interleave across threads
         self._register_l = make_lock()
+        self._acl_cache: Dict = {}      # (policies, index) -> compiled ACL
         self._shutdown_ev = threading.Event()
         self._threads: List[threading.Thread] = []
         # restore persisted state after every subsystem exists: WAL
@@ -429,7 +460,8 @@ class Server:
         the applier and its committer, the ingest gateway, the reaper,
         the GC ticker, the volume watcher, the autopilot, the periodic
         dispatcher, the deployments watcher, the drainer and the
-        heartbeat timers' thread. With a data directory it then waits
+        heartbeat timers' thread; the event-sink writers and the
+        replication threads go before raft. With a data directory it then waits
         out an in-flight snapshot writer, flushes the WAL's fsync-pending
         bytes, closes the log and saves the cost model; a failure there
         raises once the rest of the teardown is done."""
@@ -437,6 +469,11 @@ class Server:
         if self.follower_sched is not None:
             self.follower_sched.stop()
         self.eval_leases.stop()
+        # the sink writers commit their last progress on the way out,
+        # through raft while it still runs
+        self.event_sinks.set_enabled(False)
+        self.event_sinks.join(JOIN_S)
+        self._stop_replication(timeout_s=JOIN_S)
         # raft first: a SWIM tick blocked on a membership write (a
         # removal awaiting quorum) then fails fast as refused
         if self.raft is not None:
@@ -495,6 +532,17 @@ class Server:
                 self.periodic.add(job)
         self.deployments_watcher.set_enabled(True)
         self.node_drainer.set_enabled(True)
+        # durable event sinks are a leader duty: writers resume from
+        # each sink's raft-committed progress (event_sink_manager.go)
+        self.event_sinks.set_enabled(True)
+        # non-authoritative regions replicate ACL policies, global
+        # tokens, and namespaces from the authoritative region
+        # (leader.go:327-331)
+        if self.config.authoritative_region and \
+                self.config.authoritative_region != self.config.region:
+            from .replication import ReplicationManager
+            self._replication = ReplicationManager(self)
+            self._replication.start()
         if self.raft is not None:
             # seed the replicated member set from static boot config on
             # first leadership (later joins/leaves mutate it), then run
@@ -526,6 +574,7 @@ class Server:
         needs) and a fresh, unstarted set takes its place, so a
         re-elected leader runs exactly one timers thread again."""
         self._leader = False
+        self._stop_replication(timeout_s=0)
         # remote-dequeue leases are leader state: the broker flush
         # below cancels every unack they covered, and the NEW leader
         # re-enqueues non-terminal evals from the store — stale leases
@@ -537,11 +586,25 @@ class Server:
         self.periodic.set_enabled(False)
         self.deployments_watcher.set_enabled(False)
         self.node_drainer.set_enabled(False)
+        self.event_sinks.set_enabled(False)
         old = self._heartbeats
         self._heartbeats = HeartbeatTimers(self.config.heartbeat_ttl_s,
                                            self._invalidate_heartbeat)
         old.stop(timeout_s=0)
         self._retired_heartbeats.append(old)
+
+    def _stop_replication(self, timeout_s: float) -> None:
+        """Stop the replication threads and keep them until shutdown
+        joins them (revoke runs under the raft lock: no wait there)."""
+        rep = self._replication
+        self._replication = None
+        if rep is not None:
+            rep.stop()
+            self._retired_replication.append(rep)
+        if timeout_s > 0:
+            for r in self._retired_replication:
+                r.join(timeout_s)
+            self._retired_replication = []
 
     def scheduler_plane_status(self) -> dict:
         """Per-member scheduler-plane status (`nomad server members`):
@@ -1236,6 +1299,12 @@ class Server:
         self.store.update_job_stability(
             index, p["namespace"], p["job_id"], p["version"], p["stable"])
 
+    def upsert_event_sink(self, sink) -> int:
+        return self.raft_apply("event_sink_upsert", dict(sink=sink))
+
+    def delete_event_sink(self, sink_id: str) -> int:
+        return self.raft_apply("event_sink_delete", dict(sink_id=sink_id))
+
     def _apply_event_sink_upsert(self, index: int, p: dict) -> None:
         self.store.upsert_event_sink(index, p["sink"])
 
@@ -1314,17 +1383,16 @@ class Server:
                                 triggered_by: str
                                 ) -> Optional[Evaluation]:
         job.canonicalize()
-        self._refuse_multiregion(job)
-        self._validate_register(job)
-        return self._commit_register(job, triggered_by)
-
-    @staticmethod
-    def _refuse_multiregion(job: Job) -> None:
+        # multiregion fan-out (job_endpoint.go:328 multiregionRegister
+        # — enterprise in the reference, implemented here over the
+        # federation peers): an unpinned multiregion job localizes one
+        # copy per region entry; copies are region-pinned so they never
+        # re-fan when they arrive at the peer
         if job.multiregion is not None and \
                 job.region in ("", "global"):
-            raise NotImplementedError(
-                f"job {job.id!r} is multiregion: its fan-out needs the "
-                "federation layer, which this server does not carry")
+            return self._multiregion_register(job, triggered_by)
+        self._validate_register(job)
+        return self._commit_register(job, triggered_by)
 
     def _validate_register(self, job: Job) -> None:
         """Post-canonicalize admission checks for one register —
@@ -1402,11 +1470,17 @@ class Server:
                 except Exception as e:
                     out.append(e)
             return out
-        slots = []              # (future | None, ev, err | None)
+        slots = []              # (future | None, ev | result, err | None)
         for job in jobs:
             try:
                 job.canonicalize()
-                self._refuse_multiregion(job)
+                if job.multiregion is not None and \
+                        job.region in ("", "global"):
+                    # multiregion fans out over federation peers —
+                    # inherently per-job, never coalesced
+                    slots.append((None, self._multiregion_register(
+                        job, triggered_by), None))
+                    continue
                 self._validate_register(job)
                 ev = None
                 if not (job.is_periodic() or job.is_parameterized()):
@@ -1425,6 +1499,9 @@ class Server:
             if err is not None:
                 out.append(err)
                 continue
+            if fut is None:
+                out.append(ev)      # multiregion result, already final
+                continue
             try:
                 index = fut.result()
                 if ev is not None:
@@ -1434,6 +1511,106 @@ class Server:
             except Exception as e:
                 out.append(e)
         return out
+
+    def deregister_job_global(self, namespace: str, job_id: str,
+                              purge: bool = False):
+        """Multiregion stop (job_endpoint_oss.go multiregionStop):
+        fan the deregister to every region in the stored job's
+        multiregion block, then stop locally."""
+        job = self.store.job_by_id(namespace, job_id)
+        failed = []
+        if job is not None and job.multiregion is not None:
+            for entry in job.multiregion.regions:
+                if entry.name == self.config.region:
+                    continue
+                peer = self.config.region_peers.get(entry.name)
+                if not peer:
+                    failed.append(f"{entry.name} (no federation peer)")
+                    continue
+                req = urllib.request.Request(
+                    f"http://{peer}/v1/job/{job_id}?region={entry.name}"
+                    f"&purge={str(purge).lower()}"
+                    f"&namespace={namespace}",
+                    method="DELETE")
+                if self.config.replication_token:
+                    req.add_header("X-Nomad-Token",
+                                   self.config.replication_token)
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        r.read()
+                except Exception as e:
+                    LOG.exception("multiregion stop in %s failed",
+                                  entry.name)
+                    failed.append(f"{entry.name} ({e})")
+        ev = self.deregister_job(namespace, job_id, purge=purge)
+        if failed:
+            # the local stop stuck, but the operator must hear that
+            # other regions did NOT stop
+            raise RuntimeError(
+                f"job stopped in {self.config.region!r} but deregister "
+                f"failed in: {', '.join(failed)}")
+        return ev
+
+    def _multiregion_register(self, job: Job, triggered_by: str):
+        """Localize one copy per multiregion region entry and land it
+        in that region: the local region registers directly, remote
+        regions get an HTTP push through their federation peer. Region
+        entries override datacenters, fill zero group counts, and merge
+        meta (the documented enterprise semantics). Cross-region
+        deployment pacing (max_parallel/on_failure) is not enforced —
+        regions roll independently."""
+        import copy
+        errs = job.validate()
+        if errs:
+            raise ValueError("; ".join(errs))
+        mr = job.multiregion
+        missing = [r.name for r in mr.regions
+                   if r.name != self.config.region
+                   and r.name not in self.config.region_peers]
+        if missing:
+            raise ValueError(
+                f"no federation peer for multiregion regions {missing}")
+        local_eval = None
+        for entry in mr.regions:
+            local = copy.deepcopy(job)
+            local.region = entry.name
+            if entry.datacenters:
+                local.datacenters = list(entry.datacenters)
+            if entry.meta:
+                local.meta = {**local.meta, **entry.meta}
+            if entry.count > 0:
+                for tg in local.task_groups:
+                    if tg.count == 0:
+                        tg.count = entry.count
+            if entry.name == self.config.region:
+                local_eval = self.register_job(local, triggered_by)
+            else:
+                self._push_job_to_region(entry.name, local)
+        return local_eval
+
+    def _push_job_to_region(self, region: str, job: Job) -> None:
+        from ..utils.codec import to_wire
+        peer = self.config.region_peers[region]
+        body = json.dumps({"Job": to_wire(job)}).encode()
+        headers = {"Content-Type": "application/json"}
+        if self.config.replication_token:
+            headers["X-Nomad-Token"] = self.config.replication_token
+        req = urllib.request.Request(
+            f"http://{peer}/v1/jobs?region={region}", data=body,
+            method="PUT", headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                resp.read()
+        except urllib.error.HTTPError as e:
+            try:
+                msg = json.loads(e.read()).get("error", str(e))
+            except Exception:
+                msg = str(e)
+            raise ValueError(f"multiregion register in {region!r} "
+                             f"failed: {msg}")
+        except urllib.error.URLError as e:
+            raise RuntimeError(f"multiregion register: no route to "
+                               f"region {region!r}: {e.reason}")
 
     def evaluate_job(self, namespace: str, job_id: str) -> Evaluation:
         """Force a fresh evaluation of a job (job_endpoint.go
@@ -1785,6 +1962,72 @@ class Server:
                     job_id=job.id, node_id=node_id,
                     status=EVAL_STATUS_PENDING))
         return evals
+
+    def bootstrap_acl(self):
+        """One-time management-token mint (acl_endpoint.go Bootstrap).
+        Raises if the cluster already has tokens."""
+        from ..acl import new_token
+        if self.store.acl_tokens():
+            raise PermissionError("ACL bootstrap already done")
+        token = new_token(name="Bootstrap Token", type_="management",
+                          global_=True)
+        self.raft_apply("acl_token_upsert", dict(tokens=[token]))
+        return token
+
+    def upsert_acl_policies(self, policies) -> int:
+        from ..acl import parse_policy_rules
+        for p in policies:
+            if not p.name:
+                raise ValueError("policy name required")
+            parse_policy_rules(p.rules)        # validate
+        return self.raft_apply("acl_policy_upsert", dict(policies=policies))
+
+    def delete_acl_policies(self, names) -> int:
+        return self.raft_apply("acl_policy_delete", dict(names=names))
+
+    def create_acl_token(self, name: str = "", type_: str = "client",
+                         policies=None, global_: bool = False):
+        from ..acl import new_token
+        if type_ not in ("client", "management"):
+            raise ValueError(f"invalid token type {type_!r}")
+        if type_ == "client" and not policies:
+            raise ValueError("client token requires policies")
+        token = new_token(name=name, type_=type_, policies=policies,
+                          global_=global_)
+        self.raft_apply("acl_token_upsert", dict(tokens=[token]))
+        return token
+
+    def delete_acl_tokens(self, accessor_ids) -> int:
+        return self.raft_apply("acl_token_delete",
+                               dict(accessor_ids=accessor_ids))
+
+    def resolve_token(self, secret_id):
+        """secret -> compiled ACL (nomad/acl.go ResolveToken). With ACLs
+        disabled everything is management; with no token the anonymous
+        deny-all ACL applies; unknown secrets are rejected."""
+        from ..acl import ACL_MANAGEMENT, compile_acl
+        from ..acl.acl import ACL_DENY_ALL
+        if not self.config.acl_enabled:
+            return ACL_MANAGEMENT
+        if not secret_id:
+            return ACL_DENY_ALL
+        token = self.store.acl_token_by_secret(secret_id)
+        if token is None:
+            raise PermissionError("ACL token not found")
+        if token.type == "management":
+            return ACL_MANAGEMENT
+        key = (tuple(sorted(token.policies)),
+               self.store._root.indexes.get("acl_policies") or 0)
+        cached = self._acl_cache.get(key)
+        if cached is not None:
+            return cached
+        policies = [p for name in token.policies
+                    if (p := self.store.acl_policy(name)) is not None]
+        acl = compile_acl(policies)
+        if len(self._acl_cache) > 256:
+            self._acl_cache.clear()
+        self._acl_cache[key] = acl
+        return acl
 
     @staticmethod
     def _implied_constraints(job: Job) -> None:

@@ -3,9 +3,9 @@ expose-check hook tests (tests/test_consul_services.py) against the
 port's models and server/connect_hook.py, their assertions unchanged;
 servers on the CPU, shut down in a `finally`.
 
-Left for later: test_upstream_env_vars (client/taskenv, with client/),
-test_hcl_connect_parse (jobspec/) and the catalog tests on the `cluster`
-fixture (a Client beside the Server).
+Left for later: test_upstream_env_vars (client/taskenv, with client/)
+and the catalog tests on the `cluster` fixture (a Client beside the
+Server). test_hcl_connect_parse (the port's jobspec/) is at the end.
 
 Then the port's own: a connect job registered on a server whose sidecar
 driver the nodes have is placed through the kernels with its injected
@@ -411,3 +411,58 @@ def test_connect_job_places_with_its_sidecar():
             assert ports.get("connect-proxy-backend", 0) > 0
     finally:
         srv.shutdown()
+
+
+# -- jobspec HCL parse (the reference's) ------------------------------
+def test_hcl_connect_parse():
+    from nomad_tpu_torch.jobspec import parse_job
+    job = parse_job('''
+job "mesh" {
+  group "api" {
+    network { mode = "bridge" }
+    service {
+      name = "count-api"
+      port = "9001"
+      connect {
+        sidecar_service {
+          proxy {
+            upstreams {
+              destination_name = "count-db"
+              local_bind_port  = 8080
+            }
+          }
+        }
+        sidecar_task {
+          driver = "raw_exec"
+          resources { cpu = 300  memory = 200 }
+        }
+      }
+      check {
+        name     = "alive"
+        type     = "http"
+        path     = "/health"
+        interval = "10s"
+        timeout  = "2s"
+        check_restart { limit = 3  grace = "5s" }
+      }
+    }
+    task "api" {
+      driver = "mock"
+      config { run_for = "10s" }
+    }
+  }
+}
+''')
+    tg = job.task_groups[0]
+    svc = tg.services[0]
+    assert svc.name == "count-api"
+    cn = svc.connect
+    assert cn is not None and cn.has_sidecar()
+    assert cn.sidecar_service.proxy.upstreams[0].destination_name == \
+        "count-db"
+    assert cn.sidecar_service.proxy.upstreams[0].local_bind_port == 8080
+    assert cn.sidecar_task.driver == "raw_exec"
+    assert cn.sidecar_task.resources.cpu == 300
+    chk = svc.checks[0]
+    assert chk.check_restart.limit == 3
+    assert chk.check_restart.grace_s == 5.0

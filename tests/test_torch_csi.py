@@ -4,8 +4,8 @@ implied constraints through Server.register_job) against the port,
 their assertions unchanged, on the CPU.
 
 Left for later: test_volume_watcher_releases_terminal_claims (a Client
-runs the job), test_csi_http_routes (api/) and
-test_vault_token_derivation_and_env (the Vault token authority).
+runs the job) and test_vault_token_derivation_and_env (the Vault token
+authority). test_csi_http_routes (the port's api/) is at the end.
 
 Then the port's own: the CSI endpoints and the volume watcher on a
 server whose allocs a test marks complete as a client would.
@@ -242,3 +242,25 @@ def test_volume_watcher_releases_claims_of_terminal_allocs():
         server.shutdown()
         assert time.perf_counter() - t0 < 1.0
     assert watchers and not any(t.is_alive() for t in watchers)
+
+
+# -- endpoints over HTTP (the reference's) ----------------------------
+def test_csi_http_routes():
+    from nomad_tpu_torch.api import HTTPApiServer
+    from nomad_tpu_torch.api.client import ApiClient, ApiError
+    server = Server(ServerConfig(num_schedulers=0), device="cpu")
+    api = HTTPApiServer(server, port=0)
+    api.start()
+    try:
+        c = ApiClient(f"http://127.0.0.1:{api.port}")
+        c._request("PUT", "/v1/volume/csi/web-vol",
+                   {"Volume": {"id": "web-vol", "plugin_id": "p1"}})
+        vols = c._request("GET", "/v1/volumes")
+        assert [v["id"] for v in vols] == ["web-vol"]
+        got = c._request("GET", "/v1/volume/csi/web-vol")
+        assert got["plugin_id"] == "p1"
+        c._request("DELETE", "/v1/volume/csi/web-vol")
+        assert c._request("GET", "/v1/volumes") == []
+    finally:
+        api.shutdown()
+        server.shutdown()

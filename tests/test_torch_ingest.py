@@ -15,8 +15,9 @@ the port reads no environment variable, so its off arm is
 per-request results on the JAX package's off server and the port's on
 and off servers.
 
-Left out, with what they wait for: the two HTTP tests (the HTTP API) and
-test_server_governor_exports_ingest_gauges (the governor).
+Left out, with what it waits for:
+test_server_governor_exports_ingest_gauges (the governor). The two HTTP
+tests (the port's api/) are at the end.
 """
 
 import json
@@ -639,4 +640,78 @@ def test_node_update_alloc_batch_rpc_verb():
             assert srv.store.alloc_by_id(pool[k].id).client_status == \
                 "running"
     finally:
+        srv.shutdown()
+
+
+# -- the HTTP write path (the reference's) ----------------------------
+def test_http_shed_429_before_decode():
+    """Over the forced watermark the HTTP write path sheds with 429 +
+    Retry-After — and BEFORE body decode: a garbage body is refused
+    with 429, not a 400 parse error."""
+    from nomad_tpu_torch.api import ApiClient, ApiError, HTTPApiServer
+    from nomad_tpu_torch.jobspec import job_to_spec
+    srv = _server()
+    api = HTTPApiServer(srv, port=0)
+    api.start()
+    c = ApiClient(f"http://127.0.0.1:{api.port}")
+    try:
+        ing = srv.ingest
+        shed0 = ing.stats["shed"]
+        # force the byte watermark: queued-bytes accounting is only
+        # touched by the gateway when real entries move, so pinning it
+        # over the high mark sheds every write without feeding the
+        # gateway loop fake entries
+        ing._pending_bytes = ing.queue_bytes_high + 1
+        with pytest.raises(ApiError) as ei:
+            c.register_job(job_to_spec(_job("shed-job")))
+        assert ei.value.status == 429
+        assert "overloaded" in str(ei.value)
+        # raw request: the Retry-After header rides the refusal, and a
+        # body that would NOT decode is never decoded (shed comes
+        # first — 429, not 400)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{api.port}/v1/jobs",
+            data=b"this is not json", method="PUT",
+            headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as hei:
+            urllib.request.urlopen(req, timeout=30)
+        assert hei.value.code == 429
+        assert float(hei.value.headers["Retry-After"]) >= 1
+        assert ing.stats["shed"] >= shed0 + 2
+        # below the watermark writes admit again
+        ing._pending_bytes = 0
+        out = c.register_job(job_to_spec(_job("shed-job")))
+        assert out["EvalID"]
+    finally:
+        api.shutdown()
+        srv.shutdown()
+
+
+def test_http_bulk_register_array_body():
+    from nomad_tpu_torch.api import ApiClient, HTTPApiServer
+    from nomad_tpu_torch.jobspec import job_to_spec
+    srv = _server()
+    api = HTTPApiServer(srv, port=0)
+    api.start()
+    c = ApiClient(f"http://127.0.0.1:{api.port}")
+    try:
+        specs = [job_to_spec(_job(f"bulk-{k}")) for k in range(6)]
+        bad = job_to_spec(_job("bulk-bad"))
+        bad["task_groups"] = []
+        specs.insert(3, bad)
+        out = c.register_jobs_bulk(specs)
+        assert len(out) == 7
+        assert "Error" in out[3]
+        for i, r in enumerate(out):
+            if i == 3:
+                continue
+            assert r["EvalID"]
+            assert r["JobModifyIndex"] > 0
+        # EnforceIndex is a per-job CAS — rejected per-slot in bulk
+        out2 = c.register_jobs_bulk(
+            [{"Job": job_to_spec(_job("bulk-cas")),
+              "EnforceIndex": True, "JobModifyIndex": 0}])
+        assert "EnforceIndex" in out2[0]["Error"]
+    finally:
+        api.shutdown()
         srv.shutdown()
