@@ -102,7 +102,7 @@ Phases (each raises on failure, so the process exits non-zero):
      and the scan with 32 (its grid kernel, one cooperative launch), held
      exactly against their plain versions (every launch of the K-way
      loop, continuing from the card's carry) and against the solo kernel
-     on the same padded request; then 2, 32 (the scan: 2, 16, 32) and the
+     on the same padded request; then 32 (the scan: 16, 32) and the
      most shards the card holds at once, each held exactly against the
      8-shard result and timed (CUDA-event medians of 7; us a step or K-way
      phase, the scan's steps run, its route, the live slots a shard keeps
@@ -110,10 +110,10 @@ Phases (each raises on failure, so the process exits non-zero):
      the solo kernel on the same padded request and the plain version;
      then the sharded K-way kernel at the edge shapes of phase 2 and at
      mixed batched lanes (one with no feasible row, one that runs dry) at
-     2, 8, 32 and the most shards, each call with an 8-phase budget
+     8, 32 and the most shards, each call with an 8-phase budget
      continued from the card's carry, and the sharded scan at SCAN_EDGES
      and at mixed batched lanes (MIXED_LANES and a lane that runs dry, at
-     10,000 nodes) at 1, 2, 8, 16, 32 and the most shards (both routes;
+     10,000 nodes) at 1, 8, 16, 32 and the most shards (both routes;
      at 1 shard the 16,384-row all-live case outgrows a shard's shared
      memory, which fails unless it is so), every launch held bit for bit
      against its plain version and the single-card kernel on the same
@@ -129,8 +129,8 @@ Phases (each raises on failure, so the process exits non-zero):
   9. the mesh's gateways: the batched node-sharded kernels (chunked-,
      scan- and K-way-batched over B lanes of S shards, B * S blocks) at
      10,000 nodes and the main shapes of phase 6, with 8 shards (and the
-     chunked and scan grid kernels at 32), then 2, 32 (the scan and the
-     chunked kernels: 2, 16, 32) and the most the card holds (32 shards
+     chunked and scan grid kernels at 32), then 32 (the scan and the
+     chunked kernels: 16, 32) and the most the card holds (32 shards
      of 8 lanes exceed the card, so the lanes of a cooperative kernel
      launch in groups; the cluster kernels take every lane in one launch):
      every launch held exactly against its plain version and against the
@@ -143,7 +143,7 @@ Phases (each raises on failure, so the process exits non-zero):
      beside the single card's and the handoffs a lane, B 8 lanes of count
      512 and the all-alike table (one lane of count 512, binpack and
      spread) at 8 shards, and CHUNKED_EDGES (one lane each, binpack and
-     spread) and CHUNKED_LANES (an 8-step budget) at 2, 8, 16, 32 and the
+     spread) and CHUNKED_LANES (an 8-step budget) at 8, 16, 32 and the
      most shards, every launch and a continuation from the card's carry
      bit for bit against the plain version and the single-card batched
      kernel. Then phase 7's gateway groups under set_mesh(make_mesh(8)) on
@@ -268,16 +268,52 @@ Phases (each raises on failure, so the process exits non-zero):
      same parsed jobs in the same order, the receiver got each job's
      registration and every alloc's PlanResult, and the chunked, K-way,
      scan and scatter_set kernels launched (counts set to 0 just before
-     the jobs). (b) `python -m nomad_tpu_torch agent -dev -clients 0` as
-     a subprocess with no `-device`, 1,000 nodes over its RPC port,
-     `python -m nomad_tpu_torch job run` of the service file: fails
-     unless the start lines name the card, /v1/status/leader answers,
-     the job is placed to its count, /v1/metrics shows
-     nomad.select.dispatches > 0 and the agent exits 0 on SIGTERM.
-     Printed: the nodes' registration seconds, each `job run`'s wall (CLI
-     call to eval complete), a `job status`'s, the sink's delivered
-     events, the subprocess's start and `job run` seconds and the
-     launches. The kernels line's `agent_launches` holds (a)'s.
+     the jobs). Printed: the nodes' registration seconds, each `job
+     run`'s wall (CLI call to eval complete), a `job status`'s, the
+     sink's delivered events and the launches. The kernels line's
+     `agent_launches` holds them. Its subprocess half is phase 15 (b).
+ 15. the node agent on the card: (a) `start_agent` (-dev -clients 1
+     -num-schedulers 1, ephemeral ports, the card) with its local client
+     `dev-client-0`, and a second Client in this process, `gpu-client`
+     (ClientConfig(fingerprint_accelerators=True,
+     plugin_device_fingerprint=False), its alloc dirs apart from the
+     agent's, so that its logs travel server -> client over RPC); the
+     10,000 nodes over the agent's RPC port; through the port's CLI
+     `main()`, `job run` of three HCL files this script writes: a batch
+     job of count 1 on raw_exec (`/bin/sh -c 'echo $NOMAD_ALLOC_ID;
+     sleep 3'`) asking `device "gpu" { count = 1 }`, the same job again
+     while the first holds the card (it must block on the exhausted
+     device), and a service job of count 3 on mock_driver constrained to
+     `${node.unique.name} = dev-client-0`, then `job stop` of it. Fails
+     unless gpu-client's node lists one device group of vendor nvidia,
+     type gpu, named after torch.cuda.get_device_name(0), with
+     torch.cuda.device_count() instances; the device job lands on
+     gpu-client with an instance id on its alloc and ends complete;
+     `alloc logs` through the CLI prints its alloc id; the second device
+     job's eval names the device in failed_tg_allocs and leaves a blocked
+     eval; the service job's three allocs reach running on dev-client-0
+     and complete after the stop; the placements equal an in-process
+     Server(device="cpu") fed the same nodes (the two clients' first)
+     and jobs in the same order; ExternalDevicePlugin().fingerprint()
+     equals the in-process group and its stats() report the card's used
+     memory; cluster_stats() counts both clients' heartbeat payloads; and
+     the chunked and scatter_set kernels launched (counts set to 0 just
+     before the jobs). (b) `python -m nomad_tpu_torch agent -dev` as a
+     user starts it (its one local client, the card), `python -m
+     nomad_tpu_torch job init` and `job run` of the example job
+     (mock_driver): fails unless the start lines name the card and one
+     node, the job is running on the local client and `job status` shows
+     it; then (phase 14's subprocess checks) /v1/status/leader answers,
+     1,000 nodes over its RPC port, all ready with the local client in
+     /v1/nodes, `job run` of phase 14's service file kept off the local
+     client placed to its count with its evals complete and no node over
+     capacity (recomputed from /v1/allocations), /v1/metrics showing
+     nomad.select.dispatches > 0, and exit 0 on SIGTERM. Printed: the fingerprint's and the clients'
+     construction seconds, each `job run`'s wall (CLI call to eval
+     complete) and to complete / running, the task's start latency (the
+     alloc first seen placed in the store -> the client's task
+     started_at), `alloc logs`' seconds, the subprocess's start seconds
+     and the launches, which the kernels line holds as `client_launches`.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
@@ -381,8 +417,8 @@ SOURCE.update({k: "nomad_tpu_torch/ops/csrc/sharded_kernels.cu"
 # the chunked kernels at 16 too, the cluster route's largest)
 MESH_SHARDS = 8
 MESH_GRID = 32
-MESH_SWEEP = (2, 32)
-CLUSTER_SWEEP = (2, 16, 32)
+MESH_SWEEP = (32,)
+CLUSTER_SWEEP = (16, 32)
 # phase 6's main shapes: (kernel, lane counts, variant)
 BATCHED_MAIN = (("chunked_batched", [10] * 8, ""),
                 ("scan_batched", [200] * 4, "one_spread"),
@@ -887,7 +923,7 @@ def kway_sharded_edge_checks(device):
     """The node-sharded K-way kernel at KWAY_EDGES (one lane, binpack and
     spread) and at mixed batched lanes (K-way lanes of 10, 2,000 and 2,000
     instances over 50 feasible rows, one with no feasible row and one
-    that runs dry, over one capacity table), at S 2, 8, 32 and the most
+    that runs dry, over one capacity table), at S 8, 32 and the most
     the card holds, each table padded as a mesh of S shards pads it and
     each call with an 8-phase budget continued from the card's own carry:
     every launch held bit for bit against its plain version and against
@@ -2309,7 +2345,7 @@ def scan_shard_live(targs, st, shards):
 def scan_sharded_edge_checks(device):
     """The sharded scan at SCAN_EDGES (one lane, binpack) and at mixed
     batched lanes at 10,000 nodes (MIXED_LANES and a lane that runs dry),
-    at S 1, 2, 8, 16, 32 and the most the card holds, each table padded
+    at S 1, 8, 16, 32 and the most the card holds, each table padded
     as a mesh of S shards pads it: every launch held bit for bit against
     its plain version (scan_plain(shards=)) and against the single-card
     kernel on the same padded request, on both paths (a cluster a lane up
@@ -3913,10 +3949,18 @@ WRITE_POLICY = 'namespace "default" { policy = "write" }\n'
 READ_POLICY = 'namespace "default" { policy = "read" }\n'
 
 
-def agent_hcl(job_id, kind, count, cpu=AGENT_CPU, memory=AGENT_MEM):
+def agent_hcl(job_id, kind, count, cpu=AGENT_CPU, memory=AGENT_MEM,
+              not_on=""):
     """The job file `nomad job run` reads: `count` instances of `cpu`
-    MHz and `memory` MB."""
+    MHz and `memory` MB, kept off the node named `not_on` if given."""
     spread = ""
+    if not_on:
+        spread = f'''
+  constraint {{
+    attribute = "${{node.unique.name}}"
+    operator  = "!="
+    value     = "{not_on}"
+  }}'''
     if job_id.endswith("spread"):
         spread = '''
   spread {
@@ -4036,20 +4080,24 @@ def _register_over_rpc(addr, nodes, threads):
     return time.perf_counter() - t0
 
 
-def agent_placements(api, names, jobs, nodes, what):
+def agent_placements(api, names, jobs, nodes, what, local=()):
     """Every job placed to its count, every eval complete and no node
     over capacity, recomputed from /v1/allocations and /v1/nodes;
-    returns ({job id: sorted (alloc name, node name)}, alloc ids)."""
-    served = {n["id"]: n for n in api.list_nodes()}
-    if len(served) != len(nodes) or any(
-            n["status"] != "ready" for n in served.values()):
-        fail(f"{what}: /v1/nodes lists {len(served)} nodes, "
-             f"{sum(n['status'] == 'ready' for n in served.values())} "
-             f"ready, of {len(nodes)}")
+    returns ({job id: sorted (alloc name, node name)}, alloc ids).
+    `local` names the agent's own client nodes: /v1/nodes lists them
+    ready beside `nodes`, and their allocs are not counted."""
+    listed = api.list_nodes()
+    served = {n["id"]: n for n in listed if n["name"] not in local}
+    own = {n["id"] for n in listed if n["name"] in local}
+    if len(served) != len(nodes) or len(own) != len(local) or any(
+            n["status"] != "ready" for n in listed):
+        fail(f"{what}: /v1/nodes lists {len(listed)} nodes, "
+             f"{sum(n['status'] == 'ready' for n in listed)} ready, of "
+             f"{len(nodes)} and the local {list(local)}")
     allocs = api.list_allocations()
     by_node, places, ids = {}, {}, set()
     for a in allocs:
-        if a["desired_status"] != "run":
+        if a["desired_status"] != "run" or a["node_id"] in own:
             continue
         by_node[a["node_id"]] = by_node.get(a["node_id"], 0) + 1
         places.setdefault(a["job_id"], []).append(
@@ -4239,22 +4287,391 @@ def agent_in_process(nodes, info, jobs, device, tmp):
         rx.close()
 
 
-def agent_subprocess(nodes, info, device_args, tmp):
-    """Part (b): `python -m nomad_tpu_torch agent -dev -clients 0` as a
-    user starts it (no -device: the card), nodes over its RPC port,
-    `python -m nomad_tpu_torch job run` of the service file, SIGTERM."""
+def agent_phase(nodes, info, device=None, jobs=AGENT_JOBS):
+    """Phase 14 (see the module's docstring). Returns the launches of its
+    jobs. `device="cpu"` rehearses it on the CPU."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="agent-phase-")
+    try:
+        launches = agent_in_process(nodes, info, jobs, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"agent phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# phase 15: the node agent on the card (client/, plugins/): the dev
+# agent's local client, a client that fingerprints the card, and the
+# agent as a user starts it
+CLIENT_WAIT_S = 60
+CLIENT_KERNELS = ("chunked", "scatter_set")
+GPU_CLIENT = "gpu-client"
+DEV_CLIENT = "dev-client-0"
+# the device job's task holds the card this long, so that the second
+# device job meets it exhausted
+DEVICE_TASK_S = 3
+PINNED_COUNT = 3
+# the device group a CPU rehearsal configures in place of the card's
+REHEARSAL_GPU = "rehearsal-gpu"
+
+
+def device_hcl(job_id):
+    """A batch job of one raw_exec task that prints its alloc id and
+    holds one card for DEVICE_TASK_S seconds."""
+    return f'''job "{job_id}" {{
+  datacenters = ["dc1"]
+  type        = "batch"
+  group "g" {{
+    count = 1
+    task "t" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sh"
+        args    = ["-c", "echo $NOMAD_ALLOC_ID; sleep {DEVICE_TASK_S}"]
+      }}
+      resources {{
+        cpu    = 100
+        memory = 64
+        device "gpu" {{
+          count = 1
+        }}
+      }}
+    }}
+  }}
+}}
+'''
+
+
+def pinned_hcl(job_id, count=PINNED_COUNT):
+    """A service job of `count` mock_driver tasks on the dev agent's
+    local client."""
+    return f'''job "{job_id}" {{
+  datacenters = ["dc1"]
+  type        = "service"
+  constraint {{
+    attribute = "${{node.unique.name}}"
+    value     = "{DEV_CLIENT}"
+  }}
+  group "g" {{
+    count = {count}
+    task "t" {{
+      driver = "mock_driver"
+      config {{
+        run_for = "3600s"
+      }}
+      resources {{
+        cpu    = 100
+        memory = 64
+      }}
+    }}
+  }}
+}}
+'''
+
+
+def _wait_for(what, pred, timeout_s=CLIENT_WAIT_S, every_s=0.02):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > deadline:
+            fail(f"{what}: not reached in {timeout_s} s")
+        time.sleep(every_s)
+
+
+def _allocs_in(store, job_id, status):
+    allocs = store.allocs_by_job("default", job_id)
+    return allocs if allocs and all(
+        a.client_status == status for a in allocs) else []
+
+
+class _AllocWatch:
+    """Polls the store every 5 ms from a thread of its own and keeps the
+    time each alloc of `job_id` was first seen placed."""
+
+    def __init__(self, store, job_id):
+        import threading
+        self.store, self.job_id = store, job_id
+        self.placed = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            for a in self.store.allocs_by_job("default", self.job_id):
+                self.placed.setdefault(a.id, time.time())
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def _card_group(device):
+    """The device group gpu-client must list: the card's, or on a CPU
+    rehearsal the one it is configured with."""
+    from nomad_tpu_torch.models import NodeDevice, NodeDeviceResource
+    if device is None:
+        import torch
+        n = torch.cuda.device_count()
+        name = torch.cuda.get_device_name(0)
+    else:
+        n, name = 1, REHEARSAL_GPU
+    return NodeDeviceResource(
+        vendor="nvidia", type="gpu", name=name.replace(" ", "-").lower(),
+        attributes={"count": n},
+        instances=[NodeDevice(id=f"gpu-{i}", healthy=True)
+                   for i in range(n)])
+
+
+def client_reference(client_nodes, nodes, parsed, names):
+    """The two clients' nodes, then the 10,000, and the parsed jobs in
+    the same order through an in-process Server(device="cpu") with no
+    client (its allocs stay pending): {job id: sorted (alloc name, node
+    name, device ids)}."""
+    import copy
+    from nomad_tpu_torch.server import Server, ServerConfig
+    s = Server(ServerConfig(num_schedulers=1,
+                            heartbeat_ttl_s=AGENT_HEARTBEAT_TTL_S),
+               device="cpu")
+    s.start()
+    try:
+        for node in list(client_nodes) + list(nodes):
+            s.register_node(copy.deepcopy(node))
+        out = {}
+        for job in parsed:
+            s.register_job(copy.deepcopy(job))
+            _wait_for(f"client phase: the CPU server's {job.id}",
+                      lambda: (evs := s.store.evals_by_job(
+                          job.namespace, job.id)) and all(
+                          e.status in ("complete", "blocked")
+                          for e in evs))
+            out[job.id] = _placements(s.store, job.id, names)
+        return out
+    finally:
+        s.shutdown()
+
+
+def _placements(store, job_id, names):
+    out = []
+    for a in store.allocs_by_job("default", job_id):
+        devs = []
+        if a.allocated_resources is not None:
+            for tr in a.allocated_resources.tasks.values():
+                for d in tr.devices:
+                    devs += list(d.device_ids)
+        out.append((a.name, names.get(a.node_id), tuple(devs)))
+    return sorted(out)
+
+
+def client_in_process(nodes, info, device, tmp):
+    """Part (a) of phase 15 (see the module's docstring). Returns the
+    launches of its jobs."""
+    import os
+    import torch
+    from nomad_tpu_torch.cli.main import build_parser, start_agent
+    from nomad_tpu_torch.client import Client, ClientConfig
+    from nomad_tpu_torch.client.agent import fingerprint_accelerator_devices
+    from nomad_tpu_torch.jobspec import parse_job_file
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.plugins.device_client import ExternalDevicePlugin
+    from nomad_tpu_torch.utils.codec import to_wire
+    what = "client phase (a)"
+    argv = ["agent", "-dev", "-clients", "1", "-num-schedulers", "1",
+            "-http-port", "0", "-rpc-port", "0",
+            "-heartbeat-ttl", str(AGENT_HEARTBEAT_TTL_S)]
+    if device is not None:
+        argv += ["-device", device]
+    agent = start_agent(build_parser().parse_args(argv))
+    gpu = None
+    plugin = ExternalDevicePlugin()
+    try:
+        s = agent.server
+        if device is None and s.device.type != "cuda":
+            fail(f"{what}: the agent schedules on {s.device}")
+        if len(agent.clients) != 1:
+            fail(f"{what}: the dev agent runs {len(agent.clients)} clients")
+        addr = f"http://127.0.0.1:{agent.api.port}"
+        want_group = to_wire(_card_group(device))
+        t0 = time.perf_counter()
+        groups = fingerprint_accelerator_devices()
+        fp_s = time.perf_counter() - t0
+        if device is None and [to_wire(g) for g in groups] != [want_group]:
+            fail(f"{what}: fingerprint_accelerator_devices() gave "
+                 f"{[to_wire(g) for g in groups]}, not [{want_group}]")
+        t0 = time.perf_counter()
+        gpu = Client(s, ClientConfig(
+            node_name=GPU_CLIENT, fingerprint_accelerators=device is None,
+            plugin_device_fingerprint=False,
+            devices=() if device is None else (_card_group(device),),
+            alloc_dir=os.path.join(tmp, "gpu-allocs")))
+        client_s = time.perf_counter() - t0
+        got_groups = [to_wire(g) for g in gpu.node.node_resources.devices]
+        if got_groups != [want_group]:
+            fail(f"{what}: {GPU_CLIENT}'s node lists {got_groups}")
+        gpu.start()
+        local = agent.clients[0]
+        _wait_for(f"{what}: both clients ready", lambda: all(
+            (n := s.store.node_by_id(c.node.id)) is not None
+            and n.status == "ready" for c in (local, gpu)))
+        client_nodes = [s.store.node_by_id(c.node.id) for c in (local, gpu)]
+        seed_s = _register_over_rpc(agent.rpc.addr, nodes, AGENT_SEEDERS)
+        names = {n.id: n.name for n in nodes}
+        names.update({n.id: n.name for n in client_nodes})
+        jobs = (("gpu-batch", device_hcl("gpu-batch")),
+                ("gpu-batch-2", device_hcl("gpu-batch-2")),
+                ("pinned", pinned_hcl("pinned")))
+        files = []
+        for job_id, text in jobs:
+            path = os.path.join(tmp, f"{job_id}.hcl")
+            with open(path, "w") as f:
+                f.write(text)
+            files.append(path)
+        parsed = [parse_job_file(p) for p in files]
+        watch = _AllocWatch(s.store, "gpu-batch")
+        if device is None:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        walls = {}
+        try:
+            rc, out, walls["gpu-batch"] = _cli(addr, "", "job", "run",
+                                               files[0])
+            if rc != 0 or 'finished with status "complete"' not in out:
+                fail(f"{what}: job run gpu-batch exited {rc}: {out}")
+            # the second asks the card the first holds
+            rc, out, walls["gpu-batch-2"] = _cli(addr, "", "job", "run",
+                                                 files[1])
+            if rc != 0 or "Blocked eval" not in out:
+                fail(f"{what}: job run gpu-batch-2 exited {rc} without a "
+                     f"blocked eval: {out}")
+            evs = s.store.evals_by_job("default", "gpu-batch-2")
+            failed = [e.failed_tg_allocs for e in evs if e.failed_tg_allocs]
+            blocked = [e for e in evs if e.status == "blocked"]
+            if not failed or "device" not in json.dumps(
+                    to_wire(failed[0])).lower() or not blocked or \
+                    s.store.allocs_by_job("default", "gpu-batch-2"):
+                fail(f"{what}: gpu-batch-2 has failed_tg_allocs {failed}, "
+                     f"{len(blocked)} blocked evals and allocs "
+                     f"{s.store.allocs_by_job('default', 'gpu-batch-2')}")
+            if _allocs_in(s.store, "gpu-batch", "complete"):
+                fail(f"{what}: gpu-batch released the card before "
+                     f"gpu-batch-2 was checked")
+            # stopped before the first's release could wake its eval
+            rc, out, _ = _cli(addr, "", "job", "stop", "-detach",
+                              "gpu-batch-2")
+            if rc != 0:
+                fail(f"{what}: job stop gpu-batch-2 exited {rc}: {out}")
+            t0 = time.perf_counter()
+            _wait_for(f"{what}: gpu-batch complete",
+                      lambda: _allocs_in(s.store, "gpu-batch", "complete"))
+            done_s = walls["gpu-batch"] + time.perf_counter() - t0
+        finally:
+            watch.close()
+        alloc = s.store.allocs_by_job("default", "gpu-batch")[0]
+        if alloc.node_id != gpu.node.id:
+            fail(f"{what}: gpu-batch landed on {names.get(alloc.node_id)}")
+        ts = alloc.task_states["t"]
+        start_latency = ts.started_at - watch.placed[alloc.id]
+        rc, out, logs_s = _cli(addr, "", "alloc", "logs", alloc.id, "t")
+        if rc != 0 or alloc.id not in out:
+            fail(f"{what}: alloc logs exited {rc} without the alloc id: "
+                 f"{out!r}")
+        # the service job pinned to the dev agent's local client
+        rc, out, walls["pinned"] = _cli(addr, "", "job", "run", files[2])
+        if rc != 0 or 'finished with status "complete"' not in out:
+            fail(f"{what}: job run pinned exited {rc}: {out}")
+        t0 = time.perf_counter()
+        _wait_for(f"{what}: pinned running", lambda: len(_allocs_in(
+            s.store, "pinned", "running")) == PINNED_COUNT)
+        running_s = walls["pinned"] + time.perf_counter() - t0
+        if device is None:
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        places = {j: _placements(s.store, j, names)
+                  for j in ("gpu-batch", "gpu-batch-2", "pinned")}
+        if {p[1] for p in places["pinned"]} != {DEV_CLIENT}:
+            fail(f"{what}: pinned placed {places['pinned']}")
+        if not places["gpu-batch"][0][2]:
+            fail(f"{what}: gpu-batch's alloc holds no device instance")
+        rc, out, stop_s = _cli(addr, "", "job", "stop", "pinned")
+        if rc != 0:
+            fail(f"{what}: job stop pinned exited {rc}: {out}")
+        t0 = time.perf_counter()
+        _wait_for(f"{what}: pinned complete after the stop", lambda: len(
+            _allocs_in(s.store, "pinned", "complete")) == PINNED_COUNT)
+        stop_s += time.perf_counter() - t0
+        # the same nodes and jobs through a CPU server
+        ref = client_reference(client_nodes, nodes, parsed, names)
+        if ref != places:
+            diff = {j: (places[j], ref[j]) for j in places
+                    if places[j] != ref[j]}
+            fail(f"{what}: placements differ from the CPU server's: "
+                 f"{diff}")
+        # the card behind the device plugin's process boundary
+        t0 = time.perf_counter()
+        plugin_groups = [to_wire(g) for g in plugin.fingerprint()]
+        plugin_s = time.perf_counter() - t0
+        stats = plugin.stats()
+        if device is None:
+            if plugin_groups != [want_group]:
+                fail(f"{what}: the device plugin fingerprints "
+                     f"{plugin_groups}")
+            if not stats or any(st["memory_used_bytes"] <= 0
+                                for st in stats):
+                fail(f"{what}: the device plugin's stats {stats}")
+        _wait_for(f"{what}: both clients' heartbeat payloads", lambda:
+                  s.cluster_stats()["nodes_reporting"] >= 2,
+                  timeout_s=3 * local.config.heartbeat_interval_s + 10)
+        cs = s.cluster_stats()
+        if device is None:
+            for name in CLIENT_KERNELS:
+                if launches.get(name, 0) < 1:
+                    fail(f"{what}: the {name} kernel was never launched "
+                         f"({launches})")
+        used = ", ".join(f"{st['id']} {st['memory_used_bytes']} of "
+                         f"{st['memory_limit_bytes']} bytes used"
+                         for st in stats)
+        print(f"{what}: {GPU_CLIENT} lists {want_group['name']} x "
+              f"{len(want_group['instances'])} (vendor "
+              f"{want_group['vendor']}); fingerprint "
+              f"{fp_s:.3f} s, the client's construction {client_s:.3f} s, "
+              f"the device plugin's fingerprint (a process of its own) "
+              f"{plugin_s:.3f} s, its stats {used or 'none'}; "
+              f"{len(nodes)} nodes over RPC in {seed_s:.3f} s; job run "
+              f"gpu-batch {walls['gpu-batch']:.3f} s (to complete "
+              f"{done_s:.3f} s, on {places['gpu-batch'][0][1]} with "
+              f"{list(places['gpu-batch'][0][2])}), task start latency "
+              f"{start_latency:.3f} s (placed -> started), gpu-batch-2 "
+              f"blocked in {walls['gpu-batch-2']:.3f} s; alloc logs "
+              f"{logs_s:.3f} s; job run pinned {walls['pinned']:.3f} s "
+              f"(to {PINNED_COUNT} running {running_s:.3f} s), job stop to "
+              f"complete {stop_s:.3f} s; placements identical to an "
+              f"in-process Server(device=\"cpu\"); cluster_stats "
+              f"nodes_reporting {cs['nodes_reporting']:.0f} of "
+              f"{cs['nodes_total']:.0f}; launches {launches} "
+              f"({info['raw']})", flush=True)
+        return launches
+    finally:
+        plugin.shutdown()
+        if gpu is not None:
+            gpu.shutdown()
+        agent.shutdown()
+
+
+def client_subprocess(nodes, info, device_args, tmp):
+    """Part (b) of phase 15 (see the module's docstring)."""
     import os
     import signal
     import subprocess
     import torch
     from nomad_tpu_torch.api import ApiClient
-    what = "agent phase (b)"
+    what = "client phase (b)"
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here)
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
-         "-clients", "0", "-http-port", "0", "-rpc-port", "0",
+         "-http-port", "0", "-rpc-port", "0",
          "-heartbeat-ttl", str(AGENT_HEARTBEAT_TTL_S), *device_args],
         cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
@@ -4272,25 +4689,58 @@ def agent_subprocess(nodes, info, device_args, tmp):
         if not device_args and \
                 torch.cuda.get_device_name(0) not in fields["Device"]:
             fail(f"{what}: the start lines name {fields['Device']!r}")
+        if fields.get("Nodes") != "1":
+            fail(f"{what}: the start lines name {fields.get('Nodes')!r} "
+                 f"nodes, not 1")
         addr = fields["HTTP API"]
         api = ApiClient(addr)
-        leader = api._request("GET", "/v1/status/leader")
-        seed_s = _register_over_rpc(fields["RPC"], nodes, AGENT_SEEDERS)
-        job_id, kind, count, _arm = AGENT_JOBS[0]
-        path = os.path.join(tmp, f"{job_id}.hcl")
-        with open(path, "w") as f:
-            f.write(agent_hcl(job_id, kind, count))
+        cli = [sys.executable, "-m", "nomad_tpu_torch"]
         t1 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
-             "job", "run", path], cwd=here, env=env, capture_output=True,
-            text=True, timeout=AGENT_WAIT_S)
+        init = subprocess.run(cli + ["job", "init", "example.nomad"],
+                              cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=CLIENT_WAIT_S)
+        if init.returncode != 0:
+            fail(f"{what}: job init exited {init.returncode}: "
+                 f"{init.stderr}")
+        run = subprocess.run(cli + ["-address", addr, "job", "run",
+                                    "example.nomad"],
+                             cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=CLIENT_WAIT_S)
         run_s = time.perf_counter() - t1
         if run.returncode != 0:
             fail(f"{what}: job run exited {run.returncode}: "
                  f"{run.stdout} {run.stderr}")
+        nodes_by_id = {n["id"]: n["name"] for n in api.list_nodes()}
+
+        def running():
+            allocs = api._request("GET", "/v1/job/example/allocations")
+            return allocs and all(
+                a["client_status"] == "running"
+                and nodes_by_id.get(a["node_id"]) == DEV_CLIENT
+                for a in allocs)
+        _wait_for(f"{what}: example running on {DEV_CLIENT}", running,
+                  every_s=0.1)
+        running_s = time.perf_counter() - t1
+        rc, out, status_s = _cli(addr, "", "job", "status", "example")
+        if rc != 0 or "example" not in out or "running" not in out:
+            fail(f"{what}: job status exited {rc}: {out}")
+        # phase 14's subprocess checks: the leader answers, nodes over
+        # RPC all ready, a job run placed to its count on them with its
+        # evals complete and no node over capacity
+        leader = api._request("GET", "/v1/status/leader")
+        if not leader:
+            fail(f"{what}: /v1/status/leader answers {leader!r}")
+        seed_s = _register_over_rpc(fields["RPC"], nodes, AGENT_SEEDERS)
+        job_id, kind, count, _arm = AGENT_JOBS[0]
+        path = os.path.join(tmp, f"{job_id}.hcl")
+        with open(path, "w") as f:
+            f.write(agent_hcl(job_id, kind, count, not_on=DEV_CLIENT))
+        rc, out, svc_s = _cli(addr, "", "job", "run", path)
+        if rc != 0 or 'finished with status "complete"' not in out:
+            fail(f"{what}: job run {job_id} exited {rc}: {out}")
         names = {n.id: n.name for n in nodes}
-        agent_placements(api, names, AGENT_JOBS[:1], nodes, what)
+        agent_placements(api, names, AGENT_JOBS[:1], nodes, what,
+                         local=(DEV_CLIENT,))
         counters = {c["Name"]: c["Sum"]
                     for c in api._request("GET", "/v1/metrics")["Counters"]}
         dispatches = counters.get("nomad.select.dispatches", 0)
@@ -4302,33 +4752,35 @@ def agent_subprocess(nodes, info, device_args, tmp):
             fail(f"{what}: the agent exited {rc} on SIGTERM: "
                  f"{proc.stderr.read()[-2000:]}")
         print(f"{what}: agent up in {start_s:.3f} s on "
-              f"{fields['Device']}, leader {leader}; {len(nodes)} nodes "
-              f"over RPC in {seed_s:.3f} s; `job run` (a process of its "
-              f"own) {run_s:.3f} s; nomad.select.dispatches "
-              f"{dispatches:.0f}; exit 0 on SIGTERM ({info['raw']})",
-              flush=True)
+              f"{fields['Device']} with {fields['Nodes']} node, leader "
+              f"{leader}; job init + "
+              f"job run (processes of their own) {run_s:.3f} s, running "
+              f"on {DEV_CLIENT} {running_s:.3f} s after; job status "
+              f"{status_s:.3f} s; {len(nodes)} nodes over RPC in "
+              f"{seed_s:.3f} s; job run {job_id} {svc_s:.3f} s; "
+              f"nomad.select.dispatches {dispatches:.0f}; exit 0 on "
+              f"SIGTERM ({info['raw']})", flush=True)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
 
 
-def agent_phase(nodes, info, device=None, sub_nodes=AGENT_SUB_NODES,
-                jobs=AGENT_JOBS):
-    """Phase 14 (see the module's docstring). Returns the launches of
+def client_phase(nodes, info, device=None, sub_nodes=AGENT_SUB_NODES):
+    """Phase 15 (see the module's docstring). Returns the launches of
     part (a)'s jobs. `device="cpu"` rehearses it on the CPU."""
     import shutil
     import tempfile
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="agent-phase-")
+    tmp = tempfile.mkdtemp(prefix="client-phase-")
     try:
-        launches = agent_in_process(nodes, info, jobs, device, tmp)
-        agent_subprocess(nodes[:sub_nodes], info,
-                         [] if device is None else ["-device", device],
-                         tmp)
+        launches = client_in_process(nodes, info, device, tmp)
+        client_subprocess(nodes[:sub_nodes], info,
+                          [] if device is None else ["-device", device],
+                          tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"agent phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"client phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -4395,6 +4847,7 @@ def main():
     restart_launches = restart_phase(nodes, mock, models, info)
     ring_launches = ring_phase(nodes, mock, models, single_manifest, info)
     agent_launches = agent_phase(nodes, info)
+    client_launches = client_phase(nodes, info)
     # each sharded kernel's launches on its main path: the grid route's
     # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
     grid = ("scan_sharded",) + GRID_ROUTE
@@ -4495,6 +4948,7 @@ def main():
         rec["restart_launches"] = restart_launches.get(rec["name"], 0)
         rec["ring_launches"] = ring_launches.get(rec["name"], 0)
         rec["agent_launches"] = agent_launches.get(rec["name"], 0)
+        rec["client_launches"] = client_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

@@ -28,12 +28,25 @@ set, and followers schedule on their own devices against their own
 replicas, dequeuing from the leader's broker and submitting plans to its
 applier over RPC (server/follower_sched.py).
 
-`python -m nomad_tpu_torch agent -dev -clients 0` is the agent as a user
-runs it (cli/main.py: `start_agent` builds the Server on `-device`, the
-card unless `-device cpu`, its RpcServer and the HTTP API of api/http.py;
-nodes join over the RPC port with Node.Register), and `python -m
-nomad_tpu_torch job run <file.hcl>` parses a jobspec (jobspec/) and
-submits it through api/client.py. With `-acl-enabled` every request
+`python -m nomad_tpu_torch agent -dev` is the agent as a user runs it
+(cli/main.py: `start_agent` builds the Server on `-device`, the card
+unless `-device cpu`, its RpcServer, the HTTP API of api/http.py and
+`-clients N` local clients; `agent -client -servers` joins a client to a
+server over RPC), and `python -m nomad_tpu_torch job run <file.hcl>`
+parses a jobspec (jobspec/) and submits it through api/client.py.
+
+The node agent is client/: `Client(server or transport, ClientConfig())`
+fingerprints its node, registers, heartbeats (with its host-stats
+payload, client/stats.py), watches its allocs and runs their tasks
+through the task drivers (client/drivers.py: mock_driver, raw_exec,
+exec with its out-of-process executor, java, qemu, docker), each alloc
+in its own dir tree with its hooks, services, Vault lease and durable
+state; servers forward logs, fs and exec to its RPC listener
+(client/remote.py). With `ClientConfig(fingerprint_accelerators=True)`
+it lists the CUDA cards (torch.cuda) as a device group of type "gpu",
+vendor "nvidia", in this process or behind the device plugin's process
+boundary (plugins/device_client.py); a job asking for `device "gpu"` is
+placed onto them through the kernels' device slots. With `-acl-enabled` every request
 resolves its token against the ACL engine (acl/acl.py); the leader runs
 the event-sink manager (server/event_sink.py) and, outside the
 authoritative region, ACL and namespace replication
@@ -83,7 +96,13 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   utils/gcsafe.py, server/persistence.py, server/connect_hook.py,
   jobspec/*.py, acl/__init__.py, acl/acl.py (its docstring's paths
   relative), api/__init__.py, api/client.py, api/ui.py, cli/__init__.py,
-  cli/agent_config.py, utils/monitor.py, __main__.py.
+  cli/agent_config.py, utils/monitor.py, __main__.py,
+  client/__init__.py, client/allocdir.py, client/allocwatcher.py,
+  client/docklog.py, client/fs_service.py, client/hooks.py,
+  client/logmon.py, client/remote.py, client/services_hook.py,
+  client/state_db.py, client/taskenv.py, client/vaultclient.py,
+  plugins/__init__.py, plugins/hclspec.py, rpc/transport.py,
+  server/vault.py.
 
 Copies changed only where they reached modules this package does not
 carry, or to carry the device:
@@ -95,9 +114,32 @@ carry, or to carry the device:
                         the JAX package's swallows a failed upload, and
                         PrefetchThread runs it on a thread whose join()
                         re-raises;
-  server/vault.py       the record the store holds and a snapshot
-                        carries (VaultAccessor) only, not the token
-                        authority beside it;
+  client/agent.py       fingerprint_accelerator_devices reads the CUDA
+                        cards through torch.cuda (vendor "nvidia") and
+                        raises a CUDA error where the JAX package's
+                        returns []; ClientConfig(csi_plugins=...) raises
+                        ValueError (CSI is not carried); the cloud probes'
+                        metadata URLs come from cloud_metadata_urls;
+                        no NOMAD_CLOUD_FINGERPRINT or
+                        NOMAD_TPU_CLIENT_STATS switch
+                        (stats_sample_interval_s=0 is the off arm);
+  client/stats.py       StatsRing, the JAX package's telemetry ring in
+                        place of telemetry/'s collector, without the
+                        race-sanitizer hook and the switch;
+  client/fingerprint.py  metadata URLs as arguments, never from the
+                        environment;
+  client/executor.py    the tasks' cgroups under nomad_tpu_torch/, apart
+                        from the JAX package's nomad_tpu/;
+  client/drivers.py, client/docker_driver.py, client/exec_helper.py,
+  client/executor_server.py, plugins/driver_client.py,
+  plugins/launcher.py   the child processes run this package's modules;
+                        the executor's token under this package's name;
+                        the launcher without the CSI plugins;
+  plugins/base.py       the handshake cookie under this package's name;
+  plugins/device_client.py  fingerprint, reservation
+                        (CUDA_VISIBLE_DEVICES, the cards' indices) and
+                        memory stats (torch.cuda.mem_get_info /
+                        memory_stats) of the CUDA cards;
   server/event_sink.py  the manager keeps every watcher and writer it
                         stopped until join() waits for them (the
                         server's shutdown), and a watcher's sleep ends
@@ -107,18 +149,18 @@ carry, or to carry the device:
                         threads (the server's shutdown and a revoked
                         leadership's);
   api/http.py           without the flight recorder's /v1/operator/trace
-                        route (an unknown route, 404) and the co-located
-                        alloc-dir reads of client/fs_service (the fs
-                        routes always forward to the owning client over
-                        RPC); shutdown closes the listening socket;
+                        route (an unknown route, 404); alloc_dir_bases,
+                        where given, are the only alloc dirs it reads
+                        (no temporary-directory base beside them);
+                        shutdown closes the listening socket;
   cli/main.py           `agent` split into start_agent(args), which
                         builds and starts the Server on `-device` (the
                         card unless `-device cpu`; no probe of the
                         accelerator and no fallback to the CPU), its
                         RpcServer and the HTTP API and returns them as
-                        an Agent, and the signal loop; `-heartbeat-ttl`;
-                        local clients (`-dev`'s default `-clients 1`,
-                        `-client`) exit 1, since client/ is not carried;
+                        an Agent with its local clients (the HTTP API
+                        reads their alloc dirs, and none without them),
+                        and the signal loop; `-heartbeat-ttl`;
                         `operator debug` bundles no chaos artifact;
                         `dev lint` and `dev chaos` exit 1 (analysis/ and
                         chaos/ are not carried); the environment it
@@ -128,12 +170,8 @@ carry, or to carry the device:
   rpc/codec.py          FrameCodec on python-msgpack only (no native
                         codec slot), its reads linear in a frame's size;
   rpc/client.py, rpc/__init__.py   verbatim;
-  rpc/server.py         the Vault verbs raise RpcError (no token
-                        authority), Node.Heartbeat drops its host-stats
-                        payload (no cluster rollup), and shutdown closes
-                        the live connections and joins the listener;
-  rpc/transport.py      InProcTransport without the Vault verbs, its
-                        heartbeat without the stats payload;
+  rpc/server.py         shutdown closes the live connections and joins
+                        the listener;
   server/plan_applier.py  without the NOMAD_TPU_PLAN_GROUP switch, the
                         flight-recorder spans, the chaos fault hooks,
                         the process-wide GROUP_STATS and the governor's
@@ -169,7 +207,6 @@ and have no configure() hook (reconcile_columnar.py, preemption.py,
 feasible_compiler.py, whose push_combined takes the device, spread.py,
 node_attr_index.py).
   scheduler/harness.py  Harness(store, device);
-  plugins/__init__.py   exports nothing (only psstructs is carried).
 
 Written for the port:
   ops/select.py         the kernel layer, rewritten for torch, with the
@@ -228,16 +265,17 @@ Written for the port:
                         hooks, and the job, node, alloc, eval, deployment,
                         namespace, service-catalog and CSI endpoints with
                         the volume watcher (its pass a second, ended at
-                        once by shutdown's event; without the Vault reap),
+                        once by shutdown's event),
                         the ACL endpoints and resolve_token, the event-sink
                         endpoints (the manager enabled with leadership,
                         stopped and joined first at shutdown), replication
                         started by a non-authoritative leader, and
                         federation (multiregion register and
-                        deregister_job_global); not the Vault token
-                        authority, the heartbeats' host-stats rollup or
-                        the governor (the persistence and ingest gauges
-                        among them), tracer and telemetry;
+                        deregister_job_global), the Vault token
+                        authority with the volume watcher's reap, and
+                        heartbeat(node_id, stats) with cluster_stats;
+                        not the governor (the persistence and ingest
+                        gauges among them), tracer and telemetry;
   server/heartbeat.py   HeartbeatTimers: every node's heartbeat TTL on one
                         thread (a heap of deadlines), where the JAX package
                         arms a threading.Timer thread per node;

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import os
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -54,8 +55,19 @@ class PlainText:
 
 class HTTPApiServer:
     def __init__(self, server, host: str = "127.0.0.1", port: int = 4646,
-                 region_peers=None):
+                 alloc_dir_bases=None, region_peers=None):
         self.server = server
+        # where co-located clients keep alloc dirs — lets the agent
+        # serve fs/logs endpoints directly (the reference forwards
+        # these to the client over RPC, client/fs_endpoint.go). Given,
+        # exactly these (an agent passes its local clients' and none
+        # without them); left out, the clients' default under the
+        # temporary directory
+        if alloc_dir_bases is None:
+            import tempfile
+            alloc_dir_bases = [
+                os.path.join(tempfile.gettempdir(), "nomad-tpu-allocs")]
+        self.alloc_dir_bases = list(alloc_dir_bases)
         # multi-region federation (nomad/rpc.go forwardRegion): other
         # regions' agent addresses; a request stamped with a foreign
         # region proxies there wholesale, and the remote region
@@ -1278,6 +1290,13 @@ class HTTPApiServer:
         return {"Matches": matches, "Truncations": truncations}
 
     # -- event stream (nomad/stream/ndjson.go over chunked HTTP) --------
+    def _alloc_base(self, alloc_id: str) -> Optional[str]:
+        for base in self.alloc_dir_bases:
+            p = os.path.join(base, alloc_id)
+            if os.path.isdir(p):
+                return p
+        return None
+
     def _alloc_in_ns(self, alloc_prefix: str, ns: str):
         return self._unique_prefix(
             [a for a in self.server.store.allocs() if a.namespace == ns],
@@ -1331,23 +1350,29 @@ class HTTPApiServer:
     def _client_fs(self, op: str, alloc_prefix: str, q: dict, ns: str,
                    idx: int):
         """/v1/client/fs/{logs,ls,cat,stream} (client/fs_endpoint.go):
-        serve an alloc's log files and directory tree, forwarded to the
-        owning client over RPC (this agent runs no client, so no alloc
-        dir is co-located). The alloc must live in the request's
-        (ACL-checked) namespace."""
+        serve an alloc's log files and directory tree — from the local
+        alloc dir when co-located, else forwarded to the owning client
+        over RPC. The alloc must live in the request's (ACL-checked)
+        namespace."""
         import base64
 
+        from ..client import fs_service
         alloc = self._alloc_in_ns(alloc_prefix, ns)
         if alloc is None:
             return None
+        base = self._alloc_base(alloc.id)
         offset = int(q.get("offset", 0))
         if op == "logs":
             task = self._default_task(alloc, q.get("task", ""))
             stream = q.get("type", "stdout")
-            r = self._forward_client(
-                alloc, "ClientFS.Logs",
-                {"task": task, "type": stream, "offset": offset})
-            data, total = bytes(r.get("Data") or b""), r["Offset"]
+            if base is not None:
+                data, total = fs_service.read_logs(base, task, stream,
+                                                   offset)
+            else:
+                r = self._forward_client(
+                    alloc, "ClientFS.Logs",
+                    {"task": task, "type": stream, "offset": offset})
+                data, total = bytes(r.get("Data") or b""), r["Offset"]
             return {"Data": data.decode("utf-8", "replace"),
                     "Offset": total}, idx
         if op == "stream":
@@ -1355,13 +1380,19 @@ class HTTPApiServer:
             task = self._default_task(alloc, q.get("task", "")) \
                 if log_type else q.get("task", "")
             wait_s = min(float(q.get("wait_s", 0.0)), 30.0)
-            r = self._forward_client(
-                alloc, "ClientFS.Stream",
-                {"path": q.get("path"), "offset": offset,
-                 "task": task, "log_type": log_type,
-                 "wait_s": wait_s})
+            if base is not None:
+                frames = fs_service.stream_frames(
+                    base, q.get("path"), offset, task=task,
+                    log_type=log_type, wait_s=wait_s)
+            else:
+                r = self._forward_client(
+                    alloc, "ClientFS.Stream",
+                    {"path": q.get("path"), "offset": offset,
+                     "task": task, "log_type": log_type,
+                     "wait_s": wait_s})
+                frames = r["Frames"]
             out = []
-            for f in r["Frames"]:
+            for f in frames:
                 f = dict(f)
                 f["Data"] = base64.b64encode(
                     bytes(f.get("Data") or b"")).decode()
@@ -1369,12 +1400,18 @@ class HTTPApiServer:
             return {"Frames": out}, idx
         rel = q.get("path", "/")
         if op == "ls":
-            entries = self._forward_client(
-                alloc, "ClientFS.List", {"path": rel})["Entries"]
+            if base is not None:
+                entries = fs_service.list_dir(base, rel)
+            else:
+                entries = self._forward_client(
+                    alloc, "ClientFS.List", {"path": rel})["Entries"]
             return (entries, idx) if entries is not None else None
         # cat
-        data = self._forward_client(
-            alloc, "ClientFS.Cat", {"path": rel})["Data"]
+        if base is not None:
+            data = fs_service.cat_file(base, rel)
+        else:
+            data = self._forward_client(
+                alloc, "ClientFS.Cat", {"path": rel})["Data"]
         if data is None:
             return None
         return {"Data": bytes(data).decode("utf-8", "replace")}, idx

@@ -12,6 +12,7 @@ import json
 import os
 import signal
 import sys
+import tempfile
 import time
 from typing import List, Optional
 
@@ -44,25 +45,25 @@ def parse_region_peers(specs) -> dict:
     return peers
 
 
-LOCAL_CLIENTS_MISSING = (
-    "local clients need the client/ package, which this port does not "
-    "carry yet (ROADMAP queue 1 item 5); run the agent with -dev "
-    "-clients 0 or -server and join nodes over its RPC port "
-    "(Node.Register)")
-
-
 class Agent:
-    """A started agent: its Server, RpcServer and HTTPApiServer."""
+    """A started agent: its Server, RpcServer and HTTPApiServer (None on
+    a client-only agent) and its local Clients."""
 
     def __init__(self, server, rpc, api):
         self.server = server
         self.rpc = rpc
         self.api = api
+        self.clients = []
 
     def shutdown(self) -> None:
-        self.api.shutdown()
-        self.rpc.shutdown()
-        self.server.shutdown()
+        if self.api is not None:
+            self.api.shutdown()
+        for c in self.clients:
+            c.shutdown()
+        if self.rpc is not None:
+            self.rpc.shutdown()
+        if self.server is not None:
+            self.server.shutdown()
 
 
 def _device_line(device) -> str:
@@ -72,27 +73,11 @@ def _device_line(device) -> str:
     return f"{device} (the kernels' plain versions)"
 
 
-def start_agent(args) -> Agent:
-    """Build and start the agent's server half from parsed `agent`
-    arguments: the Server on `-device` (the CUDA card unless `-device
-    cpu`; without a card this raises), its RpcServer (and raft with
-    -server-peers) and the HTTP API. A bad configuration raises
-    ValueError, as do local clients, which need the client/ package."""
-    if args.config:
-        from .agent_config import apply_to_args, load_agent_config
-        try:
-            apply_to_args(load_agent_config(args.config), args)
-        except (OSError, ValueError) as e:
-            raise ValueError(f"loading config {args.config}: {e}")
-    is_server = args.dev or args.server
-    is_client = args.dev or args.client
-    if not is_server and not is_client:
-        raise ValueError("specify -dev, -server and/or -client")
-    if is_client and (args.clients > 0 or not is_server):
-        raise ValueError(LOCAL_CLIENTS_MISSING)
-    region_peers = parse_region_peers(
-        getattr(args, "region_peers", None) or [])
-
+def _start_server(args, region_peers, alloc_dir_bases):
+    """The server half: the Server on `-device`, its RpcServer (and raft
+    with -server-peers) and the HTTP API, which reads the alloc dirs
+    under `alloc_dir_bases` itself, each started; on a failure what did
+    start is stopped and the error raised."""
     from ..api import HTTPApiServer
     from ..rpc import RpcServer
     from ..server import Server, ServerConfig
@@ -111,9 +96,8 @@ def start_agent(args) -> Agent:
                                      "") or "",
                                  data_dir=getattr(args, "data_dir", "")),
                     device=args.device or None)
-    # on a failure (a port already taken) stop what did start; a
-    # listener's shutdown waits for its serving loop, so only a started
-    # one is shut down
+    # a listener's shutdown waits for its serving loop, so only a
+    # started one is shut down
     started = []
     try:
         rpc = RpcServer(server, port=args.rpc_port)
@@ -126,14 +110,74 @@ def start_agent(args) -> Agent:
         rpc.start()
         started.append(rpc)
         # region_peers defaults from server.config inside HTTPApiServer
-        api = HTTPApiServer(server, port=args.http_port)
+        api = HTTPApiServer(server, port=args.http_port,
+                            alloc_dir_bases=alloc_dir_bases)
         api.start()
     except BaseException:
         for part in reversed(started):
             part.shutdown()
         server.shutdown()
         raise
-    return Agent(server, rpc, api)
+    return server, rpc, api
+
+
+def start_agent(args) -> Agent:
+    """Build and start an agent from parsed `agent` arguments. Its
+    server half (-dev, -server): the Server on `-device` (the CUDA card
+    unless `-device cpu`; without a card this raises), its RpcServer
+    (and raft with -server-peers) and the HTTP API. Its client half
+    (-dev, -client): `-clients N` local Clients, joined in-process to
+    this agent's server, or with -client alone over RemoteTransport to
+    `-servers`. A bad configuration raises ValueError."""
+    if args.config:
+        from .agent_config import apply_to_args, load_agent_config
+        try:
+            apply_to_args(load_agent_config(args.config), args)
+        except (OSError, ValueError) as e:
+            raise ValueError(f"loading config {args.config}: {e}")
+    is_server = args.dev or args.server
+    is_client = args.dev or args.client
+    if not is_server and not is_client:
+        raise ValueError("specify -dev, -server and/or -client")
+    if is_client and not is_server and not args.servers:
+        raise ValueError("-client requires -servers host:port")
+    region_peers = parse_region_peers(
+        getattr(args, "region_peers", None) or [])
+
+    server = rpc = api = None
+    if is_server:
+        # the fs and logs routes read the alloc dirs of this agent's own
+        # clients (AllocDir's default base unless -alloc-dir) and
+        # forward every other alloc's request to its client
+        local = is_client and args.clients > 0
+        bases = [args.alloc_dir_base or os.path.join(
+            tempfile.gettempdir(), "nomad-tpu-allocs")] if local else []
+        server, rpc, api = _start_server(args, region_peers, bases)
+    agent = Agent(server, rpc, api)
+    try:
+        from ..client import Client, ClientConfig
+        client_kw = dict(
+            alloc_dir=args.alloc_dir_base,
+            state_dir=getattr(args, "state_dir", None) or None,
+            datacenter=getattr(args, "datacenter", "") or "dc1",
+            meta=getattr(args, "client_meta", None) or {},
+            cloud_fingerprint=getattr(args, "cloud_fingerprint", False))
+        for i in range(args.clients if is_client else 0):
+            if server is not None:
+                c = Client(server, ClientConfig(
+                    node_name=args.node_name or f"dev-client-{i}",
+                    **client_kw))
+            else:
+                from ..rpc import RemoteTransport
+                c = Client(RemoteTransport(args.servers),
+                           ClientConfig(node_name=args.node_name or
+                                        f"client-{i}", **client_kw))
+            agent.clients.append(c)
+            c.start()
+    except BaseException:
+        agent.shutdown()
+        raise
+    return agent
 
 
 def cmd_agent(args) -> int:
@@ -142,12 +186,19 @@ def cmd_agent(args) -> int:
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
-    mode = "dev" if args.dev else "server"
+    mode = "dev" if args.dev else \
+        "+".join(m for m, on in (("server", args.server),
+                                 ("client", args.client)) if on)
     print(f"==> nomad-tpu agent started ({mode} mode)")
-    print(f"    HTTP API: http://127.0.0.1:{agent.api.port}")
-    print(f"    RPC:      {agent.rpc.addr}")
-    print(f"    Workers:  {args.num_schedulers}")
-    print(f"    Device:   {_device_line(agent.server.device)}")
+    if agent.api is not None:
+        print(f"    HTTP API: http://127.0.0.1:{agent.api.port}")
+    if agent.rpc is not None:
+        print(f"    RPC:      {agent.rpc.addr}")
+    if agent.clients:
+        print(f"    Nodes:    {len(agent.clients)}")
+    if agent.server is not None:
+        print(f"    Workers:  {args.num_schedulers}")
+        print(f"    Device:   {_device_line(agent.server.device)}")
     sys.stdout.flush()
 
     stop = []
@@ -550,7 +601,7 @@ def _render_host_stats(c: ApiClient, node_id: str) -> None:
         return
     if not hs.get("enabled", True):
         print("\nHost Resource Utilization\n  stats sampler disabled "
-              "on this node (NOMAD_TPU_CLIENT_STATS=0)")
+              "on this node (stats_sample_interval_s=0)")
         return
     mem = hs.get("Memory") or {}
     disk = (hs.get("DiskStats") or [{}])[0]

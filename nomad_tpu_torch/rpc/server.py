@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional
 
 from ..models import Allocation, Node
 from ..utils.codec import from_wire, to_wire
-from .codec import FrameCodec, RpcError, RpcRefused
+from .codec import FrameCodec, RpcRefused
 from ..utils.locks import make_lock
 
 LOG = logging.getLogger("nomad_tpu.rpc")
@@ -66,9 +66,8 @@ def node_methods(server) -> Dict[str, Any]:
         return {}
 
     def node_heartbeat(args):
-        # a heartbeat's host-stats payload is not kept: the server has
-        # no cluster rollup
-        return {"ttl_s": server.heartbeat(args["node_id"])}
+        return {"ttl_s": server.heartbeat(args["node_id"],
+                                          stats=args.get("stats"))}
 
     def node_update_alloc(args):
         allocs = [from_wire(Allocation, a) for a in args["allocs"]]
@@ -91,13 +90,13 @@ def node_methods(server) -> Dict[str, Any]:
     def node_get_client_allocs(args):
         return _get_client_allocs(server, args)
 
-    def node_derive_vault_token(_args):
-        raise RpcError("Node.DeriveVaultToken: the Vault token "
-                       "authority is not ported")
+    def node_derive_vault_token(args):
+        return {"tokens": server.derive_vault_token(
+            args["alloc_id"], list(args.get("tasks") or []))}
 
-    def node_renew_vault_token(_args):
-        raise RpcError("Node.RenewVaultToken: the Vault token "
-                       "authority is not ported")
+    def node_renew_vault_token(args):
+        return {"lease_s": server.renew_vault_token(
+            args["accessor"], args["token"])}
 
     return {
         "Node.Register": node_register,

@@ -28,7 +28,7 @@ class ServerTransport:
     def heartbeat(self, node_id: str,
                   stats: Optional[dict] = None) -> float:
         """TTL renewal; `stats` is the optional compact host-stats
-        summary a client attaches to its beat."""
+        summary the server folds into its cluster rollup."""
         raise NotImplementedError
 
     def get_client_allocs(self, node_id: str, min_index: int,
@@ -86,9 +86,6 @@ def _alloc_with_node(server, alloc_id: str):
 
 
 class InProcTransport(ServerTransport):
-    """The verbs bound to a Server in this process. The Vault verbs are
-    the base class's: the server has no Vault token authority."""
-
     def __init__(self, server):
         self.server = server
 
@@ -101,8 +98,7 @@ class InProcTransport(ServerTransport):
 
     def heartbeat(self, node_id: str,
                   stats: Optional[dict] = None) -> float:
-        # the server keeps no host-stats rollup: `stats` is not sent on
-        return self.server.heartbeat(node_id)
+        return self.server.heartbeat(node_id, stats=stats)
 
     def get_client_allocs(self, node_id: str, min_index: int,
                           max_wait_s: float
@@ -119,6 +115,12 @@ class InProcTransport(ServerTransport):
     def update_alloc_status_batch(
             self, groups: List[List[Allocation]]) -> None:
         self.server.update_alloc_status_from_client_batch(groups)
+
+    def derive_vault_token(self, alloc_id: str, tasks) -> dict:
+        return self.server.derive_vault_token(alloc_id, list(tasks))
+
+    def renew_vault_token(self, accessor: str, token: str) -> float:
+        return self.server.renew_vault_token(accessor, token)
 
     def update_services(self, upserts=None, delete_alloc_ids=None,
                         delete_ids=None) -> None:

@@ -45,9 +45,15 @@ and namespace replication from it (server/replication.py). Federation:
 a multiregion job fans out one localized copy a region through the
 peers' HTTP APIs, and deregister_job_global stops it in every region.
 
-Not carried: the Vault token authority (and the volume watcher's Vault
-reap), a heartbeat's host-stats rollup, and the governor (the
-persistence and ingest gauges among them), tracer and telemetry.
+Vault (nomad/vault.go): the embedded token authority derives a TTL'd
+token per task of an alloc (derive_vault_token), renews and revokes the
+leases it tracks in the replicated store, and the volume watcher's pass
+reaps the leases of terminal allocs. A client's heartbeat may carry its
+host-stats payload, which cluster_stats folds into the fleet's
+used-against-allocated rollup.
+
+Not carried: the governor (the persistence and ingest gauges among
+them), tracer and telemetry.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ import urllib.error
 import urllib.request
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from ..models import (
     Allocation, Evaluation, Job, Node,
@@ -134,6 +142,14 @@ class ServerConfig:
     # effect, so off by default.
     gc_safepoints: bool = False
     heartbeat_ttl_s: float = 10.0
+    # cluster rollup staleness: a node whose heartbeat host-stats
+    # payload is older than this counts as a stale heartbeat in
+    # cluster_stats and drops out of the fleet used-vs-allocated
+    # economics (its capacity still counts)
+    stats_stale_after_s: float = 30.0
+    # lease TTL for derived vault tokens (vault.go ttl on CreateToken);
+    # clients renew at ttl/2 via Node.RenewVaultToken
+    vault_token_ttl_s: float = 3600.0
     # how long a failed eval's work waits to run again: the reaper's
     # follow-up delay for an eval past the broker's delivery limit, and
     # the leader's interval for requeueing evals blocked on exhausted
@@ -281,6 +297,10 @@ class Server:
                 window_us=self.config.ingest_window_us,
                 queue_high=self.config.ingest_queue_high)
         self.workers: List[Worker] = []
+        # the latest host-stats payload of each node's heartbeat, which
+        # cluster_stats folds
+        self._node_stats: Dict[str, dict] = {}
+        self._node_stats_l = make_lock()
         # every node's heartbeat TTL on one thread (server/heartbeat.py)
         self._heartbeats = HeartbeatTimers(self.config.heartbeat_ttl_s,
                                            self._invalidate_heartbeat)
@@ -2285,6 +2305,94 @@ class Server:
                                      volume_id=v.id, alloc_id=aid))
             except Exception:     # pragma: no cover — best effort
                 LOG.exception("volume watcher pass failed")
+            try:
+                self._reap_vault_accessors()
+            except Exception:     # pragma: no cover — best effort
+                LOG.exception("vault accessor reap failed")
+
+    # -- Vault integration (nomad/vault.go:176 vaultClient) ------------
+    def derive_vault_token(self, alloc_id: str, tasks) -> Dict[str, dict]:
+        """Token derivation for tasks with a vault stanza
+        (node_endpoint.go DeriveVaultToken + vault.go CreateToken).
+        The embedded authority mints a TTL'd token + accessor per task
+        and tracks the lease in the replicated store, so revocation and
+        renewal survive leader failover (see server/vault.py). Returns
+        {task: {token, accessor, ttl_s}}."""
+        alloc = self.store.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise KeyError(f"alloc {alloc_id} not found")
+        if alloc.terminal_status():
+            raise ValueError(f"alloc {alloc_id} is terminal")
+        from ..server.vault import VaultAccessor
+        from ..utils.codec import to_wire
+        from ..utils.ids import generate_uuid
+        tg = alloc.job.lookup_task_group(alloc.task_group) \
+            if alloc.job else None
+        policies: Dict[str, list] = {}
+        if tg is not None:
+            for t in tg.tasks:
+                if t.vault is not None:
+                    policies[t.name] = list(t.vault.policies)
+        now = time.time()
+        ttl = self.config.vault_token_ttl_s
+        accessors, out = [], {}
+        # node_endpoint.go DeriveVaultToken: reject tasks that don't
+        # exist in the alloc's group or carry no vault stanza — a
+        # client must not be able to mint tokens for arbitrary names
+        unknown = [t for t in tasks if t not in policies]
+        if unknown:
+            raise ValueError(
+                f"tasks {unknown} do not exist in alloc {alloc_id} "
+                "or have no vault stanza")
+        for task in tasks:
+            tok = f"s.{generate_uuid()[:24]}"
+            acc = generate_uuid()
+            accessors.append(VaultAccessor(
+                accessor=acc, token=tok, alloc_id=alloc_id, task=task,
+                node_id=alloc.node_id, policies=policies.get(task, []),
+                ttl_s=ttl, create_time=now, expire_time=now + ttl))
+            out[task] = {"token": tok, "accessor": acc, "ttl_s": ttl}
+        self.raft_apply("vault_accessor_upsert",
+                        dict(accessors=[to_wire(a) for a in accessors]))
+        return out
+
+    def renew_vault_token(self, accessor: str, token: str) -> float:
+        """Extend a lease (vault.go RenewToken / client-side renewal
+        loop target). Raises on unknown/revoked/expired leases — the
+        client must re-derive then."""
+        a = self.store.vault_accessor(accessor)
+        if a is None or a.token != token:
+            raise KeyError("unknown vault accessor")
+        now = time.time()
+        if a.expired(now):
+            # reap lazily; the renewal failure tells the client to
+            # re-derive (vaultclient.go renewal error path)
+            self.raft_apply("vault_accessor_delete",
+                            dict(accessors=[accessor]))
+            raise ValueError("vault token lease expired")
+        self.raft_apply("vault_accessor_renew",
+                        dict(accessor=accessor,
+                             expire_time=now + a.ttl_s))
+        return a.ttl_s
+
+    def lookup_vault_token(self, token: str) -> bool:
+        """Is this token currently valid? (vault TokenLookup analog,
+        used by tests and operator introspection)."""
+        a = self.store.vault_accessor_by_token(token)
+        return a is not None and not a.expired()
+
+    def _reap_vault_accessors(self) -> None:
+        """Leader-side revocation daemon (vault.go revokeDaemon +
+        nomad/node_endpoint.go revoking accessors of terminal allocs):
+        drop leases whose alloc is gone/terminal or whose TTL lapsed
+        without renewal."""
+        now = time.time()
+        doomed = []
+        for a in self.store.vault_accessors():
+            alloc = self.store.alloc_by_id(a.alloc_id)
+            if alloc is None or alloc.terminal_status() or a.expired(now):
+                doomed.append(a.accessor)
+        self.revoke_vault_accessors(doomed)
 
     # -- heartbeats (nomad/heartbeat.go) -------------------------------
     def reset_heartbeat_timer(self, node_id: str) -> None:
@@ -2301,12 +2409,126 @@ class Server:
         LOG.warning("node %s missed heartbeat, marking down", node_id[:8])
         self.update_node_status(node_id, NODE_STATUS_DOWN)
 
-    def heartbeat(self, node_id: str) -> float:
-        """Client TTL renewal; returns the TTL."""
+    def heartbeat(self, node_id: str,
+                  stats: Optional[dict] = None) -> float:
+        """Client TTL renewal; returns the TTL. `stats` is the compact
+        host-stats summary the client sampler attaches — kept per node
+        for cluster_stats() to fold; O(1) per beat."""
         node = self.store.node_by_id(node_id)
         if node is None:
             raise KeyError(f"node {node_id} not registered")
+        if stats:
+            with self._node_stats_l:
+                self._node_stats[node_id] = {
+                    **stats, "received_at": time.time()}
         if node.status != NODE_STATUS_READY:
             self.update_node_status(node_id, NODE_STATUS_READY)
         self.reset_heartbeat_timer(node_id)
         return self.config.heartbeat_ttl_s
+
+    # -- cluster rollup ------------------------------------------------
+    def cluster_stats(self) -> Dict[str, float]:
+        """Fold per-node heartbeat host-stats into fleet economics:
+        nodes up/down, capacity vs ALLOCATED (bin-packed, from the
+        resident columnar node table) vs actually USED (host truth,
+        from the heartbeat payloads), per-node utilization p50/p99,
+        stale-heartbeat count. Pure host reads — O(nodes) numpy sums;
+        also mirrors the family into the metrics registry so
+        /v1/metrics?format=prometheus exposes nomad.cluster.*."""
+        snap = self.store.snapshot()
+        nodes = snap.nodes()
+        now = time.time()
+        with self._node_stats_l:
+            # prune payloads for nodes the store no longer knows
+            known = {n.id for n in nodes}
+            for nid in list(self._node_stats):
+                if nid not in known:
+                    del self._node_stats[nid]
+            stats = dict(self._node_stats)
+        out: Dict[str, float] = {
+            "nodes_total": float(len(nodes)),
+            "nodes_ready": float(sum(1 for n in nodes if n.ready())),
+            "nodes_down": float(sum(
+                1 for n in nodes if n.status == NODE_STATUS_DOWN)),
+            "nodes_reporting": 0.0,
+            "stale_heartbeats": 0.0,
+        }
+        cap_cpu = cap_mem = 0.0
+        for n in nodes:
+            res = n.comparable_resources()
+            cap_cpu += res.cpu_shares
+            cap_mem += res.memory_mb
+        out["fleet_cpu_capacity_mhz"] = cap_cpu
+        out["fleet_mem_capacity_mb"] = cap_mem
+        # allocated: the resident node table's live-alloc usage sums
+        # (delta-maintained — no per-sample alloc scan). build=False:
+        # a rollup must never trigger a cold table build; before the
+        # first eval the allocated half reads 0 and catches up with
+        # the first scheduled table
+        alloc_cpu = alloc_mem = 0.0
+        table = snap.node_table(build=False)
+        if table is not None and table.n > 0:
+            alloc_cpu = float(table.base_used[:, 0].sum())
+            alloc_mem = float(table.base_used[:, 1].sum())
+        out["fleet_cpu_allocated_mhz"] = alloc_cpu
+        out["fleet_mem_allocated_mb"] = alloc_mem
+        out["fleet_cpu_allocated_ratio"] = \
+            round(alloc_cpu / cap_cpu, 4) if cap_cpu > 0 else 0.0
+        out["fleet_mem_allocated_ratio"] = \
+            round(alloc_mem / cap_mem, 4) if cap_mem > 0 else 0.0
+        # used: host truth from the heartbeat payloads — a node's
+        # host-level utilization FRACTION (cpu percent, mem
+        # used/total) scaled by its configured capacity, so both used
+        # sums stay commensurate with the capacity denominator and a
+        # host busier than its schedulable share can't push a fleet
+        # ratio past 1.0. Stale payloads drop out of the used sums
+        # (their capacity still counts: unreported usage is unknown,
+        # not 0)
+        used_cpu = used_mem = 0.0
+        cpu_pcts: List[float] = []
+        mem_ratios: List[float] = []
+        stale_after = self.config.stats_stale_after_s
+        by_id = {n.id: n for n in nodes}
+        for nid, st in stats.items():
+            if now - st.get("received_at", 0.0) > stale_after:
+                out["stale_heartbeats"] += 1.0
+                continue
+            node = by_id.get(nid)
+            if node is None:
+                continue
+            out["nodes_reporting"] += 1.0
+            res = node.comparable_resources()
+            pct = float(st.get("cpu_pct", 0.0))
+            used_cpu += pct / 100.0 * res.cpu_shares
+            cpu_pcts.append(pct)
+            total = float(st.get("mem_total_mb", 0.0))
+            if total > 0:
+                ratio = min(
+                    float(st.get("mem_used_mb", 0.0)) / total, 1.0)
+                used_mem += ratio * res.memory_mb
+                mem_ratios.append(ratio)
+        out["fleet_cpu_used_mhz"] = round(used_cpu, 1)
+        out["fleet_mem_used_mb"] = round(used_mem, 1)
+        out["fleet_cpu_used_ratio"] = \
+            round(used_cpu / cap_cpu, 4) if cap_cpu > 0 else 0.0
+        out["fleet_mem_used_ratio"] = \
+            round(used_mem / cap_mem, 4) if cap_mem > 0 else 0.0
+        if cpu_pcts:
+            arr = np.asarray(cpu_pcts)
+            out["node_cpu_pct_p50"] = round(
+                float(np.percentile(arr, 50)), 3)
+            out["node_cpu_pct_p99"] = round(
+                float(np.percentile(arr, 99)), 3)
+        if mem_ratios:
+            arr = np.asarray(mem_ratios)
+            out["node_mem_ratio_p50"] = round(
+                float(np.percentile(arr, 50)), 4)
+            out["node_mem_ratio_p99"] = round(
+                float(np.percentile(arr, 99)), 4)
+        for k in ("nodes_total", "nodes_ready", "nodes_down",
+                  "nodes_reporting", "stale_heartbeats",
+                  "fleet_cpu_used_ratio", "fleet_mem_used_ratio",
+                  "fleet_cpu_allocated_ratio",
+                  "fleet_mem_allocated_ratio"):
+            metrics.set_gauge(f"nomad.cluster.{k}", out[k])
+        return out

@@ -1,9 +1,19 @@
-"""The Vault accessor record the state store holds and a snapshot
-carries: one derived token lease (reference: structs.go VaultAccessor and
-nomad/state/state_store.go UpsertVaultAccessor).
+"""Vault token lifecycle — the embedded token authority.
 
-The token authority beside it in the JAX package's server/vault.py
-(derivation, renewal, revocation) is not ported yet.
+Reference: nomad/vault.go:176 (vaultClient: CreateToken with TTL,
+RenewToken, RevokeTokens, the revocation daemon) plus the
+state-store accessor tracking (nomad/state/state_store.go
+UpsertVaultAccessor / VaultAccessorsByAlloc) that lets ANY leader
+revoke tokens it never minted.
+
+No external Vault exists in this build, so the token backend is the
+replicated store itself: a token is valid iff its accessor row exists,
+is unrevoked, and `now < expire_time` (extended by renewals). That
+collapses the reference's two-system dance (Vault holds leases, Nomad
+tracks accessors in raft) into one replicated table with the same
+observable semantics — derivation, periodic renewal, revocation on
+alloc termination, orphan reaping, and failover (a new leader reads
+the same table).
 """
 
 from __future__ import annotations

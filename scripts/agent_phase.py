@@ -1,9 +1,9 @@
 """chip_smoke.py's agent phase (phase 14) alone on the card: the agent
 started in this process through `start_agent` (-dev -clients 0
 -acl-enabled -num-schedulers 1), the 10,000 nodes over its RPC port,
-ACLs and a webhook sink through the CLI, three job files through `nomad
-job run`, then `python -m nomad_tpu_torch agent` as a subprocess with
-1,000 nodes and one `job run`.
+ACLs and a webhook sink through the CLI and three job files through
+`nomad job run` (the agent as a subprocess is phase 15's, in
+scripts/client_phase.py).
 
     python3 scripts/agent_phase.py [--reps N] [--cpu NODES]
 
@@ -12,7 +12,7 @@ raises (exit code not 0) on a failed check. The last line is one JSON
 object: `{"device": ..., "launches": [{kernel: n}], "phase_s": [s]}`.
 `--cpu NODES` rehearses the phase on the CPU instead (the kernels' plain
 versions, NODES nodes, the batch job cut to 600 and the spread job to
-40, 100 nodes for the subprocess). Run from the repository's root."""
+40). Run from the repository's root."""
 
 import argparse
 import json
@@ -38,7 +38,7 @@ def main() -> int:
     if args.cpu:
         cs.MAIN_NODES = args.cpu
         info = {"raw": "CPU rehearsal"}
-        kw = dict(device="cpu", sub_nodes=100,
+        kw = dict(device="cpu",
                   jobs=(("agent-service", "service", 10, "chunked"),
                         ("agent-batch", "batch", 600, "kway"),
                         ("agent-spread", "service", 40, "scan")))

@@ -1,0 +1,67 @@
+"""chip_smoke.py's client phase (phase 15) alone on the card: the dev
+agent with its local client and a second client that fingerprints the
+card, the 10,000 nodes over the agent's RPC port, a device job, a second
+that blocks on the card, a service job pinned to the local client and
+its stop; then `python -m nomad_tpu_torch agent -dev` as a subprocess
+with `job init` / `job run` of the example job, 1,000 nodes and one more
+`job run`.
+
+    python3 scripts/client_phase.py [--reps N] [--cpu NODES]
+
+Each repetition prints the phase's lines as chip_smoke.py does and
+raises (exit code not 0) on a failed check. The last line is one JSON
+object: `{"device": ..., "launches": [{kernel: n}], "phase_s": [s]}`.
+`--cpu NODES` rehearses the phase on the CPU instead (the kernels' plain
+versions, NODES nodes, a configured device group in place of the card,
+100 nodes for the subprocess). Run from the repository's root."""
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=1)
+    ap.add_argument("--cpu", type=int, default=0, metavar="NODES")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import chip_smoke as cs
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.mock import seeded_mock_ids
+
+    kw = {}
+    if args.cpu:
+        cs.MAIN_NODES = args.cpu
+        info = {"raw": "CPU rehearsal"}
+        kw = dict(device="cpu", sub_nodes=100)
+    else:
+        if not torch.cuda.is_available():
+            print("client_phase: no CUDA device", file=sys.stderr)
+            return 1
+        from nomad_tpu_torch.ops import kernels
+        from nomad_tpu_torch.utils.platform import device_info
+        info = device_info()
+        print(f"device: {info['raw']}", flush=True)
+        t0 = time.perf_counter()
+        kernels.load_library()
+        print(f"set-up: kernels built in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    nodes = cs.build_cluster(mock, seeded_mock_ids)
+    launches, walls = [], []
+    for _rep in range(args.reps):
+        t0 = time.perf_counter()
+        launches.append(cs.client_phase(nodes, info, **kw))
+        walls.append(time.perf_counter() - t0)
+    print(json.dumps({"device": info["raw"], "launches": launches,
+                      "phase_s": walls}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -62,6 +62,10 @@ def _snippets():
     cs = _chip_smoke()
     out += [("chip_smoke", cs.agent_hcl(j, kind, count))
             for j, kind, count, _arm in cs.AGENT_JOBS]
+    out += [("chip_smoke", cs.device_hcl("gpu-batch")),
+            ("chip_smoke", cs.pinned_hcl("pinned")),
+            ("chip_smoke", cs.agent_hcl("agent-service", "service", 10,
+                                        not_on=cs.DEV_CLIENT))]
     return out
 
 

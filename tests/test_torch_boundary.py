@@ -4,6 +4,7 @@ is asked to."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -129,9 +130,59 @@ ENV_INPUTS = ("NOMAD_TOKEN", "NOMAD_REGION")
 ENV_VAR_PREFIX = "NOMAD_VAR_"
 
 
+# The environment a spawned process is handed, and the two secrets a
+# child entry point reads from the environment its parent built, by file:
+# (the function that holds the read, the read). A read is `get:<key>`,
+# os.environ.get(<key>, ...) with <key> a string or a name, or `copy`,
+# dict(os.environ).
+CHILD_ENV_READS = {
+    # the PATH a spawned executor, log collector or plugin runs with
+    "nomad_tpu_torch/client/drivers.py": {
+        ("child_process_env", 'get:"PATH"')},
+    # the executor's handshake cookie and auth token, read in the child
+    "nomad_tpu_torch/client/executor_server.py": {
+        ("main", "get:HANDSHAKE_COOKIE_KEY"),
+        ("main", 'get:"NOMAD_TPU_TORCH_EXECUTOR_TOKEN"')},
+    # a plugin's handshake cookie, read in the child
+    "nomad_tpu_torch/plugins/base.py": {
+        ("serve_plugin", "get:HANDSHAKE_COOKIE_KEY")},
+    # the environment a plugin process is launched with
+    "nomad_tpu_torch/plugins/device_client.py": {
+        ("_ensure_running", "copy")},
+    "nomad_tpu_torch/plugins/driver_client.py": {
+        ("_ensure_running", "copy")},
+}
+
+
 def _is_os_environ(node):
     return isinstance(node, ast.Attribute) and node.attr == "environ" \
-        and isinstance(node.value, ast.Name) and node.value.id == "os"
+        and isinstance(node.value, ast.Name) \
+        and node.value.id in ("os", "_os")
+
+
+def _child_env_reads(tree):
+    """{(function, read): the os.environ node} of a module's reads of
+    the CHILD_ENV_READS forms."""
+    out = {}
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            if isinstance(f, ast.Attribute) and f.attr == "get" and \
+                    _is_os_environ(f.value) and node.args:
+                key = node.args[0]
+                if isinstance(key, ast.Constant):
+                    out[(fn.name, f'get:"{key.value}"')] = f.value
+                elif isinstance(key, ast.Name):
+                    out[(fn.name, f"get:{key.id}")] = f.value
+            if isinstance(f, ast.Name) and f.id == "dict" and \
+                    len(node.args) == 1 and not node.keywords and \
+                    _is_os_environ(node.args[0]):
+                out[(fn.name, "copy")] = node.args[0]
+    return out
 
 
 def _is_prefix_filter(stmt, target):
@@ -156,9 +207,14 @@ def environment_reads(source, rel):
     os.getenv, os.putenv and os.environb, except, in ENV_INPUTS_FILE
     only, `os.environ.get(<one of ENV_INPUTS>, ...)` and a loop `for k,
     v in os.environ.items():` whose whole body is `if
-    k.startswith("NOMAD_VAR_"): ...`."""
+    k.startswith("NOMAD_VAR_"): ...`, and the reads CHILD_ENV_READS
+    names for the file."""
     tree = ast.parse(source)
     allowed = set()
+    names = CHILD_ENV_READS.get(rel, set())
+    for key, node in _child_env_reads(tree).items():
+        if key in names:
+            allowed.add(id(node))
     if rel == ENV_INPUTS_FILE:
         for node in ast.walk(tree):
             if isinstance(node, ast.Call) and \
@@ -196,10 +252,33 @@ def environment_reads(source, rel):
 def test_no_environment_read(path):
     """The port reads no environment variable: no os.environ, os.getenv
     or os.putenv anywhere in nomad_tpu_torch/, except the command line's
-    documented user inputs in cli/main.py (environment_reads)."""
+    documented user inputs in cli/main.py and the child-process reads
+    of CHILD_ENV_READS (environment_reads)."""
     found = environment_reads(path.read_text(),
                               str(path.relative_to(REPO)))
     assert not found, found
+
+
+@pytest.mark.parametrize("rel", sorted(CHILD_ENV_READS))
+def test_child_env_reads_name_real_reads(rel):
+    """Every read the allowlist names is in its file, in its function."""
+    reads = _child_env_reads(ast.parse((REPO / rel).read_text()))
+    assert CHILD_ENV_READS[rel] <= set(reads), (rel, sorted(reads))
+
+
+@pytest.mark.parametrize("code,where", [
+    # a child-process read in another function of its file
+    ("import os\ndef f():\n    return dict(os.environ)\n",
+     "nomad_tpu_torch/plugins/device_client.py"),
+    # another key in the function that may read one
+    ("import os\ndef main():\n    return os.environ.get('HOME')\n",
+     "nomad_tpu_torch/client/executor_server.py"),
+    # an allowed read in a file the allowlist does not name
+    ("import os\ndef _ensure_running():\n    return dict(os.environ)\n",
+     "nomad_tpu_torch/client/agent.py"),
+])
+def test_env_rule_refuses_child_reads_out_of_place(code, where):
+    assert environment_reads(code, where)
 
 
 SERVE_JOBS = r"""
@@ -292,6 +371,93 @@ def test_port_server_restarts_without_jax_or_nomad_tpu():
                          timeout=240)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "restored 3" in res.stdout
+
+
+RUN_A_CLIENT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["nomad_tpu"] = None
+import time
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.client import Client, ClientConfig
+from nomad_tpu_torch.server import Server, ServerConfig
+s = Server(ServerConfig(num_schedulers=1), device="cpu")
+s.start()
+c = Client(s, ClientConfig(node_name="boundary-client"))
+c.start()
+try:
+    job = mock.batch_job()
+    job.task_groups[0].count = 2
+    job.task_groups[0].tasks[0].config = {"run_for": "50ms"}
+    s.register_job(job)
+    deadline = time.time() + 60
+    def done():
+        allocs = s.store.allocs_by_job(job.namespace, job.id)
+        return len(allocs) == 2 and all(
+            a.client_status == "complete" for a in allocs)
+    while time.time() < deadline and not done():
+        time.sleep(0.02)
+    status = sorted(a.client_status
+                    for a in s.store.allocs_by_job(job.namespace, job.id))
+finally:
+    c.shutdown()
+    s.shutdown()
+bad = [m for m, mod in sys.modules.items() if mod is not None and (
+       m == "jax" or m.startswith("jax.") or m == "nomad_tpu"
+       or m.startswith("nomad_tpu."))]
+assert not bad, bad
+print("ran", status)
+"""
+
+
+def test_port_client_runs_a_job_without_jax_or_nomad_tpu():
+    """A Server and a Client of the port run a mock_driver batch job to
+    complete with JAX and the JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", RUN_A_CLIENT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "ran ['complete', 'complete']" in res.stdout
+
+
+def _verbatim_copies():
+    """The files nomad_tpu_torch/__init__.py lists as copies identical in
+    code to the JAX package's file of the same path."""
+    text = (REPO / "nomad_tpu_torch" / "__init__.py").read_text()
+    start = text.index("identical in code")
+    block = text[text.index(":", start) + 1:
+                 text.index("Copies changed only")]
+    block = re.sub(r"\([^)]*\)", "", block, flags=re.S)
+    names = [n.strip().rstrip(".").strip()
+             for n in block.replace("\n", " ").split(",")]
+    files = []
+    for name in filter(None, names):
+        hits = sorted((REPO / "nomad_tpu_torch").glob(name))
+        assert hits, name
+        files += [str(h.relative_to(REPO / "nomad_tpu_torch"))
+                  for h in hits]
+    return files
+
+
+def _code(path):
+    """A module's syntax tree without its docstrings (comments are not
+    in the tree)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant) and \
+                isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:] or [ast.Pass()]
+    return ast.dump(tree, include_attributes=False)
+
+
+@pytest.mark.parametrize("rel", _verbatim_copies())
+def test_verbatim_copies_are_identical_in_code(rel):
+    assert _code(REPO / "nomad_tpu_torch" / rel) == \
+        _code(REPO / "nomad_tpu" / rel), rel
 
 
 def test_select_kernel_without_device_needs_cuda():

@@ -4,8 +4,8 @@
   in a subprocess with `jax` and `nomad_tpu` blocked, serves
   `/v1/status/leader`, places a job that `python -m nomad_tpu_torch job
   run` submits, and exits 0 on SIGTERM;
-- local clients (`agent -dev` with its default one, `-client`) exit 1
-  naming the client/ package's item; without `-device cpu` the agent
+- local clients start (`agent -dev` with its default one, `-clients 2`,
+  and `-client -servers` joined over RPC); without `-device cpu` the agent
   raises where no card is present; a start that fails (a port taken)
   stops what it started;
 - `/v1/operator/trace` answers 404 (the flight recorder is not carried);
@@ -145,9 +145,31 @@ def test_agent_subprocess_without_jax_places_a_job(tmp_path):
     ["agent", "-client", "-servers", "127.0.0.1:4647", "-device", "cpu"],
 ])
 def test_local_clients_exit_1_naming_the_client_item(argv):
-    rc, _out, err = _run(*argv)
-    assert rc == 1
-    assert "client/" in err and "item 5" in err
+    """Local clients start: `-dev` with its default one client, `-clients
+    2`, and `-client -servers` (here the RPC address of a server agent
+    of the test's own) over RemoteTransport; each client's node
+    registers and turns ready."""
+    server_agent = None
+    if "-servers" in argv:
+        server_agent = start_agent(build_parser().parse_args(
+            ["agent", "-server", "-http-port", "0", "-rpc-port", "0",
+             "-device", "cpu"]))
+        argv = [server_agent.rpc.addr if a == "127.0.0.1:4647" else a
+                for a in argv]
+    agent = start_agent(build_parser().parse_args(
+        argv + ["-http-port", "0", "-rpc-port", "0"]))
+    try:
+        want = 2 if "2" in argv else 1
+        assert len(agent.clients) == want
+        srv = (server_agent or agent).server
+        assert _wait(lambda: sum(
+            n.status == "ready" for n in srv.store.nodes()) == want)
+        if server_agent is not None:
+            assert agent.server is None and agent.api is None
+    finally:
+        agent.shutdown()
+        if server_agent is not None:
+            server_agent.shutdown()
 
 
 def test_agent_without_device_needs_a_card():

@@ -1,8 +1,8 @@
 """The reference's CLI tranche tests (tests/test_cli_tranche.py) against
 the port's cli/ and api/, the server on the CPU, their assertions
-unchanged. Not ported: test_node_drain_monitor (a Client, ROADMAP queue
-1 item 5) and test_operator_debug_archive (its bundle's telemetry.json
-must hold the telemetry ring's samples: item 6).
+unchanged, test_node_drain_monitor with the port's Client. Not ported:
+test_operator_debug_archive (its bundle's telemetry.json must hold the
+telemetry ring's samples: ROADMAP queue 1 item 6).
 
 The reference's docstring:
 
@@ -139,3 +139,41 @@ def test_job_run_check_index(cluster, tmp_path):
     rc, out = run(addr, "job", "run", "-detach", "-check-index",
                   str(cur), str(jobfile))
     assert rc == 0, out
+
+
+def test_node_drain_monitor(tmp_path):
+    """node drain -monitor blocks until the node is drained
+    (command/node_drain.go -monitor)."""
+    from nomad_tpu_torch.client import Client, ClientConfig
+    srv = Server(ServerConfig(num_schedulers=1, heartbeat_ttl_s=30.0),
+                 device="cpu")
+    srv.start()
+    api = HTTPApiServer(srv, port=0)
+    api.start()
+    client = Client(srv, ClientConfig(node_name="drainme",
+                                      alloc_dir=str(tmp_path)))
+    client.start()
+    addr = f"http://127.0.0.1:{api.port}"
+    try:
+        job = mock.batch_job()
+        job.id = "drain-job"
+        job.type = "service"
+        tg = job.task_groups[0]
+        tg.count = 1
+        tg.tasks[0].config = {"run_for": "60s"}
+        job.canonicalize()
+        srv.register_job(job)
+        import time as _t
+        deadline = _t.time() + 20
+        while _t.time() < deadline and not any(
+                a.client_status == "running"
+                for a in srv.store.allocs_by_job("default", job.id)):
+            _t.sleep(0.1)
+        rc, out = run(addr, "node", "drain", client.node.id, "-enable",
+                      "-monitor")
+        assert rc == 0, out
+        assert "Drain complete" in out or "drain strategy cleared" in out
+    finally:
+        client.shutdown()
+        api.shutdown()
+        srv.shutdown()

@@ -3,20 +3,23 @@ expose-check hook tests (tests/test_consul_services.py) against the
 port's models and server/connect_hook.py, their assertions unchanged;
 servers on the CPU, shut down in a `finally`.
 
-Left for later: test_upstream_env_vars (client/taskenv, with client/)
-and the catalog tests on the `cluster` fixture (a Client beside the
-Server). test_hcl_connect_parse (the port's jobspec/) is at the end.
+test_hcl_connect_parse (the port's jobspec/), test_upstream_env_vars
+(client/taskenv) and the catalog tests on the `cluster` fixture (the
+port's Client beside the Server) are at the end.
 
 Then the port's own: a connect job registered on a server whose sidecar
 driver the nodes have is placed through the kernels with its injected
 proxy task and dynamic port in the group's asks.
 """
 
+import http.server
+import threading
 import time
 
 import pytest
 
 from nomad_tpu_torch import mock
+from nomad_tpu_torch.client import Client, ClientConfig
 from nomad_tpu_torch.models import (
     ConsulConnect,
     ConsulGateway,
@@ -26,6 +29,7 @@ from nomad_tpu_torch.models import (
     ConsulSidecarService,
     ConsulUpstream,
     Service,
+    CheckRestart,
     ServiceCheck,
     SidecarTask,
 )
@@ -466,3 +470,166 @@ job "mesh" {
     chk = svc.checks[0]
     assert chk.check_restart.limit == 3
     assert chk.check_restart.grace_s == 5.0
+
+
+# -- tests/test_consul_services.py: beside the port's Client -----------
+def test_upstream_env_vars():
+    from nomad_tpu_torch.client.taskenv import build_task_env
+    alloc = mock.alloc()
+    tg = alloc.job.task_groups[0]
+    tg.services = [Service(
+        name="web", port_label="http",
+        connect=ConsulConnect(sidecar_service=ConsulSidecarService(
+            proxy=ConsulProxy(upstreams=[
+                ConsulUpstream(destination_name="count-api",
+                               local_bind_port=8080)]))))]
+    env = build_task_env(alloc, tg.tasks[0])
+    assert env["NOMAD_UPSTREAM_ADDR_count_api"] == "127.0.0.1:8080"
+    assert env["NOMAD_UPSTREAM_PORT_count_api"] == "8080"
+
+
+@pytest.fixture
+def cluster():
+    srv = Server(ServerConfig(num_schedulers=2, heartbeat_ttl_s=60.0),
+                 device="cpu")
+    srv.start()
+    cl = Client(srv, ClientConfig(node_name="svc-node"))
+    cl.start()
+    yield srv, cl
+    cl.shutdown()
+    srv.shutdown()
+
+
+
+
+def test_service_registers_and_deregisters(cluster):
+    srv, _cl = cluster
+    job = _service_job("catalog-job")
+    srv.register_job(job)
+    assert _wait(lambda: len(srv.store.service_by_name(
+        "default", "web-svc")) == 1)
+    reg = srv.store.service_by_name("default", "web-svc")[0]
+    assert reg.port > 0                     # the scheduler's dynamic port
+    assert reg.address
+    assert reg.job_id == "catalog-job"
+    assert reg.tags == ["urlprefix-/"]
+    assert reg.status == "passing"          # no checks -> passing
+    # list surface aggregates instances
+    listing = srv.list_services()
+    row = [r for r in listing if r["ServiceName"] == "web-svc"][0]
+    assert row["Instances"] == 1
+
+    # stop -> catalog row leaves
+    srv.deregister_job("default", "catalog-job")
+    assert _wait(lambda: not srv.store.service_by_name(
+        "default", "web-svc"))
+
+
+def test_http_check_drives_status(cluster):
+    srv, _cl = cluster
+    job = _service_job("checked-job", checks=[ServiceCheck(
+        name="alive", type="http", path="/health", interval_s=1.0,
+        timeout_s=1.0)])
+    srv.register_job(job)
+    assert _wait(lambda: len(srv.store.service_by_name(
+        "default", "web-svc")) == 1)
+    reg = srv.store.service_by_name("default", "web-svc")[0]
+    # nothing is listening on the allocated port yet -> critical
+    assert _wait(lambda: srv.store.service_by_name(
+        "default", "web-svc")[0].status == "critical", timeout=15)
+
+    # bring up a real listener on the allocated port -> passing
+    class OK(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.HTTPServer(("127.0.0.1", reg.port), OK)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        assert _wait(lambda: srv.store.service_by_name(
+            "default", "web-svc")[0].status == "passing", timeout=15)
+        assert srv.store.service_by_name(
+            "default", "web-svc")[0].checks["alive"] == "passing"
+    finally:
+        httpd.shutdown()
+
+
+def test_service_gc_reaps_dead_instances(cluster):
+    """A crashed client never deregisters; the leader's catalog sweep
+    drops rows for terminal allocs (core_sched service GC vs Consul
+    anti-entropy)."""
+    from nomad_tpu_torch.models.services import ServiceRegistration
+    srv, _cl = cluster
+    # an orphan row pointing at an alloc that doesn't exist
+    srv.update_service_registrations(upserts=[ServiceRegistration(
+        id="_nomad-deadbeef-web-ghost", service_name="ghost",
+        namespace="default", alloc_id="deadbeef", node_id="gone",
+        address="10.0.0.9", port=1234)])
+    assert srv.store.service_by_name("default", "ghost")
+    from nomad_tpu_torch.models.evaluation import Evaluation
+    from nomad_tpu_torch.server.core_sched import CoreScheduler
+    core = CoreScheduler(srv.store.snapshot(), srv)
+    core.process(Evaluation(job_id="force-gc"))
+    assert _wait(lambda: not srv.store.service_by_name(
+        "default", "ghost"))
+
+
+def test_delete_is_namespace_and_name_scoped(cluster):
+    """DELETE /v1/service/<name>/<id> only removes a row that belongs
+    to that service in the caller's namespace."""
+    from nomad_tpu_torch.api import HTTPApiServer, ApiClient, ApiError
+    from nomad_tpu_torch.models.services import ServiceRegistration
+    srv, _cl = cluster
+    srv.update_service_registrations(upserts=[ServiceRegistration(
+        id="_nomad-a1-g-sec", service_name="sec", namespace="secure",
+        alloc_id="a1", node_id="n1", address="10.0.0.1", port=80)])
+    api = HTTPApiServer(srv, port=0)
+    api.start()
+    try:
+        c = ApiClient(f"http://127.0.0.1:{api.port}")
+        # wrong namespace (default) -> 404, row survives
+        with pytest.raises(ApiError):
+            c.delete_service_registration("sec", "_nomad-a1-g-sec")
+        assert srv.store.service_by_name("secure", "sec")
+        # wrong service name in the right namespace -> 404 too
+        c2 = ApiClient(f"http://127.0.0.1:{api.port}")
+        with pytest.raises(ApiError):
+            c2._request("DELETE", "/v1/service/other/_nomad-a1-g-sec",
+                        params={"namespace": "secure"})
+        # correct name+namespace deletes
+        c2._request("DELETE", "/v1/service/sec/_nomad-a1-g-sec",
+                    params={"namespace": "secure"})
+        assert not srv.store.service_by_name("secure", "sec")
+    finally:
+        api.shutdown()
+
+
+def test_check_restart_restarts_task(cluster):
+    """check_watcher.go: limit consecutive failures -> task restart,
+    visible as a restart count bump."""
+    srv, cl = cluster
+    job = _service_job("restarting-job", checks=[ServiceCheck(
+        name="dead", type="tcp", interval_s=1.0, timeout_s=1.0,
+        check_restart=CheckRestart(limit=2, grace_s=0.5))])
+    srv.register_job(job)
+    assert _wait(lambda: len(srv.store.service_by_name(
+        "default", "web-svc")) == 1)
+    aid = srv.store.service_by_name("default", "web-svc")[0].alloc_id
+    assert _wait(lambda: cl.runners.get(aid) is not None
+                 and all(tr.handle is not None
+                         for tr in cl.runners[aid].task_runners))
+    originals = {tr.task.name: id(tr.handle)
+                 for tr in cl.runners[aid].task_runners}
+
+    def restarted():
+        # a forced restart consumes no budget (restarts stays 0); the
+        # replacement shows as a fresh driver handle
+        return any(tr.handle is not None
+                   and id(tr.handle) != originals[tr.task.name]
+                   for tr in cl.runners[aid].task_runners)
+    assert _wait(restarted, timeout=30), "check_restart never fired"

@@ -3,9 +3,11 @@ claim rules, CSI feasibility and claims through the Harness, topology,
 implied constraints through Server.register_job) against the port,
 their assertions unchanged, on the CPU.
 
-Left for later: test_volume_watcher_releases_terminal_claims (a Client
-runs the job) and test_vault_token_derivation_and_env (the Vault token
-authority). test_csi_http_routes (the port's api/) is at the end.
+Left for later: test_volume_watcher_releases_terminal_claims (its
+Client launches a CSI plugin; client/csimanager.py and
+plugins/csi_client.py are not ported). test_csi_http_routes (the port's
+api/) and test_vault_token_derivation_and_env (the Vault token
+authority) are at the end.
 
 Then the port's own: the CSI endpoints and the volume watcher on a
 server whose allocs a test marks complete as a client would.
@@ -263,4 +265,24 @@ def test_csi_http_routes():
         assert c._request("GET", "/v1/volumes") == []
     finally:
         api.shutdown()
+        server.shutdown()
+
+
+# -- tests/test_csi.py: the Vault token authority ----------------------
+def test_vault_token_derivation_and_env():
+    server = Server(ServerConfig(num_schedulers=0), device="cpu")
+    try:
+        alloc = mock.alloc()
+        # derive validates the task carries a vault stanza
+        from nomad_tpu_torch.models.job import VaultConfig
+        alloc.job.task_groups[0].tasks[0].vault = \
+            VaultConfig(policies=["default"])
+        server.store.upsert_allocs(server.raft_apply(
+            "eval_update", dict(evals=[])) or 1, [alloc])
+        tokens = server.derive_vault_token(alloc.id, ["web"])
+        assert tokens["web"]["token"].startswith("s.")
+        assert tokens["web"]["accessor"]
+        with pytest.raises(KeyError):
+            server.derive_vault_token("nope", ["web"])
+    finally:
         server.shutdown()

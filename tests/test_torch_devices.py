@@ -3,10 +3,9 @@ over nomad_tpu_torch, on the CPU (the kernels' plain versions).
 
 Device scheduling end-to-end: DeviceChecker feasibility mask, slot
 accounting in the kernel, affinity scoring, instance-ID assignment, and
-plan-applier collision defense. The two tests of the client's device
-fingerprinting (test_client_fingerprints_configured_devices,
-test_device_job_runs_on_cluster) wait for the port of client/ and
-server/core.py.
+plan-applier collision defense, and at the end the client's configured
+device groups (test_client_fingerprints_configured_devices,
+test_device_job_runs_on_cluster: a Client beside the Server).
 
 Reference semantics: scheduler/feasible.go DeviceChecker:1138,
 scheduler/device.go AssignDevice:32, scheduler/rank.go:456 device
@@ -260,3 +259,74 @@ def test_plan_applier_rejects_device_collision(device_cluster):
     ok = dev_alloc([ids[1]])
     fit2, _dim2, _ = AllocsFit(gpu_node, [pre, ok], check_devices=True)
     assert fit2
+
+
+# -- tests/test_devices.py: a Client beside the Server ------------------
+def test_client_fingerprints_configured_devices():
+    from nomad_tpu_torch.client import Client, ClientConfig
+    from nomad_tpu_torch.models import NodeDevice, NodeDeviceResource
+    from nomad_tpu_torch.server import Server, ServerConfig
+    server = Server(ServerConfig(num_schedulers=0), device="cpu")
+    dev = NodeDeviceResource(
+        vendor="google", type="tpu", name="v5e",
+        instances=[NodeDevice(id="tpu-0", healthy=True)])
+    c = Client(server, ClientConfig(devices=(dev,)))
+    assert c.node.node_resources.devices[0].type == "tpu"
+    assert c.node.attributes["device.tpu"] == "1"
+
+
+def test_device_job_runs_on_cluster():
+    """Full path: client fingerprints a TPU device group, a job asking
+    for the device schedules onto it and runs to completion with
+    instance IDs recorded on the alloc."""
+    import time
+    from nomad_tpu_torch.client import Client, ClientConfig
+    from nomad_tpu_torch.models import (NodeDevice, NodeDeviceResource,
+                                  ALLOC_CLIENT_COMPLETE)
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    def wait_for(pred, timeout=15.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if pred():
+                return True
+            time.sleep(0.05)
+        return False
+
+    server = Server(ServerConfig(num_schedulers=2, heartbeat_ttl_s=30.0),
+                    device="cpu")
+    server.start()
+    dev = NodeDeviceResource(
+        vendor="google", type="tpu", name="v5e",
+        instances=[NodeDevice(id=f"tpu-{i}", healthy=True)
+                   for i in range(4)])
+    plain = Client(server, ClientConfig(node_name="plain"))
+    tpu = Client(server, ClientConfig(node_name="tpu-bearing",
+                                      devices=(dev,)))
+    plain.start()
+    tpu.start()
+    try:
+        job = mock.batch_job()
+        job.task_groups[0].count = 2
+        task = job.task_groups[0].tasks[0]
+        task.config = {"run_for": "50ms"}
+        task.resources.devices = [RequestedDevice(name="tpu", count=2)]
+        server.register_job(job)
+
+        assert wait_for(lambda: len(
+            server.store.allocs_by_job("default", job.id)) == 2)
+        allocs = server.store.allocs_by_job("default", job.id)
+        used_ids = []
+        for a in allocs:
+            assert a.node_id == tpu.node.id
+            devs = a.allocated_resources.tasks[task.name].devices
+            assert devs[0].type == "tpu" and len(devs[0].device_ids) == 2
+            used_ids.extend(devs[0].device_ids)
+        assert len(set(used_ids)) == 4
+        assert wait_for(lambda: all(
+            a.client_status == ALLOC_CLIENT_COMPLETE
+            for a in server.store.allocs_by_job("default", job.id)))
+    finally:
+        plain.shutdown()
+        tpu.shutdown()
+        server.shutdown()

@@ -5,8 +5,9 @@ The reference's tests of the WAL, snapshots and cold start that need a
 Server, Persistence or RaftLog, their assertions unchanged, every server
 built with device="cpu" and shut down in a `finally`:
 tests/test_persistence.py (test_wal_replay_and_torn_write,
-test_snapshot_truncates_wal; test_server_restart_recovers_state and
-test_blocked_eval_survives_restart wait for a Client) and the server
+test_snapshot_truncates_wal, and at the end, beside the port's Client,
+test_server_restart_recovers_state and test_blocked_eval_survives_restart)
+and the server
 halves of tests/test_cold_start.py (batched replay, the background
 snapshot writer, a crash mid-snapshot, group fsync and restore_into's
 contract). The sequential replay that the JAX package selects with
@@ -28,6 +29,7 @@ import time
 import pytest
 
 from nomad_tpu_torch import mock
+from nomad_tpu_torch.client import Client, ClientConfig
 from nomad_tpu_torch.models import CSIVolume, ServiceRegistration
 from nomad_tpu_torch.models.namespace import Namespace
 from nomad_tpu_torch.server import Server, ServerConfig
@@ -504,3 +506,73 @@ def test_shutdown_closes_the_log_and_raises_a_failed_save(tmp_path):
         srv.shutdown()
     assert srv.persistence.log._f is None
     assert not any(t.is_alive() for t in threads)
+
+
+# -- tests/test_persistence.py: restarts beside a Client ---------------
+def _wait_for(pred, timeout=10.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if pred():
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def test_server_restart_recovers_state(tmp_path):
+    data_dir = str(tmp_path / "data")
+    server = Server(ServerConfig(num_schedulers=2, data_dir=data_dir,
+                                 heartbeat_ttl_s=60.0), device="cpu")
+    server.start()
+    client = Client(server, ClientConfig(node_name="persist-client"))
+    client.start()
+    job = mock.batch_job()
+    job.type = "service"
+    job.task_groups[0].count = 2
+    job.task_groups[0].tasks[0].config = {"run_for": "60s"}
+    job.canonicalize()
+    server.register_job(job)
+    assert _wait_for(lambda: len(
+        server.store.allocs_by_job("default", job.id)) == 2)
+    node_id = client.node.id
+    client.shutdown()
+    server.shutdown()
+
+    # "restart" the server from the same data dir
+    server2 = Server(ServerConfig(num_schedulers=2, data_dir=data_dir,
+                                  heartbeat_ttl_s=60.0), device="cpu")
+    assert server2.store.job_by_id("default", job.id) is not None
+    assert len(server2.store.allocs_by_job("default", job.id)) == 2
+    assert server2.store.node_by_id(node_id) is not None
+    assert server2._raft_index >= server.store.latest_index()
+    server2.start()
+    server2.shutdown()
+
+
+def test_blocked_eval_survives_restart(tmp_path):
+    data_dir = str(tmp_path / "blocked")
+    server = Server(ServerConfig(num_schedulers=2, data_dir=data_dir,
+                                 heartbeat_ttl_s=60.0), device="cpu")
+    server.start()
+    client = Client(server, ClientConfig(node_name="c1"))
+    client.start()
+    job = mock.batch_job()
+    job.task_groups[0].count = 1
+    job.task_groups[0].tasks[0].resources.cpu = 9000   # cannot place
+    server.register_job(job)
+    assert _wait_for(lambda: server.blocked_evals.blocked_count() == 1)
+    client.shutdown()
+    server.shutdown()
+
+    server2 = Server(ServerConfig(num_schedulers=2, data_dir=data_dir,
+                                  heartbeat_ttl_s=60.0), device="cpu")
+    server2.start()   # restore_evals re-blocks it
+    assert server2.blocked_evals.blocked_count() == 1
+    # a big node joining unblocks and places
+    big = Client(server2, ClientConfig(node_name="big", cpu_shares=16000))
+    big.start()
+    try:
+        assert _wait_for(lambda: len(
+            server2.store.allocs_by_job("default", job.id)) == 1, timeout=15)
+    finally:
+        big.shutdown()
+        server2.shutdown()

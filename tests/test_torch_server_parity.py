@@ -6,6 +6,9 @@ jobs, every mock id from `seeded_mock_ids` and every id the servers mint
 from one seeded `os.urandom` stream, as in
 tests/test_torch_golden_parity.py — registered while the workers are
 paused, then scheduled through broker -> worker -> plan queue -> applier.
+Each worker's pause is acknowledged by its loop before the inputs land,
+and each run waits for the broker's quiescence with every job placed,
+failing with what is missing past its deadline.
 
 Config (A), sequential (one worker, no batching, no micro-batch gateway):
 per job the allocs by (name, node name), the task-group counts and every
@@ -21,6 +24,7 @@ over capacity. The JAX Server runs as its own tests run it
 
 import os
 import random
+import threading
 import time
 
 import numpy as np
@@ -92,11 +96,7 @@ def _run(port: bool, cfg: dict, seed: int, monkeypatch):
         s = Server(ServerConfig(heartbeat_ttl_s=3600.0, **cfg), **kw)
         s.start()
         try:
-            for w in s.workers:
-                w.set_pause(True)
-            # a worker inside its blocking dequeue notices the pause on
-            # its next loop
-            time.sleep(0.6)
+            _pause_workers(s)
             idx = s._raft_index
             for node in nodes:
                 idx += 1
@@ -107,14 +107,7 @@ def _run(port: bool, cfg: dict, seed: int, monkeypatch):
             for w in s.workers:
                 w.set_pause(False)
             want = {j.id: j.task_groups[0].count for j in jobs}
-            deadline = time.time() + 60
-            while time.time() < deadline:
-                st = s.eval_broker.stats
-                if all(len(s.store.allocs_by_job("default", j)) == n
-                       for j, n in want.items()) and \
-                        st.total_ready == 0 and st.total_unacked == 0:
-                    break
-                time.sleep(0.02)
+            _wait_quiescent(s, want, deadline_s=60.0)
             out = _outcome(s, jobs)
             out["batches"] = sum(w.stats["batches"] for w in s.workers)
             out["batch_dispatches"] = \
@@ -122,6 +115,59 @@ def _run(port: bool, cfg: dict, seed: int, monkeypatch):
             return out
         finally:
             s.shutdown()
+
+
+class _AckedPause(threading.Event):
+    """A worker's pause flag that records when the worker's loop has seen
+    it set: the loop reads it before every dequeue, so once `seen` is
+    set the worker holds no dequeue and takes no eval until the pause
+    clears."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = threading.Event()
+
+    def is_set(self):
+        paused = super().is_set()
+        if paused:
+            self.seen.set()
+        return paused
+
+
+def _pause_workers(s, deadline_s=30.0):
+    """Pause every worker and wait until each one's loop acknowledged it
+    (a worker inside its blocking dequeue acknowledges when the dequeue
+    returns); fails if one does not within the deadline."""
+    flags = []
+    for w in s.workers:
+        w._paused = _AckedPause()
+        w.set_pause(True)
+        flags.append(w._paused)
+    deadline = time.time() + deadline_s
+    for i, flag in enumerate(flags):
+        assert flag.seen.wait(max(deadline - time.time(), 0.0)), \
+            f"worker {i} did not acknowledge its pause in {deadline_s} s"
+
+
+def _wait_quiescent(s, want, deadline_s):
+    """Wait until every job has its count of allocs and the broker holds
+    no ready or unacked eval; fails naming what is missing if that does
+    not happen within the deadline."""
+    deadline = time.time() + deadline_s
+    while True:
+        st = s.eval_broker.stats
+        short = {j: (len(s.store.allocs_by_job("default", j)), n)
+                 for j, n in want.items()
+                 if len(s.store.allocs_by_job("default", j)) != n}
+        if not short and st.total_ready == 0 and st.total_unacked == 0:
+            return
+        if time.time() > deadline:
+            raise AssertionError(
+                f"not quiescent after {deadline_s} s: allocs (have, "
+                f"want) {short}, broker ready {st.total_ready} unacked "
+                f"{st.total_unacked}, blocked "
+                f"{s.blocked_evals.blocked_count()}")
+        time.sleep(0.02)
 
 
 def _batch_dispatches(port: bool) -> float:

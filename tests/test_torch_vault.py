@@ -1,0 +1,338 @@
+"""The reference's vault suite (tests/test_vault.py) against the port's
+the Server's Vault token authority and client/vaultclient.py, servers on the CPU (device="cpu"), assertions unchanged.
+
+The reference's docstring:
+
+Vault token lifecycle: derivation, renewal, revocation, reaping.
+
+Reference: nomad/vault.go:176 (vaultClient CreateToken/RenewToken/
+RevokeTokens + revocation daemon), nomad/state accessor tracking,
+client/vaultclient/vaultclient.go (renewal loop, re-derive on failure),
+taskrunner/vault_hook.go (env + secrets file + change_mode). The
+embedded authority keeps leases in the replicated store (see
+nomad_tpu_torch/server/vault.py docstring).
+"""
+
+import os
+import time
+
+import pytest
+
+import test_torch_select  # noqa: F401  (torch's thread cap)
+
+from nomad_tpu_torch.server import Server as _Server
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.client import Client, ClientConfig
+from nomad_tpu_torch.models import ALLOC_CLIENT_COMPLETE
+from nomad_tpu_torch.models.job import VaultConfig
+from nomad_tpu_torch.server import ServerConfig
+
+
+def Server(config=None, **kw):
+    # the port's Server on the CPU: the kernels' plain versions
+    return _Server(config, device="cpu", **kw)
+
+
+def _wait_for(pred, timeout=10.0, interval=0.02):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if pred():
+            return True
+        time.sleep(interval)
+    return False
+
+
+@pytest.fixture
+def cluster(tmp_path):
+    server = Server(ServerConfig(num_schedulers=1, heartbeat_ttl_s=30.0,
+                                 vault_token_ttl_s=0.5))
+    server.start()
+    client = Client(server, ClientConfig(
+        node_name="vault-client", alloc_dir=str(tmp_path)))
+    client.start()
+    yield server, client
+    client.shutdown()
+    server.shutdown()
+
+
+def _vault_job(run_for="100ms", count=1):
+    job = mock.batch_job()
+    job.task_groups[0].count = count
+    task = job.task_groups[0].tasks[0]
+    task.config = {"run_for": run_for}
+    task.vault = VaultConfig(policies=["default"], change_mode="noop")
+    job.canonicalize()
+    return job
+
+
+def test_derive_tracks_accessor_and_injects_token(cluster, tmp_path):
+    server, client = cluster
+    job = _vault_job(run_for="5s")
+    server.register_job(job)
+    assert _wait_for(lambda: len(server.store.vault_accessors()) == 1), \
+        server.store.vault_accessors()
+    acc = server.store.vault_accessors()[0]
+    assert acc.token.startswith("s.")
+    assert acc.task == "web" or acc.task  # task name from the mock job
+    assert acc.policies == ["default"]
+    alloc = server.store.allocs_by_job("default", job.id)[0]
+    assert acc.alloc_id == alloc.id
+    assert server.lookup_vault_token(acc.token)
+    # secrets/vault_token landed in the alloc dir (vault_hook writeToken)
+    runner = client.runners[alloc.id]
+    secrets = runner.alloc_dir.task_paths(acc.task)[2]
+    tok_file = os.path.join(secrets, "vault_token")
+    assert _wait_for(lambda: os.path.exists(tok_file))
+    assert open(tok_file).read() == acc.token
+
+
+def test_short_ttl_token_survives_task_via_renewal(cluster):
+    """A 0.5 s-TTL lease under a 2 s task stays valid the whole run —
+    the renewal loop extends it; VERDICT r4 item 3's 'done' bar."""
+    server, client = cluster
+    job = _vault_job(run_for="2s")
+    server.register_job(job)
+    assert _wait_for(lambda: len(server.store.vault_accessors()) == 1)
+    acc0 = server.store.vault_accessors()[0]
+    # sample validity well past the original TTL while the task runs
+    t_end = time.time() + 1.6
+    while time.time() < t_end:
+        assert server.lookup_vault_token(acc0.token), \
+            "token lapsed mid-task despite renewal"
+        time.sleep(0.1)
+    assert client.vault_renewer.stats["renewals"] >= 1
+    acc1 = server.store.vault_accessor(acc0.accessor)
+    assert acc1 is not None and acc1.expire_time > acc0.expire_time
+
+
+def test_revoked_on_task_completion(cluster):
+    server, client = cluster
+    job = _vault_job(run_for="100ms")
+    server.register_job(job)
+    assert _wait_for(lambda: len(server.store.vault_accessors()) == 1)
+    assert _wait_for(lambda: all(
+        a.client_status == ALLOC_CLIENT_COMPLETE
+        for a in server.store.allocs_by_job("default", job.id)))
+    # terminal status update (or the reaper tick) revokes the lease
+    assert _wait_for(lambda: len(server.store.vault_accessors()) == 0), \
+        server.store.vault_accessors()
+
+
+def test_orphan_accessor_reaped():
+    """An accessor whose alloc no longer exists is dropped by the
+    leader's reap pass (vault.go revokeDaemon for orphans)."""
+    server = Server(ServerConfig(num_schedulers=0))
+    server.start()
+    try:
+        from nomad_tpu_torch.server.vault import VaultAccessor
+        now = time.time()
+        server.raft_apply("vault_accessor_upsert", dict(accessors=[dict(
+            accessor="orphan", token="s.dead", alloc_id="no-such-alloc",
+            task="t", node_id="n", policies=[], ttl_s=3600.0,
+            create_time=now, expire_time=now + 3600.0,
+            create_index=0, modify_index=0)]))
+        assert server.store.vault_accessor("orphan") is not None
+        server._reap_vault_accessors()
+        assert server.store.vault_accessor("orphan") is None
+    finally:
+        server.shutdown()
+
+
+def test_expired_lease_renewal_fails_then_rederive():
+    """Renewing past expiry raises (client must re-derive); the unit
+    surface of vaultclient's failure path."""
+    server = Server(ServerConfig(num_schedulers=1,
+                                 vault_token_ttl_s=0.2))
+    server.start()
+    try:
+        node = mock.node()
+        node.attributes["vault.version"] = "1.0-embedded"
+        node.compute_class()
+        server.register_node(node)
+        job = _vault_job(run_for="10s")
+        # place without a client: schedule, then derive directly
+        server.register_job(job)
+        assert _wait_for(lambda: len(
+            server.store.allocs_by_job("default", job.id)) == 1)
+        alloc = server.store.allocs_by_job("default", job.id)[0]
+        task = job.task_groups[0].tasks[0].name
+        out = server.derive_vault_token(alloc.id, [task])
+        lease = out[task]
+        assert server.renew_vault_token(lease["accessor"],
+                                        lease["token"]) == 0.2
+        time.sleep(0.35)
+        with pytest.raises(ValueError):
+            server.renew_vault_token(lease["accessor"], lease["token"])
+        # lazy reap on failed renewal dropped the lease
+        assert server.store.vault_accessor(lease["accessor"]) is None
+        # re-derive issues a fresh valid lease
+        out2 = server.derive_vault_token(alloc.id, [task])
+        assert server.lookup_vault_token(out2[task]["token"])
+        # wrong token for a known accessor is rejected
+        with pytest.raises(KeyError):
+            server.renew_vault_token(out2[task]["accessor"], "s.wrong")
+    finally:
+        server.shutdown()
+
+
+def test_derive_rejects_unknown_or_vaultless_task():
+    """node_endpoint.go DeriveVaultToken: a client must not mint
+    tokens for task names outside the alloc's group or for tasks with
+    no vault stanza."""
+    server = Server(ServerConfig(num_schedulers=1))
+    server.start()
+    try:
+        node = mock.node()
+        node.attributes["vault.version"] = "1.0-embedded"
+        node.compute_class()
+        server.register_node(node)
+        job = _vault_job(run_for="10s")
+        server.register_job(job)
+        assert _wait_for(lambda: len(
+            server.store.allocs_by_job("default", job.id)) == 1)
+        alloc = server.store.allocs_by_job("default", job.id)[0]
+        with pytest.raises(ValueError):
+            server.derive_vault_token(alloc.id, ["no-such-task"])
+        # a real task without a vault stanza is rejected too
+        plain = mock.batch_job()
+        plain.id = "no-vault"
+        plain.task_groups[0].count = 1
+        plain.task_groups[0].tasks[0].config = {"run_for": "10s"}
+        plain.canonicalize()
+        server.register_job(plain)
+        assert _wait_for(lambda: len(
+            server.store.allocs_by_job("default", plain.id)) == 1)
+        palloc = server.store.allocs_by_job("default", plain.id)[0]
+        with pytest.raises(ValueError):
+            server.derive_vault_token(
+                palloc.id, [plain.task_groups[0].tasks[0].name])
+    finally:
+        server.shutdown()
+
+
+def test_accessors_indexed_by_alloc():
+    """Terminal-alloc revocation must not scan the lease table: the
+    by-alloc secondary index answers it directly."""
+    from nomad_tpu_torch.server.vault import VaultAccessor
+    from nomad_tpu_torch.state import StateStore
+    store = StateStore()
+    now = time.time()
+    accs = [VaultAccessor(
+        accessor=f"acc{i}", token=f"s.tok{i}", alloc_id=f"a{i % 3}",
+        task="t", node_id="n", policies=[], ttl_s=60.0,
+        create_time=now, expire_time=now + 60.0) for i in range(9)]
+    store.upsert_vault_accessors(5, accs)
+    got = sorted(a.accessor for a in store.vault_accessors_by_alloc("a1"))
+    assert got == ["acc1", "acc4", "acc7"]
+    assert store.vault_accessor_by_token("s.tok4").accessor == "acc4"
+    store.delete_vault_accessors(6, ["acc4"])
+    got = sorted(a.accessor for a in store.vault_accessors_by_alloc("a1"))
+    assert got == ["acc1", "acc7"]
+    assert store.vault_accessor_by_token("s.tok4") is None
+    # restore rebuilds both indexes
+    fresh = StateStore()
+    fresh.restore(store.snapshot().dump())
+    assert sorted(a.accessor
+                  for a in fresh.vault_accessors_by_alloc("a0")) == \
+        ["acc0", "acc3", "acc6"]
+    assert fresh.vault_accessor_by_token("s.tok8").accessor == "acc8"
+
+
+def test_lease_survives_client_restart(tmp_path):
+    """A re-attached task's lease keeps renewing after a client
+    restart: the restored renewer re-registers the persisted lease, so
+    the token stays valid past its original TTL (taskrunner vault_hook
+    restore + client/vaultclient re-registration)."""
+    state_dir = str(tmp_path / "client-state")
+    server = Server(ServerConfig(num_schedulers=1, heartbeat_ttl_s=30.0,
+                                 vault_token_ttl_s=0.5))
+    server.start()
+    c1 = Client(server, ClientConfig(node_name="vault-durable",
+                                     state_dir=state_dir,
+                                     alloc_dir=str(tmp_path / "allocs")))
+    c1.start()
+    try:
+        job = _vault_job(run_for="60s")
+        job.type = "service"
+        job.canonicalize()
+        server.register_job(job)
+        assert _wait_for(lambda: len(server.store.vault_accessors()) == 1)
+        acc = server.store.vault_accessors()[0]
+
+        # "crash" the client without killing the task
+        c1.shutdown(kill_tasks=False)
+
+        c2 = Client(server, ClientConfig(node_name="vault-durable",
+                                         state_dir=state_dir,
+                                         alloc_dir=str(tmp_path / "allocs")))
+        c2.start()
+        try:
+            assert len(c2.runners) == 1
+            alloc_id = next(iter(c2.runners))
+
+            # the task must hold a live lease well past the original
+            # 0.5 s TTL: either the restored lease kept renewing, or
+            # (if it lapsed during the restart window) the renewer
+            # re-derived a fresh one — both are recovery, a dead token
+            # with no replacement is the bug
+            def live_lease():
+                accs = server.store.vault_accessors_by_alloc(alloc_id)
+                return len(accs) == 1 and \
+                    server.lookup_vault_token(accs[0].token)
+            assert _wait_for(live_lease, timeout=3)
+            t_end = time.time() + 1.2
+            while time.time() < t_end:
+                assert live_lease(), "lease lapsed after client restart"
+                time.sleep(0.1)
+            st = c2.vault_renewer.stats
+            assert st["renewals"] + st["rederives"] >= 1
+        finally:
+            c2.shutdown()
+    finally:
+        server.shutdown()
+
+
+def test_rederive_skips_change_mode_on_finished_task(tmp_path):
+    """A persistent renewal failure on an already-exited task must not
+    force a restart outside the restart policy — the fresh token just
+    lands on disk."""
+    from nomad_tpu_torch.client.agent import TaskRunner
+    from nomad_tpu_torch.client.drivers import MockDriver
+
+    job = _vault_job(run_for="50ms")
+    job.task_groups[0].tasks[0].vault.change_mode = "restart"
+    alloc = mock.alloc()
+    alloc.job = job
+    alloc.task_group = job.task_groups[0].name
+    task = job.task_groups[0].tasks[0]
+    driver = MockDriver()
+    tr = TaskRunner(alloc, task, driver, on_update=lambda: None,
+                    derive_vault=lambda aid, ts: {
+                        t: {"token": "s.x", "accessor": "", "ttl_s": 0}
+                        for t in ts})
+    tr.run()        # synchronous: task runs 50ms and completes
+    assert tr.state.state == "dead" and not tr.state.failed
+    restarts_before = tr.state.restarts
+    tr._on_new_vault_token({"token": "s.new", "accessor": "a2",
+                            "ttl_s": 1.0})
+    assert tr._force_restart is False, \
+        "finished task must not be force-restarted by a token change"
+    assert tr.state.restarts == restarts_before
+
+
+def test_accessors_survive_snapshot_restore():
+    """Leases ride the store dump/restore (failover: a new leader can
+    still renew/revoke accessors it never minted)."""
+    from nomad_tpu_torch.server.vault import VaultAccessor
+    from nomad_tpu_torch.state import StateStore
+    store = StateStore()
+    now = time.time()
+    store.upsert_vault_accessors(7, [VaultAccessor(
+        accessor="acc1", token="s.tok1", alloc_id="a1", task="t",
+        node_id="n1", policies=["p"], ttl_s=60.0, create_time=now,
+        expire_time=now + 60.0)])
+    data = store.snapshot().dump()
+    fresh = StateStore()
+    fresh.restore(data)
+    a = fresh.vault_accessor("acc1")
+    assert a is not None and a.token == "s.tok1" and a.ttl_s == 60.0
