@@ -110,10 +110,10 @@ Phases (each raises on failure, so the process exits non-zero):
      the solo kernel on the same padded request and the plain version;
      then the sharded K-way kernel at the edge shapes of phase 2 and at
      mixed batched lanes (one with no feasible row, one that runs dry) at
-     8, 32 and the most shards, each call with an 8-phase budget
+     8 and the most shards, each call with an 8-phase budget
      continued from the card's carry, and the sharded scan at SCAN_EDGES
      and at mixed batched lanes (MIXED_LANES and a lane that runs dry, at
-     10,000 nodes) at 1, 8, 16, 32 and the most shards (both routes;
+     10,000 nodes) at 1, 8 and the most shards (both routes;
      at 1 shard the 16,384-row all-live case outgrows a shard's shared
      memory, which fails unless it is so), every launch held bit for bit
      against its plain version and the single-card kernel on the same
@@ -143,8 +143,10 @@ Phases (each raises on failure, so the process exits non-zero):
      beside the single card's and the handoffs a lane, B 8 lanes of count
      512 and the all-alike table (one lane of count 512, binpack and
      spread) at 8 shards, and CHUNKED_EDGES (one lane each, binpack and
-     spread) and CHUNKED_LANES (an 8-step budget) at 8, 16, 32 and the
-     most shards, every launch and a continuation from the card's carry
+     spread) and CHUNKED_LANES (an 8-step budget) at 8 and the most
+     shards (the edge checks' shard counts; the sweep's 16 and 32 run
+     at the main shapes only), every launch and a
+     continuation from the card's carry
      bit for bit against the plain version and the single-card batched
      kernel. Then phase 7's gateway groups under set_mesh(make_mesh(8)) on
      a fresh store, and its chunked and spread groups under
@@ -342,12 +344,42 @@ Phases (each raises on failure, so the process exits non-zero):
      alloc first seen placed in the store -> the client's task
      started_at), `alloc logs`' seconds, the subprocess's start seconds
      and the launches, which the kernels line holds as `client_launches`.
+ 16. the scenario matrix on the card (nomad_tpu_torch/chaos/): (a) the six
+     quick single-process cells (system_fanout, spread_antiaffinity,
+     batch_backfill, drain_storm, client_failure_burst, blocked_herd) and
+     the three cluster cells (swim_partition, follower_fence,
+     leader_failover_commit) through `run_cell(..., device="cuda")`,
+     each a seeded workload on real Servers under an injected fault
+     (dropped heartbeats, a forced governor reclaim, a worker killed
+     between its plan's commit and its ack, a drain storm and a reboot
+     over a corrupted WAL tail, a mass client failure, a blocked-eval
+     herd, a SWIM partition, lagged replication, the leader killed
+     mid-group-commit); every cell must pass, and a cell's error fails
+     the phase; (b) the six single-process cells at their -full sizes
+     on the card, then again on the CPU: each card run's invariant names
+     and verdicts, fault-event kinds, placement count and placement
+     shape (every live alloc, the alloc count of each node) must equal
+     the CPU's, and in system_fanout,
+     spread_antiaffinity and batch_backfill every live alloc must sit on
+     the same node; the others' node ids vary from run to run on either
+     device, with thread timings. The -full flatness verdicts over
+     seconds-long windows and spread_antiaffinity's per-node p99 bound
+     fail on both devices, as they do in the JAX package, and are
+     printed, not failed on. The launches of
+     (a) and (b)'s card runs (counts set to 0 just before them) must
+     include the chunked, scan and scatter_set kernels; the kernels line
+     holds them as `chaos_launches`. Printed: each cell's elapsed
+     seconds, placements a second and settle p50 / p99 ms, each cluster
+     cell's raft elections won, leader step-downs and highest term (from
+     the raft log), the cells whose every alloc sat on the same node on
+     both devices, with the card's name and power limit.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 Imports nothing of JAX or of the JAX package.
 """
 
 import json
+import logging
 import statistics
 import sys
 import time
@@ -930,6 +962,21 @@ def mesh_shard_counts(device, kernel):
                       + (kernels.max_shards(grid, device),)))
 
 
+def edge_shard_counts(device, kernel):
+    """The shard counts the sharded kernels' edge checks run: MESH_SHARDS
+    (a thread-block cluster a lane where the kernel has that route), for
+    the scan and chunked kernels also 16 (their one cluster size past the
+    portable 8), and the most the card holds (the cooperative grid). 32,
+    which takes the grid route as the most does, runs at the main shapes
+    only (the sharded and batched sharded kernel phases), which keeps the
+    script inside its time limit."""
+    from nomad_tpu_torch.ops import kernels
+    grid = "scan_sharded" if kernel.startswith("scan") else kernel
+    cluster = (16,) if kernel.startswith(("scan", "chunked")) else ()
+    return sorted({MESH_SHARDS, kernels.max_shards(grid, device)}
+                  | set(cluster))
+
+
 def scan_route(shards, per, batched=False):
     """The LAUNCHES key of the sharded scan kernel that S shards of `per`
     rows take, as the library routes them."""
@@ -951,8 +998,9 @@ def kway_sharded_edge_checks(device):
     """The node-sharded K-way kernel at KWAY_EDGES (one lane, binpack and
     spread) and at mixed batched lanes (K-way lanes of 10, 2,000 and 2,000
     instances over 50 feasible rows, one with no feasible row and one
-    that runs dry, over one capacity table), at S 8, 32 and the most
-    the card holds, each table padded as a mesh of S shards pads it and
+    that runs dry, over one capacity table), at S 8 and the most the
+    card holds (edge_shard_counts), each table padded as a mesh of S
+    shards pads it and
     each call with an 8-phase budget continued from the card's own carry:
     every launch held bit for bit against its plain version and against
     the single-card kernel on the same padded table."""
@@ -960,7 +1008,7 @@ def kway_sharded_edge_checks(device):
     from nomad_tpu_torch.mock.kway_edges import kway_edge_args, pad_rows
     from nomad_tpu_torch.ops import kernels
     from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
-    shard_counts = mesh_shard_counts(device, "kway_sharded")
+    shard_counts = edge_shard_counts(device, "kway_sharded")
     held = []
     for i, (label, n, count, kind, w, keep) in enumerate(KWAY_EDGES):
         args = kway_edge_args(n, count, kind, SEED + 40 + i,
@@ -1084,15 +1132,16 @@ def held_chunked_sharded(targs, kw, shards, label, launches=2):
 def chunked_sharded_edge_checks(device):
     """The sharded chunked kernels at CHUNKED_EDGES' card rows (one lane,
     binpack and spread, SelectKernel's step budget) and at CHUNKED_LANES
-    over 10,000 rows (an 8-step budget), at every shard count of the mesh
-    phases, each table padded as a mesh of S shards pads it: every launch,
+    over 10,000 rows (an 8-step budget), at S 8 and the most the card
+    holds (edge_shard_counts), each table padded as a mesh of S shards
+    pads it: every launch,
     and a continuation from the card's own carry, held bit for bit against
     the plain version and the single-card batched kernel."""
     from nomad_tpu_torch.mock.chunked_edges import (
         CHUNKED_EDGES, CHUNKED_LANES, chunked_edge_args, chunked_lanes,
         edge_rows, one_lane, pad_lanes)
     from nomad_tpu_torch.parallel import make_mesh, pad_for_mesh
-    shard_counts = mesh_shard_counts(device, "chunked_batched_sharded")
+    shard_counts = edge_shard_counts(device, "chunked_batched_sharded")
     held = []
     for i, label in enumerate(CHUNKED_EDGES):
         count = CHUNKED_EDGES[label][2]
@@ -2373,7 +2422,7 @@ def scan_shard_live(targs, st, shards):
 def scan_sharded_edge_checks(device):
     """The sharded scan at SCAN_EDGES (one lane, binpack) and at mixed
     batched lanes at 10,000 nodes (MIXED_LANES and a lane that runs dry),
-    at S 1, 8, 16, 32 and the most the card holds, each table padded
+    at S 1, 8 and the most the card holds, each table padded
     as a mesh of S shards pads it: every launch held bit for bit against
     its plain version (scan_plain(shards=)) and against the single-card
     kernel on the same padded request, on both paths (a cluster a lane up
@@ -2404,7 +2453,7 @@ def scan_sharded_edge_checks(device):
             compare(f"{label} outputs vs {what}", got[1], other[1], 0.0)
         return scan_steps_run(got[1][0], st["k_steps"])
 
-    shard_counts = sorted({1} | set(mesh_shard_counts(device,
+    shard_counts = sorted({1} | set(edge_shard_counts(device,
                                                       "scan_sharded")))
     report, past = [], []
     for shards in shard_counts:
@@ -5098,6 +5147,171 @@ def client_phase(nodes, info, device=None, sub_nodes=AGENT_SUB_NODES):
     return launches
 
 
+# phase 16: the kernels the scenario matrix's cells must launch on the
+# card (every service and batch cell places through the chunked kernel,
+# spread_antiaffinity through the scan, node registrations and failures
+# patch the resident table with scatter_set)
+CHAOS_KERNELS = ("chunked", "scan", "scatter_set")
+
+
+def _chaos_line(label, c):
+    flat = c["flatness"]
+    verdict = {True: "flat", False: "drifting", None: "flatness n/a"}[
+        flat.get("pass")]
+    failed = c["invariants_failed"]
+    return (f"chaos {label} {c['name']}: "
+            f"{'pass' if c['pass'] else 'FAIL'}, {c['elapsed_s']:.2f} s, "
+            f"{c['placements']} placements, "
+            f"{c['placements_per_sec']:.1f} placements/s, settle p50 "
+            f"{c['settle_p50_ms']:.1f} / p99 {c['settle_p99_ms']:.1f} ms, "
+            f"invariants {len(c['invariants']) - len(failed)}/"
+            f"{len(c['invariants'])}"
+            + (f" (failed: {', '.join(failed)})" if failed else "")
+            + f", {verdict}"
+            + (f" ({flat.get('reason', '')})"
+               if flat.get("pass") is False else "")
+            + (f", error {c['error']}" if c.get("error") else ""))
+
+
+# the -full cells whose every live alloc lands on the same node from one
+# run to the next. In the others a race of thread timings (the two
+# scheduler workers, the drain and heartbeat timers) picks which of
+# several equally good nodes an alloc takes, and only the placements'
+# shape is held: the same allocs, the same count on each node
+CHAOS_EXACT_CELLS = ("system_fanout", "spread_antiaffinity",
+                     "batch_backfill")
+
+
+def _chaos_outcome(c):
+    """What the card's -full run must share with the CPU's: the
+    invariant verdicts, the fault kinds, the placement count and shape,
+    and in CHAOS_EXACT_CELLS the node of every live alloc."""
+    from nomad_tpu_torch.chaos.matrix import placement_shape
+    out = {"invariants": [(i["name"], i["pass"]) for i in c["invariants"]],
+           "placements": c["placements"],
+           "shape": placement_shape(c["placed"]),
+           "faults": sorted({e["kind"] for e in c["faults"]})}
+    if c["name"] in CHAOS_EXACT_CELLS:
+        out["placed"] = c["placed"]
+    return out
+
+
+class _RaftEvents(logging.Handler):
+    """Counts the elections won and the leaders' step-downs that a
+    cell's raft servers log, and the highest term they reach."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.elected = self.stepped_down = self.term = 0
+
+    def emit(self, record):
+        if record.msg.startswith("elected leader"):
+            self.elected += 1
+        elif record.msg.startswith("stepping down"):
+            self.stepped_down += 1
+        else:
+            return
+        self.term = max(self.term, int(record.args[0]))
+
+
+def _run_counting_raft(run_cell, sc, **kw):
+    """run_cell with the raft log's elections and step-downs counted
+    into the cell's result as `raft`."""
+    log = logging.getLogger("nomad_tpu.raft")
+    ev = _RaftEvents()
+    log.addHandler(ev)
+    try:
+        c = run_cell(sc, **kw)
+    finally:
+        log.removeHandler(ev)
+    c["raft"] = {"elected": ev.elected, "stepped_down": ev.stepped_down,
+                 "term": ev.term}
+    return c
+
+
+def chaos_phase(info, device="cuda"):
+    """Phase 16 (see the module's docstring). Returns the launches of
+    the card's cells, parts (a) and (b). `device="cpu"` rehearses it on
+    the CPU (both halves of (b) on the CPU)."""
+    import torch
+    from nomad_tpu_torch.chaos.matrix import run_cell
+    from nomad_tpu_torch.chaos.scenarios import SCENARIOS
+    from nomad_tpu_torch.ops import kernels
+    from nomad_tpu_torch.utils import gcsafe
+    what = "chaos phase"
+    t_phase = time.perf_counter()
+    single = [sc for sc in SCENARIOS.values()
+              if sc.quick and not sc.cluster]
+    cluster = [sc for sc in SCENARIOS.values() if sc.cluster]
+    # the earlier phases' heap out of every collection the cells' threads
+    # would otherwise sit through (phase 13's idiom); no cell's settings
+    # change
+    gcsafe.freeze_steady_state()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    quick = [run_cell(sc, quick=True, device=device) for sc in single]
+    quick += [_run_counting_raft(run_cell, sc, quick=True, device=device)
+              for sc in cluster]
+    t_quick = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = [run_cell(sc, quick=False, device=device) for sc in single]
+    t_full = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    full_cpu = [run_cell(sc, quick=False, device="cpu") for sc in single]
+    t_full_cpu = time.perf_counter() - t0
+    for c in quick:
+        print(_chaos_line(f"quick on {device}", c), flush=True)
+        if "raft" in c:
+            r = c["raft"]
+            print(f"chaos raft {c['name']} on {device}: {r['elected']} "
+                  f"elections won, {r['stepped_down']} leader step-downs, "
+                  f"highest term {r['term']}", flush=True)
+    for c in full:
+        print(_chaos_line(f"full on {device}", c), flush=True)
+    for c in full_cpu:
+        print(_chaos_line("full on cpu", c), flush=True)
+    bad = [c["name"] for c in quick if not c["pass"]]
+    if bad:
+        fail(f"{what}: cells failed on {device}: {bad}")
+    for c in full + full_cpu:
+        if c.get("error"):
+            fail(f"{what}: -full cell {c['name']} crashed: {c['error']}")
+    same_nodes = []
+    for g, c in zip(full, full_cpu):
+        got, want = _chaos_outcome(g), _chaos_outcome(c)
+        if got != want:
+            fail(f"{what}: -full cell {g['name']} on {device} {got} "
+                 f"differs from the CPU's {want}")
+        if g["placed"] == c["placed"]:
+            same_nodes.append(g["name"])
+    missing = [k for k in CHAOS_KERNELS if launches.get(k, 0) < 1]
+    if device == "cuda" and missing:
+        fail(f"{what}: the cells never launched {missing} ({launches})")
+    def failures(cells):
+        return {c["name"]: c["invariants_failed"]
+                + (["flatness"] if c["flatness"].get("pass") is False
+                   else []) for c in cells if not c["pass"]}
+    print(f"chaos phase: {len(quick)}/{len(quick)} quick and cluster "
+          f"cells pass on {device} ({t_quick:.1f} s, "
+          f"{sum(len(c['invariants']) for c in quick)} invariants); -full "
+          f"{sum(c['pass'] for c in full)}/{len(full)} pass on {device} "
+          f"({t_full:.1f} s) and {sum(c['pass'] for c in full_cpu)}/"
+          f"{len(full_cpu)} on the CPU ({t_full_cpu:.1f} s), the same "
+          f"invariant verdicts, fault kinds and placement shapes, every "
+          f"live alloc on the same node in {same_nodes} (held in "
+          f"{list(CHAOS_EXACT_CELLS)}); -full "
+          f"failures on {device} {failures(full)}, on the CPU "
+          f"{failures(full_cpu)}; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({info['raw']})",
+          flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5116,9 +5330,19 @@ def main():
     print(f"set-up: kernels built in {time.perf_counter() - t0:.2f} s "
           f"({kernels.BUILD_INFO['path']})", flush=True)
 
+    # each phase's seconds, printed before the kernels line: the script's
+    # whole run must stay inside the chip call's limit
+    marks = [("set-up", t0)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     rows = kernel_phase("cuda")
+    mark("kernels")
     table_rows = table_kernel_phase()
+    mark("table kernels")
     batched_rows = batched_kernel_phase("cuda")
+    mark("batched kernels")
 
     nodes = build_cluster(mock, seeded_mock_ids)
     jobs = main_path_jobs(mock, models)
@@ -5145,23 +5369,42 @@ def main():
               f"launches {got}): {wall:.3f} s on the card, {cw:.3f} s "
               f"with plain versions on the CPU; placements identical",
               flush=True)
+    mark("main path")
 
     steady_launches, steady_gpu = steady_state_phase(nodes, mock, models)
+    mark("steady state")
     gateway_launches, gateway_gpu = gateway_phase(nodes, mock, models)
+    mark("gateways")
     sharded_rows = sharded_kernel_phase("cuda")
+    mark("sharded kernels")
     mesh_launches = mesh_phase("cuda", nodes, jobs, gpu_places, gpu_walls,
                                steady_state_steps(mock, models, nodes),
                                steady_gpu)
+    mark("mesh")
     bs_rows = batched_sharded_kernel_phase("cuda")
+    mark("batched sharded kernels")
     mesh_gw_launches = mesh_gateway_phase(nodes, mock, models, gateway_gpu)
+    mark("mesh gateways")
     cold_launches, cold_mesh_launches = cold_start_phase(
         main_h, nodes, jobs, steady_state_steps(mock, models, nodes), info)
+    mark("cold start")
     server_launches, single_manifest = server_phase(nodes, mock, models,
                                                     info)
+    mark("server")
     restart_launches = restart_phase(nodes, mock, models, info)
+    mark("restart")
     ring_launches = ring_phase(nodes, mock, models, single_manifest, info)
+    mark("ring")
     agent_launches = agent_phase(nodes, info)
+    mark("agent")
     client_launches = client_phase(nodes, info)
+    mark("client")
+    chaos_launches = chaos_phase(info)
+    mark("chaos")
+    print("phase seconds: " + json.dumps(
+        {name: round(t - marks[i][1], 1)
+         for i, (name, t) in enumerate(marks[1:])}
+        | {"total": round(marks[-1][1] - t0, 1)}), flush=True)
     # each sharded kernel's launches on its main path: the grid route's
     # kernels on the MESH_GRID mesh's, every other on MESH_SHARDS'
     grid = ("scan_sharded",) + GRID_ROUTE
@@ -5263,6 +5506,7 @@ def main():
         rec["ring_launches"] = ring_launches.get(rec["name"], 0)
         rec["agent_launches"] = agent_launches.get(rec["name"], 0)
         rec["client_launches"] = client_launches.get(rec["name"], 0)
+        rec["chaos_launches"] = chaos_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": record}))
     print(info["raw"])
     print(json.dumps({"ok": True, "device": {

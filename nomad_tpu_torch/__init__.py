@@ -31,7 +31,11 @@ governor (governor/: gauges, watermarks, reclaims, backpressure), the
 process-wide flight recorder (trace/: a span tree an eval, a kernel span
 a dispatch) and the telemetry collector (telemetry/), served at
 /v1/operator/governor, /v1/operator/trace, /v1/operator/telemetry and
-/v1/metrics.
+/v1/metrics. `python -m nomad_tpu_torch.chaos` (or `dev chaos`) runs the
+scenario matrix (chaos/): seeded workloads on real Servers, on the card
+unless `-device cpu`, under faults that chaos/faults.py's FaultInjector
+delivers through hook points in the worker, follower scheduling, the
+applier, raft, SWIM and the heartbeat path, judged by invariants.
 
 `python -m nomad_tpu_torch agent -dev` is the agent as a user runs it
 (cli/main.py: `start_agent` builds the Server on `-device`, the card
@@ -95,7 +99,7 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   scheduler/__init__.py, scheduler/annotate.py, scheduler/context.py,
   scheduler/devices.py, scheduler/reconcile.py,
   scheduler/reconcile_util.py, scheduler/scheduler.py, scheduler/util.py,
-  server/eval_broker.py, server/plan_queue.py,
+  server/plan_queue.py,
   server/event_broker.py, server/core_sched.py, server/periodic.py,
   server/deployment_watcher.py, server/drainer.py, utils/timetable.py,
   utils/gcsafe.py, server/persistence.py, server/connect_hook.py,
@@ -108,7 +112,9 @@ Copies of the file of the same path under nomad_tpu/, identical in code
   client/state_db.py, client/taskenv.py, client/vaultclient.py,
   plugins/__init__.py, plugins/hclspec.py, rpc/transport.py,
   server/vault.py, governor/__init__.py, governor/policy.py,
-  governor/registry.py, governor/drift.py, governor/governor.py.
+  governor/registry.py, governor/drift.py, governor/governor.py,
+  chaos/__init__.py, chaos/faults.py, chaos/scenarios.py (its servers
+  built by the matrix's Cell on the cell's device).
 
 Copies changed only where they reached modules this package does not
 carry, or to carry the device:
@@ -181,9 +187,9 @@ carry, or to carry the device:
                         an Agent with its local clients (the HTTP API
                         reads their alloc dirs, and none without them),
                         and the signal loop; `-heartbeat-ttl`;
-                        `operator debug` bundles no chaos artifact;
-                        `dev lint` and `dev chaos` exit 1 (analysis/ and
-                        chaos/ are not carried); the environment it
+                        `dev chaos` takes `-device` (the card unless
+                        `cpu`); `dev lint` exits 1 (analysis/ is not
+                        carried); the environment it
                         reads is NOMAD_TOKEN, NOMAD_REGION and
                         NOMAD_VAR_* only; `operator trace` / `operator
                         top` name the port's off settings;
@@ -193,27 +199,51 @@ carry, or to carry the device:
   rpc/client.py, rpc/__init__.py   verbatim;
   rpc/server.py         shutdown closes the live connections and joins
                         the listener;
-  server/plan_applier.py  without the NOMAD_TPU_PLAN_GROUP switch, the
-                        chaos fault hooks and the process-wide
+  server/plan_applier.py  without the NOMAD_TPU_PLAN_GROUP switch and
+                        the process-wide
                         GROUP_STATS (the flight-recorder spans, the
                         conflict window, shrink_group_bound and
                         effective_group_bound, the committer thread, the
                         overlay of submitted but unapplied plans,
                         apply_sync and fail_futures as in the JAX
                         package);
-  server/raft.py        without the chaos hooks; append_entry encodes
+  server/raft.py        append_entry encodes
                         before it takes the lock; a new leader
                         establishes leadership only after its term's
                         no-op is applied (the Barrier of nomad/leader.go);
                         no election while a snapshot installs; the
                         election timeout scales with raft_multiplier;
                         stop() joins the ticker and the FSM applier;
-                        replication counters (`stats`);
-  server/swim.py        without the chaos hooks; stop() joins its thread;
+                        replication counters (`stats`); the
+                        raft.election chaos hook asked CHAOS_HOLD_S
+                        (two heartbeats) before the election deadline,
+                        not at it (in the JAX package a follower_fence
+                        victim whose deadline lapses just as its lag
+                        heals campaigns before the leader's first
+                        heartbeat, and can depose it);
+  server/swim.py        stop() joins its thread;
   server/blocked_evals.py  with unblock_failed (blocked_evals.go
                         UnblockFailed), which the leader runs on a timer;
-  server/follower_sched.py  without the NOMAD_TPU_FOLLOWER_SCHED switch
-                        and the chaos hook; Eval.Dequeue answers with a
+  server/eval_broker.py  its timer threads named (eval-broker-nack,
+                        -wait, -delay); flush() joins the timers it
+                        cancels, so set_enabled(False) leaves none behind;
+  chaos/invariants.py   race_baseline() None and race_clean() a pass with
+                        race "off" and findings 0: the race sanitizer
+                        (analysis/) is not carried;
+  chaos/matrix.py       run_cell(..., device) and run_matrix(..., device)
+                        carry the device into Cell, whose server() builds
+                        Server(ServerConfig(...), device): the card unless
+                        the caller passes "cpu", resolved before a cell
+                        starts (a missing card raises); the flatness
+                        verdict from telemetry/flatness.py; the matrix's
+                        race report is always "off"; each cell's result
+                        also has `placed` (placed_allocs: each job's live
+                        allocs by node, read before teardown), and
+                        placement_shape() drops its node ids;
+  chaos/__main__.py     `-device` (the card unless `cpu`), without the JAX
+                        package's CPU-platform block;
+  server/follower_sched.py  without the NOMAD_TPU_FOLLOWER_SCHED switch;
+                        Eval.Dequeue answers with a
                         wait index (nomad/eval_endpoint.go getWaitIndex)
                         that the follower's worker fences on;
   server/ingest.py      without the NOMAD_TPU_INGEST_BATCH switch and the
@@ -259,8 +289,9 @@ Written for the port:
                         pipelined through its finisher thread),
                         process_eval and process_eval_batch, with the
                         flight-recorder spans and the governor's latency
-                        reservoir and backpressure; without the chaos
-                        hooks, the worker_pipeline setting and the JAX
+                        reservoir and backpressure, and the chaos hooks
+                        (worker.plan_committed, WorkerKilled nacked);
+                        without the worker_pipeline setting and the JAX
                         package's NOMAD_TPU_EVAL_BATCH /
                         NOMAD_TPU_MICROBATCH switches; BatchGateway gains
                         `partition` and
@@ -272,7 +303,9 @@ Written for the port:
                         and chip_smoke.py set, the governor_*, trace_*
                         and telemetry_* fields among them, with
                         trace_enabled in place of NOMAD_TPU_TRACE;
-                        without worker_pipeline and
+                        without chaos_seed / chaos_visibility_bound_s,
+                        which are chaos/faults.py's DEFAULTS (set there
+                        with configure()), worker_pipeline and
                         reconcile_index_max_jobs / _delta_max, which are
                         the constants they default to; with
                         raft_multiplier,
@@ -310,7 +343,8 @@ Written for the port:
                         federation (multiregion register and
                         deregister_job_global), the Vault token
                         authority with the volume watcher's reap, and
-                        heartbeat(node_id, stats) with cluster_stats, and
+                        heartbeat(node_id, stats) (its chaos hook
+                        server.heartbeat) with cluster_stats, and
                         the governor (every gauge of the JAX package's
                         but the lock.* ones, which read the race
                         sanitizer; `lint.recompiles` counts fresh

@@ -1199,8 +1199,17 @@ def cmd_operator_debug(args) -> int:
     try_add("flatness.json", c.flatness)
     try_add("metrics.prom",
             lambda: c.metrics(format="prometheus").encode())
-    # (no chaos.json: the scenario matrix that writes the artifact
-    # is not carried, ROADMAP queue 1 item 6)
+    # latest chaos artifact: when an operator has run `nomad dev chaos`
+    # on this machine, the newest CHAOS_rNN.json rides in the bundle as
+    # chaos.json — a support ticket carries the invariant verdicts the
+    # cluster last proved, not just its gauges
+    from ..chaos.matrix import latest_artifact
+    chaos_path = latest_artifact(".")
+    if chaos_path is not None:
+        def _read_chaos(p=chaos_path):
+            with open(p, "rb") as f:
+                return f.read()
+        try_add("chaos.json", _read_chaos)
     try_add("scheduler-config.json", c.scheduler_config)
     try_add("nomad/jobs.json", c.list_jobs)
     # per-node live host stats: each reachable client's
@@ -1946,7 +1955,7 @@ def cmd_acl_token_list(args) -> int:
 
 DEV_TOOLING_MISSING = (
     "`dev {}` needs the {} package, which this port does not carry yet "
-    "(ROADMAP queue 1 item 6)")
+    "(ROADMAP queue 1 item 3)")
 
 
 def cmd_dev_lint(args) -> int:
@@ -1956,9 +1965,30 @@ def cmd_dev_lint(args) -> int:
 
 
 def cmd_dev_chaos(args) -> int:
-    """`nomad dev chaos`: the scenario matrix is not carried."""
-    print(DEV_TOOLING_MISSING.format("chaos", "chaos/"), file=sys.stderr)
-    return 1
+    """`nomad dev chaos [-cell NAME]` — the scenario matrix +
+    fault-injection harness (nomad_tpu_torch/chaos/): every cell is a
+    seeded workload + fault schedule + invariant checks + flatness
+    verdict against a real in-process server, on the CUDA card unless
+    `-device cpu`; the run emits a CHAOS_rNN.json artifact and exits
+    non-zero when a cell fails. Local tooling: no agent connection
+    involved."""
+    from ..chaos.__main__ import main as chaos_main
+    argv = []
+    if args.cell:
+        argv += ["-cell", args.cell]
+    if args.full:
+        argv.append("-full")
+    if args.seed is not None:
+        argv += ["-seed", str(args.seed)]
+    if args.list_cells:
+        argv.append("-list")
+    if args.output:
+        argv += ["-output", args.output]
+    if args.no_artifact:
+        argv.append("-no-artifact")
+    if args.device:
+        argv += ["-device", args.device]
+    return chaos_main(argv)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -2327,7 +2357,7 @@ def build_parser() -> argparse.ArgumentParser:
     dlint.set_defaults(fn=cmd_dev_lint)
     dchaos = dev.add_parser("chaos",
                             help="scenario matrix + fault injection "
-                                 "(nomad_tpu/chaos)")
+                                 "(nomad_tpu_torch/chaos)")
     dchaos.add_argument("-cell", default="",
                         help="comma-separated cell names (default: "
                              "all quick cells)")
@@ -2340,6 +2370,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="artifact path (default CHAOS_rNN.json)")
     dchaos.add_argument("-no-artifact", action="store_true",
                         dest="no_artifact")
+    dchaos.add_argument("-device", default=None,
+                        help="where the cells' servers run: the CUDA "
+                             "card by default, cpu for the CPU")
     dchaos.set_defaults(fn=cmd_dev_chaos)
 
     acl = sub.add_parser("acl", help="ACL policies and tokens")

@@ -2957,6 +2957,14 @@ class Server:
         node = self.store.node_by_id(node_id)
         if node is None:
             raise KeyError(f"node {node_id} not registered")
+        from ..chaos import faults as chaos_faults
+        if chaos_faults.ACTIVE and \
+                chaos_faults.fire("server.heartbeat", node_id=node_id):
+            # chaos hook: the beat is dropped in transit — the client
+            # believes it renewed, but the TTL timer keeps running toward
+            # node-down and the stale-stats clock ages the last payload
+            # toward `stale_heartbeats`
+            return self.config.heartbeat_ttl_s
         if stats:
             with self._node_stats_l:
                 self._node_stats[node_id] = {

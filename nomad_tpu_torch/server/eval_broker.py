@@ -4,6 +4,12 @@ at-most-one-outstanding-eval-per-job invariant.
 Reference semantics: nomad/eval_broker.go — Enqueue:181, Dequeue:329,
 Ack:531, Nack:595, nack re-enqueue delays:644, delayed-eval heap:751,
 per-job blocked heaps, delivery limit -> failed queue.
+
+Its timer threads carry names (eval-broker-nack, -wait, -delay), and
+flush() — set_enabled(False), the server's shutdown and a revoked
+leadership — joins every timer it cancels, so no broker thread outlives
+a flush; the JAX package's copy leaves the cancelled timers to exit on
+their own.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ DEFAULT_SUBSEQUENT_NACK_DELAY_S = 20.0
 # shed enqueues park on the delayed heap this long before re-testing
 # the pressure gauge
 DEFAULT_ADMISSION_DELAY_S = 0.25
+# how long flush() waits for each timer it cancelled to exit
+TIMER_JOIN_S = 2.0
 
 
 class AdmissionOverloadError(Exception):
@@ -162,13 +170,13 @@ class EvalBroker:
 
     def flush(self) -> None:
         with self._l:
-            for unack in self._unack.values():
-                unack.nack_timer.cancel()
-            for timer in self._time_wait.values():
-                timer.cancel()
+            cancelled = [u.nack_timer for u in self._unack.values()]
+            cancelled += list(self._time_wait.values())
             if self._delay_timer:
-                self._delay_timer.cancel()
+                cancelled.append(self._delay_timer)
                 self._delay_timer = None
+            for timer in cancelled:
+                timer.cancel()
             self._ready.clear()
             self._unack.clear()
             self._evals.clear()
@@ -180,6 +188,12 @@ class EvalBroker:
             self._delayed_core_q.clear()
             self.stats = BrokerStats()
             self._l.notify_all()
+        # outside the lock: a timer that already fired is running its
+        # callback, which takes the lock
+        me = threading.current_thread()
+        for timer in cancelled:
+            if timer is not me:
+                timer.join(TIMER_JOIN_S)
 
     # -- enqueue -------------------------------------------------------
     def enqueue(self, ev: Evaluation) -> None:
@@ -256,6 +270,7 @@ class EvalBroker:
 
     def _process_waiting(self, ev: Evaluation) -> None:
         timer = threading.Timer(ev.wait_s, self._enqueue_waiting, args=(ev,))
+        timer.name = "eval-broker-wait"
         timer.daemon = True
         timer.start()
         self._time_wait[ev.id] = timer
@@ -271,6 +286,7 @@ class EvalBroker:
         if self._delay_timer:
             self._delay_timer.cancel()
         self._delay_timer = threading.Timer(delay, self._pop_delayed)
+        self._delay_timer.name = "eval-broker-delay"
         self._delay_timer.daemon = True
         self._delay_timer_at = time.time() + delay
         self._delay_timer.start()
@@ -395,6 +411,7 @@ class EvalBroker:
         token = generate_uuid()
         timer = threading.Timer(self.nack_timeout_s, self.nack,
                                 args=(ev.id, token))
+        timer.name = "eval-broker-nack"
         timer.daemon = True
         timer.start()
         self._unack[ev.id] = _Unack(ev, token, timer)

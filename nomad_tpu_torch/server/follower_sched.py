@@ -37,9 +37,10 @@ list as the fallback directory (`_probe_for_leader`).
 
 The whole plane degrades to a leader scheduling alone with
 `ServerConfig(follower_sched=False)` or `follower_max_remote=0` — no
-loops start, no verbs are called. The JAX package's copy also reads the
-NOMAD_TPU_FOLLOWER_SCHED switch and fires a chaos fault hook after a
-remote plan commits; this one does neither.
+loops start, no verbs are called. A remote plan that committed fires
+the chaos hook `worker.plan_committed` (chaos/faults.py) before its eval
+is acked, as a local one does. The JAX package's copy also reads the
+NOMAD_TPU_FOLLOWER_SCHED switch; this one does not.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
+from ..chaos import faults as chaos_faults
 from ..models import Evaluation, Plan, PlanResult
 from ..models.deployment import Deployment, DeploymentStatusUpdate
 from ..rpc.codec import RpcError
@@ -466,6 +468,15 @@ class RemoteEvalLane(EvalLane):
             raise RpcError(f"Plan.Submit failed: {res['error']}")
         result = decode_plan_result(res.get("result") or {})
         fs.incr("remote_plans")
+        if chaos_faults.ACTIVE:
+            # same hook, same point in the protocol as the local lane:
+            # the plan IS committed (leader-side) and the eval is not
+            # yet acked — a worker-kill fault here exercises redelivery
+            # across the remote path too
+            chaos_faults.fire(
+                "worker.plan_committed", eval_id=self.eval.id,
+                placements=sum(len(a) for a in
+                               plan.node_allocation.values()))
         metrics.measure_since("nomad.worker.submit_plan", t0)
         if result.refresh_index:
             # demoted (entirely or partially): the group's commit index

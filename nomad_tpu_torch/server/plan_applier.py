@@ -34,9 +34,11 @@ streak. Verify and commit report flight-recorder spans (applier and
 committer tracks) onto the trace each submitting worker stamped on its
 plan.
 
-The JAX package's copy also reads NOMAD_TPU_PLAN_GROUP, fires chaos
-fault hooks and sums every applier's groups in a process-wide
-GROUP_STATS; this one has none of these.
+Chaos hook (chaos/faults.py): `plan.group_commit` fires once a plan's or
+a group's raft entry is dispatched, before any submitter future
+resolves. The JAX package's copy also reads NOMAD_TPU_PLAN_GROUP and sums
+every applier's groups in a process-wide GROUP_STATS; this one does
+neither.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from .. import trace
+from ..chaos import faults as chaos_faults
 from ..models import (
     Allocation, AllocsFit, Evaluation, Plan, PlanResult,
     EVAL_STATUS_PENDING,
@@ -364,6 +367,12 @@ class PlanApplier:
         _c0 = _time.perf_counter() if stages.enabled else 0.0
         index, waiter = self.server.raft_apply_async(
             "plan_results", payload)
+        if chaos_faults.ACTIVE:
+            # same dispatched-not-yet-quorum window as the group path
+            # below — the failover cell must trip even when the queue
+            # was idle and the plan committed as a singleton
+            chaos_faults.fire("plan.group_commit", index=index,
+                              plans=1)
         result.alloc_index = index
         if result.refresh_index:
             # partial commit: the accepted slots land at THIS index,
@@ -456,6 +465,15 @@ class PlanApplier:
         _c0 = _time.perf_counter() if stages.enabled else 0.0
         index, waiter = self.server.raft_apply_async(
             "plan_group_results", dict(groups=payloads))
+        if chaos_faults.ACTIVE:
+            # chaos hook (the leader_failover_commit cell): the group's
+            # entry is in the leader's log and replicating, but no
+            # submitter future has resolved — the exact window where a
+            # dying leader must not double-commit (the entry either
+            # reaches quorum and survives into the new term, or it never
+            # happened; the workers' nack/redelivery covers both)
+            chaos_faults.fire("plan.group_commit", index=index,
+                              plans=len(payloads))
         for _pending, result, payload, _evs in entries:
             if payload is not None:
                 result.alloc_index = index

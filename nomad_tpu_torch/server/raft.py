@@ -35,6 +35,14 @@ the leader). SURVEY §7.2 step 7 blesses a "single-leader Raft-lite":
 Write forwarding: a non-leader server forwards (msg_type, payload)
 through Raft.Forward; the client-facing RPC layer additionally forwards
 whole write RPCs to the leader (rpc.go forward()).
+
+Chaos hooks (chaos/faults.py): `raft.election` within CHAOS_HOLD_S of an
+election deadline (a truthy verdict resets the deadline instead of
+campaigning, early enough that a healed victim hears the leader before
+its deadline)
+and `raft.replicate` before each AppendEntries round trip (a truthy
+verdict drops it on the leader's side; an armed wire latency sleeps
+inside the interposer).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from .persistence import decode_payload, encode_payload
+from ..chaos import faults as chaos_faults
 from ..rpc.codec import RpcRefused
 from ..utils.locks import make_condition, make_lock, make_rlock
 
@@ -60,6 +69,9 @@ LEADER = "leader"
 HEARTBEAT_S = 0.1
 ELECTION_MIN_S = 0.5
 ELECTION_MAX_S = 1.0
+# how long before its election deadline a follower asks the raft.election
+# chaos hook: more than a heartbeat interval and a tick
+CHAOS_HOLD_S = 2 * HEARTBEAT_S
 MAX_BATCH = 256
 
 
@@ -473,6 +485,19 @@ class RaftNode:
                     # follower loop is blocked on the same RPC)
                     self._election_deadline = self._new_deadline()
                     continue
+            if role != LEADER and chaos_faults.ACTIVE and \
+                    time.monotonic() > self._election_deadline - CHAOS_HOLD_S \
+                    and chaos_faults.fire("raft.election",
+                                          addr=self.self_addr):
+                # chaos hook (the follower_fence cell): a
+                # replication-lagged victim must STAY a lagging
+                # follower — without this its missed heartbeats
+                # would trigger a campaign, bump the term, and
+                # depose the very leader the cell is measuring. Asked
+                # CHAOS_HOLD_S before the deadline, so that once the lag
+                # heals the leader's first heartbeat lands before it
+                self._election_deadline = self._new_deadline()
+                continue
             if role != LEADER and \
                     time.monotonic() > self._election_deadline:
                 self._run_election()
@@ -552,6 +577,17 @@ class RaftNode:
     def _replicate_peer(self, peer: str) -> bool:
         """One AppendEntries (or snapshot) round trip. Returns True if
         the peer still has a backlog and the caller should continue."""
+        if chaos_faults.ACTIVE and chaos_faults.fire("raft.replicate",
+                                                     target=peer):
+            # chaos hook: an armed replication-lag fault drops this
+            # round trip on the LEADER side — the victim's log (and
+            # store) falls behind while its process stays healthy,
+            # which is exactly the state the follower snapshot fence
+            # exists to handle. Interposing the victim's AppendEntries
+            # handler instead would either hot-loop the pump (rejection
+            # => immediate resend) or corrupt the leader's match-index
+            # accounting (fake success)
+            return False
         with self._lock:
             if self.role != LEADER:
                 return False

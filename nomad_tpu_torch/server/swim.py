@@ -14,6 +14,10 @@ Simplifications vs full SWIM, at cluster sizes the reference targets
 (Server.ReportFailed) instead of gossip piggybacking, and refutation
 is implicit — a reachable target answers the leader's verification
 probe and the report is dropped.
+
+Chaos hook (chaos/faults.py): `swim.probe` before every direct and
+indirect probe; a truthy verdict fails it, so a partitioned victim is
+unreachable while its process stays up.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from ..chaos import faults as chaos_faults
 from ..rpc.codec import RpcRefused
 
 LOG = logging.getLogger("nomad_tpu.swim")
@@ -87,6 +92,13 @@ class SwimDetector:
                 if self.states.get(m, {}).get("state") != STATE_FAILED]
 
     def _ping(self, addr: str) -> bool:
+        if chaos_faults.ACTIVE and \
+                chaos_faults.fire("swim.probe", target=addr,
+                                  via=""):
+            # chaos hook: an installed partition fault fails probes to
+            # its victim set — the network is down, the victim process
+            # is not
+            return False
         from ..rpc.client import RpcClient
         try:
             c = RpcClient(addr, dial_timeout_s=self.probe_timeout_s)
@@ -100,6 +112,11 @@ class SwimDetector:
             return False
 
     def _indirect_ping(self, via: str, target: str) -> bool:
+        if chaos_faults.ACTIVE and \
+                chaos_faults.fire("swim.probe", target=target, via=via):
+            # a partitioned victim is unreachable via relays too: the
+            # ping-req's last hop crosses the same cut
+            return False
         from ..rpc.client import RpcClient
         try:
             c = RpcClient(via, dial_timeout_s=self.probe_timeout_s)

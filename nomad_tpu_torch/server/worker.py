@@ -43,9 +43,12 @@ lane; the plan carries the trace to the applier. Each acked eval's host
 latency reaches the server's governor, whose backpressure shrinks the
 drain width to one.
 
-The JAX package's copy also fires chaos fault hooks and reads the
-NOMAD_TPU_EVAL_BATCH and NOMAD_TPU_MICROBATCH switches; this one has
-neither.
+Chaos hook (chaos/faults.py): `worker.plan_committed` fires in
+EvalLane.submit_plan after the plan committed and before the eval is
+acked; an injected WorkerKilled is logged as such and nacked.
+
+The JAX package's copy also reads the NOMAD_TPU_EVAL_BATCH and
+NOMAD_TPU_MICROBATCH switches; this one does not.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from collections import deque
 from typing import List, Optional
 
 from .. import trace
+from ..chaos import faults as chaos_faults
 from ..models import Evaluation, JOB_TYPE_CORE, Plan, PlanResult
 from ..rpc.codec import RpcError, RpcRefused
 from ..scheduler import new_scheduler
@@ -630,6 +634,16 @@ class EvalLane:
         # after its eval re-ran without it; the applier resolves every
         # future it takes, with a result or the error that refused it
         result: PlanResult = future.result()
+        if chaos_faults.ACTIVE:
+            # chaos hook: the plan IS committed at this point but the
+            # eval is not acked — an armed worker-kill fault raises here,
+            # modeling a scheduler worker dying mid-commit. The broker's
+            # nack path redelivers the eval and the retry's reconcile
+            # must see these placements
+            chaos_faults.fire(
+                "worker.plan_committed", eval_id=self.eval.id,
+                placements=sum(len(a) for a in
+                               plan.node_allocation.values()))
         metrics.measure_since("nomad.worker.submit_plan", t0)
         # if some placements were rejected, wait for the refresh index so
         # the next attempt sees why (worker.go:318-340)
@@ -950,7 +964,12 @@ class Worker:
             # dequeue + host phase (double-buffered)
             self._finish_q.put(_finish)
         except Exception as e:
-            if isinstance(e, TimeoutError):
+            if isinstance(e, chaos_faults.WorkerKilled):
+                # an INJECTED kill (chaos cell), not a scheduler bug:
+                # the nack below is exactly the redelivery the cell's
+                # no-double-commit invariant exercises
+                LOG.warning("worker %d: %s", self.id, e)
+            elif isinstance(e, TimeoutError):
                 # snapshot fence expired: the store never reached the
                 # eval's modify index. NACK — never drop — so the eval
                 # redelivers

@@ -13,7 +13,9 @@
   `/v1/operator/governor`, `/v1/operator/telemetry` and
   `/v1/operator/flatness` answer from them (test_trace_route_answers_404
   and test_governor_telemetry_flatness_are_off keep their names from when
-  the port had none); `dev lint` / `dev chaos` exit 1;
+  the port had none); `dev lint` exits 1 (analysis/ is not carried);
+  `dev chaos -list` lists the nine cells and `dev chaos -cell
+  batch_backfill -device cpu -output f` runs one and writes its artifact;
 - the environment rule of tests/test_torch_boundary.py accepts cli/
   main.py's three inputs and refuses any other read, and those inputs
   anywhere else;
@@ -25,6 +27,7 @@
 
 import contextlib
 import io
+import json
 import os
 import signal
 import subprocess
@@ -215,10 +218,39 @@ def test_trace_route_answers_404(agent):
     assert rc == 0 and "Traces" in out
 
 
-@pytest.mark.parametrize("tool", ["lint", "chaos"])
+@pytest.mark.parametrize("tool", ["lint"])
 def test_dev_tooling_exits_1(tool):
+    """`dev lint` waits for analysis/ (ROADMAP queue 1 item 3)."""
     rc, _out, err = _run("dev", tool)
-    assert rc == 1 and "item 6" in err
+    assert rc == 1 and "item 3" in err
+
+
+def test_dev_chaos_lists_the_nine_cells():
+    rc, out, _err = _run("dev", "chaos", "-list")
+    assert rc == 0
+    rows = [line.split()[0:2] for line in out.splitlines() if line]
+    assert [r[0] for r in rows] == [
+        "system_fanout", "spread_antiaffinity", "batch_backfill",
+        "drain_storm", "client_failure_burst", "blocked_herd",
+        "swim_partition", "follower_fence", "leader_failover_commit"]
+    assert [r[1] for r in rows] == ["[quick", ] * 6 + ["[cluster]"] * 3
+
+
+def test_dev_chaos_runs_a_cell_on_the_cpu(tmp_path):
+    """`dev chaos -cell batch_backfill -device cpu -output f` runs the
+    cell against a port Server on the CPU, exits 0 and writes the
+    artifact."""
+    path = tmp_path / "chaos.json"
+    rc, out, _err = _run("dev", "chaos", "-cell", "batch_backfill",
+                         "-device", "cpu", "-output", str(path))
+    assert rc == 0, out
+    assert "1/1 cells passed" in out and f"artifact: {path}" in out
+    result = json.loads(path.read_text())
+    assert result["schema"] == "nomad-tpu/chaos/1"
+    assert result["race"] == "off"
+    assert [c["name"] for c in result["cells"]] == ["batch_backfill"]
+    assert result["cells"][0]["pass"] and result["cells"][0][
+        "workers_killed"] == 1
 
 
 def test_governor_telemetry_flatness_are_off(agent):

@@ -1,8 +1,9 @@
 """The reference's CLI tranche tests (tests/test_cli_tranche.py) against
 the port's cli/ and api/, the server on the CPU, their assertions
 unchanged, test_node_drain_monitor with the port's Client.
-test_operator_debug_archive's bundle carries the port's telemetry ring
-(no chaos artifact: the scenario matrix is not carried).
+test_operator_debug_archive's bundle carries the port's telemetry ring,
+and the newest chaos artifact of the working directory as chaos.json
+(the test runs in a directory holding a CHAOS_r01.json).
 
 The reference's docstring:
 
@@ -179,11 +180,18 @@ def test_node_drain_monitor(tmp_path):
         srv.shutdown()
 
 
-def test_operator_debug_archive(cluster, tmp_path):
+def test_operator_debug_archive(cluster, tmp_path, monkeypatch):
     """operator debug bundles cluster state + interval metrics + pprof
-    into a tar.gz (command/operator_debug.go)."""
+    into a tar.gz (command/operator_debug.go), and the working
+    directory's newest CHAOS_rNN.json as chaos.json."""
     import tarfile
     _s, addr = cluster
+    workdir = tmp_path / "work"
+    workdir.mkdir()
+    artifact = {"schema": "nomad-tpu/chaos/1", "cells": [],
+                "summary": {"cells": 0, "passed": 0}}
+    (workdir / "CHAOS_r01.json").write_text(json.dumps(artifact))
+    monkeypatch.chdir(workdir)
     # the fixture's idle num_schedulers=0 server may not have emitted
     # any metric yet (the stats ticker runs on a 1s cadence): seed one
     # so the bundle's metrics.prom assertion below is deterministic
@@ -215,3 +223,5 @@ def test_operator_debug_archive(cluster, tmp_path):
         assert tel.get("slots", 0) > 0 and "series" in tel
         prom = tar.extractfile(f"{base}/metrics.prom").read().decode()
         assert "# TYPE" in prom
+        assert json.load(tar.extractfile(f"{base}/chaos.json")) == \
+            artifact

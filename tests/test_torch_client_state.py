@@ -13,6 +13,7 @@ import time
 import pytest
 
 import test_torch_select  # noqa: F401  (torch's thread cap)
+from torch_client_helpers import reap_detached
 
 from nomad_tpu_torch.server import Server as _Server
 from nomad_tpu_torch import mock
@@ -190,6 +191,7 @@ def test_client_restart_reattaches_running_tasks(tmp_path):
         finally:
             c2.shutdown()
     finally:
+        reap_detached(c1)
         server.shutdown()
 
 
@@ -223,6 +225,7 @@ def test_client_restart_completes_short_task(tmp_path):
         finally:
             c2.shutdown()
     finally:
+        reap_detached(c1)
         server.shutdown()
 
 

@@ -199,10 +199,21 @@ class TestGovernor:
 
 # -- eval broker: admission-controlled shed/requeue -------------------
 
+@pytest.fixture
+def broker():
+    """An enabled EvalBroker, disabled at teardown: a broker left with a
+    parked eval under a pressure gauge that never clears re-arms its
+    admission timer (a new thread) every admission window for the rest
+    of the process, and later tests that count threads see them."""
+    b = EvalBroker()
+    b.set_enabled(True)
+    yield b
+    b.set_enabled(False)
+
+
 class TestBrokerBackpressure:
-    def test_shed_defers_then_admits_on_clear(self):
-        b = EvalBroker()
-        b.set_enabled(True)
+    def test_shed_defers_then_admits_on_clear(self, broker):
+        b = broker
         b.admission_delay_s = 0.05
         pressured = {"on": True}
         b.pressure_fn = lambda: pressured["on"]
@@ -220,9 +231,8 @@ class TestBrokerBackpressure:
         assert got is not None and got.id == ev.id
         b.ack(ev.id, token)
 
-    def test_shed_reparks_while_pressure_holds(self):
-        b = EvalBroker()
-        b.set_enabled(True)
+    def test_shed_reparks_while_pressure_holds(self, broker):
+        b = broker
         b.admission_delay_s = 0.02
         b.pressure_fn = lambda: True
         b.enqueue(_eval())
@@ -234,12 +244,11 @@ class TestBrokerBackpressure:
         # counter
         assert b.stats.total_shed == 1
 
-    def test_delayed_core_eval_admits_under_pressure(self):
+    def test_delayed_core_eval_admits_under_pressure(self, broker):
         # a wait_until core eval (delayed GC follow-up) must admit on
         # schedule even while backpressure parks everything else
         from nomad_tpu_torch.models import JOB_TYPE_CORE
-        b = EvalBroker()
-        b.set_enabled(True)
+        b = broker
         b.admission_delay_s = 0.02
         b.pressure_fn = lambda: True
         b.enqueue(_eval())      # sheds
@@ -251,19 +260,17 @@ class TestBrokerBackpressure:
         # the shed service eval is still parked
         assert b.stats.total_waiting == 1
 
-    def test_core_evals_never_shed(self):
+    def test_core_evals_never_shed(self, broker):
         from nomad_tpu_torch.models import JOB_TYPE_CORE
-        b = EvalBroker()
-        b.set_enabled(True)
+        b = broker
         b.pressure_fn = lambda: True
         b.enqueue(_eval(job_id="eval-gc", typ=JOB_TYPE_CORE))
         got, token = b.dequeue([JOB_TYPE_CORE], timeout_s=1.0)
         assert got is not None
         b.ack(got.id, token)
 
-    def test_no_pressure_fn_means_no_shed(self):
-        b = EvalBroker()
-        b.set_enabled(True)
+    def test_no_pressure_fn_means_no_shed(self, broker):
+        b = broker
         b.enqueue(_eval())
         assert b.stats.total_ready == 1
         assert b.stats.total_shed == 0

@@ -19,9 +19,25 @@ def _eval(job_id="job1", prio=50, typ="service", **kw):
     return Evaluation(job_id=job_id, priority=prio, type=typ, **kw)
 
 
+@pytest.fixture
+def make_broker():
+    """EvalBroker(...) for one test, disabled at its teardown: an eval
+    left unacked would otherwise fire its nack timer 60 s later and
+    start new timer threads under whatever test runs then."""
+    made = []
+
+    def make(**kw):
+        b = EvalBroker(**kw)
+        made.append(b)
+        return b
+    yield make
+    for b in made:
+        b.set_enabled(False)
+
+
 class TestEvalBroker:
-    def test_enqueue_dequeue_ack(self):
-        b = EvalBroker()
+    def test_enqueue_dequeue_ack(self, make_broker):
+        b = make_broker()
         b.set_enabled(True)
         ev = _eval()
         b.enqueue(ev)
@@ -33,8 +49,8 @@ class TestEvalBroker:
         assert b.outstanding(ev.id) is None
         assert b.stats.total_ready == 0
 
-    def test_priority_order(self):
-        b = EvalBroker()
+    def test_priority_order(self, make_broker):
+        b = make_broker()
         b.set_enabled(True)
         low = _eval(job_id="a", prio=10)
         high = _eval(job_id="b", prio=90)
@@ -43,8 +59,8 @@ class TestEvalBroker:
         got, t1 = b.dequeue(["service"], timeout_s=1)
         assert got.id == high.id
 
-    def test_one_outstanding_per_job(self):
-        b = EvalBroker()
+    def test_one_outstanding_per_job(self, make_broker):
+        b = make_broker()
         b.set_enabled(True)
         e1, e2 = _eval(job_id="j"), _eval(job_id="j")
         b.enqueue(e1)
@@ -59,9 +75,9 @@ class TestEvalBroker:
         got2, t2 = b.dequeue(["service"], timeout_s=1)
         assert got2.id == e2.id
 
-    def test_nack_requeues_with_delay_then_failed_queue(self):
-        b = EvalBroker(delivery_limit=2, initial_nack_delay_s=0.01,
-                       subsequent_nack_delay_s=0.01)
+    def test_nack_requeues_with_delay_then_failed_queue(self, make_broker):
+        b = make_broker(delivery_limit=2, initial_nack_delay_s=0.01,
+                        subsequent_nack_delay_s=0.01)
         b.set_enabled(True)
         ev = _eval()
         b.enqueue(ev)
@@ -74,8 +90,8 @@ class TestEvalBroker:
         got, token = b.dequeue([FAILED_QUEUE], timeout_s=1)
         assert got.id == ev.id
 
-    def test_wait_until_delayed(self):
-        b = EvalBroker()
+    def test_wait_until_delayed(self, make_broker):
+        b = make_broker()
         b.set_enabled(True)
         ev = _eval()
         ev.wait_until = time.time() + 0.15
@@ -85,13 +101,13 @@ class TestEvalBroker:
         got, _ = b.dequeue(["service"], timeout_s=1.0)
         assert got.id == ev.id
 
-    def test_register_admission_escalation(self):
+    def test_register_admission_escalation(self, make_broker):
         """check_register_admission: silent below the delayed-heap
         watermark (and when disabled), AdmissionOverloadError with a
         depth-scaled Retry-After at/over it."""
         from nomad_tpu_torch.server.eval_broker import AdmissionOverloadError
 
-        b = EvalBroker()
+        b = make_broker()
         b.set_enabled(True)
         b.check_register_admission()        # high=0: disabled, no-op
         b.delayed_depth_high = 3
@@ -118,8 +134,8 @@ class TestEvalBroker:
         assert e2.value.retry_after_s >= e.value.retry_after_s
         b.flush()
 
-    def test_scheduler_type_routing(self):
-        b = EvalBroker()
+    def test_scheduler_type_routing(self, make_broker):
+        b = make_broker()
         b.set_enabled(True)
         b.enqueue(_eval(job_id="a", typ="batch"))
         none, _ = b.dequeue(["service"], timeout_s=0.05)

@@ -19,6 +19,7 @@ import time
 import pytest
 
 import test_torch_select  # noqa: F401  (torch's thread cap)
+from torch_client_helpers import reap_detached
 
 from nomad_tpu_torch.server import Server as _Server
 from nomad_tpu_torch import mock
@@ -289,6 +290,7 @@ def test_lease_survives_client_restart(tmp_path):
         finally:
             c2.shutdown()
     finally:
+        reap_detached(c1)
         server.shutdown()
 
 
